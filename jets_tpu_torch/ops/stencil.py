@@ -1,0 +1,106 @@
+"""Laplacian stencils (counterpart of the Laplacian half of
+``jets_tpu/ops/stencil.py``).
+
+:func:`laplacian_nd` keeps the JAX package's floating-point add tree, so on
+the same inputs it is bitwise equal to the eager (non-jitted)
+``jets_tpu.ops.stencil.laplacian_nd``; the hand-written 3-D CUDA kernel
+(``ops/cuda_solver.laplacian3d``) keeps it too. ``stencil_operator`` and
+``blur2d_operator`` are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from ..core.jet import Jet, LinearOperator
+from ..core.spaces import Space
+
+__all__ = ["laplacian_nd", "laplacian_operator"]
+
+# Central finite-difference coefficients of the second derivative,
+# (c0, (c1, c2, ...)): d²u/dx² ≈ (c0*u[i] + Σ_s c_s*(u[i-s]+u[i+s])) / h².
+_D2_COEFFS = {
+    2: (-2.0, (1.0,)),
+    4: (-5.0 / 2.0, (4.0 / 3.0, -1.0 / 12.0)),
+    8: (
+        -205.0 / 72.0,
+        (8.0 / 5.0, -1.0 / 5.0, 8.0 / 315.0, -1.0 / 560.0),
+    ),
+}
+
+
+def laplacian_nd(x: torch.Tensor, order: int = 2) -> torch.Tensor:
+    """n-D Laplacian with a zero boundary, by shifted slices of a
+    zero-padded tensor. Self-adjoint at every order (symmetric taps, zero
+    boundary). The summation order is that of the JAX package, including
+    the two-add association ``(out + lo) + hi`` for unit coefficients."""
+    nd = x.ndim
+    c0, cs = _D2_COEFFS[order]
+    halfw = len(cs)
+    xp = F.pad(x, (halfw,) * (2 * nd))
+    out = (c0 * nd) * x
+    for ax in range(nd):
+        for s, c in enumerate(cs, start=1):
+            lo = tuple(
+                slice(halfw - s, -(halfw + s))
+                if i == ax else slice(halfw, -halfw)
+                for i in range(nd)
+            )
+            hi = tuple(
+                slice(halfw + s, (s - halfw) or None)
+                if i == ax else slice(halfw, -halfw)
+                for i in range(nd)
+            )
+            if c == 1.0:
+                out = out + xp[lo] + xp[hi]
+            else:
+                out = out + c * (xp[lo] + xp[hi])
+    return out
+
+
+def _laplacian_df(dm, m0, state):
+    return laplacian_nd(dm, order=state["order"])
+
+
+def _laplacian_kernel_df(dm, m0, state):
+    from .cuda_solver import laplacian3d
+
+    return laplacian3d(dm)
+
+
+def laplacian_operator(
+    shape: Sequence[int],
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str = "cpu",
+    *,
+    impl: str = "torch",
+    order: int = 2,
+) -> LinearOperator:
+    """Self-adjoint n-D Laplacian operator with a zero boundary.
+
+    ``impl="torch"`` (default): :func:`laplacian_nd` at ``order`` 2, 4 or 8.
+    ``impl="kernel"``: the hand-written CUDA 7-point kernel
+    (``cuda_solver.laplacian3d``, K3), 3-D float32 order 2 only, bitwise
+    equal to :func:`laplacian_nd`; a CPU tensor takes its plain version.
+    On 2-D grids ``impl="kernel"`` routes to the torch path, as the JAX
+    package routes ``impl="pallas"``.
+    """
+    sp = Space(shape, dtype, device)
+    if order not in _D2_COEFFS:
+        raise ValueError(f"order must be one of {sorted(_D2_COEFFS)}")
+    if impl not in ("torch", "kernel"):
+        raise ValueError(f"impl must be 'torch' or 'kernel', got {impl!r}")
+    if impl == "kernel" and len(shape) == 2:
+        impl = "torch"
+    if impl == "kernel":
+        if len(shape) != 3 or dtype != torch.float32:
+            raise ValueError("kernel laplacian supports 3-D float32 grids")
+        if order != 2:
+            raise ValueError("kernel laplacian implements order=2 only")
+        j = Jet(dom=sp, rng=sp, df=_laplacian_kernel_df, dft="self")
+    else:
+        j = Jet(dom=sp, rng=sp, df=_laplacian_df, dft="self",
+                state={"order": order})
+    return LinearOperator(j)

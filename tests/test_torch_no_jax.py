@@ -1,0 +1,56 @@
+"""The port stands alone: it never imports JAX, and importing it (and
+solving on the CPU) needs neither nvcc nor triton nor a built kernel
+library."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "jets_tpu_torch"
+
+_SCRIPT = r"""
+import sys
+import torch
+import jets_tpu_torch as tt
+from jets_tpu_torch import kernels
+from jets_tpu_torch.models import make_seismic_problem
+from jets_tpu_torch.solvers import lsqr
+
+A, m, d = make_seismic_problem((8, 8, 16), 2, 8, seed=0, noise=0.05)
+res = lsqr(A, d, maxiter=5, tol=0.0)
+assert res.iterations == 5 and bool(torch.isfinite(res.history).all())
+g = torch.Generator().manual_seed(0)
+lhs, rhs = tt.dot_product_test(A, A.dom.randn(g), A.rng.randn(g))
+assert abs(float(lhs) - float(rhs)) <= 1e-4 * abs(float(rhs))
+assert kernels._lib is None, "the CPU path loaded the kernel library"
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "triton"))
+assert not bad, bad
+print("OK")
+"""
+
+
+def test_port_imports_no_jax_and_needs_no_nvcc():
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CUDA_HOME", "CUDA_PATH", "PYTHONPATH")}
+    env["PATH"] = os.pathsep.join(p for p in ("/usr/bin", "/bin")
+                                  if os.path.isdir(p))
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+def test_no_module_of_the_port_names_jax_and_the_kernels_ship():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|jets_tpu)(\s|\.|$)", re.M)
+    offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
+                 if pat.search(p.read_text())]
+    assert not offenders, offenders
+    src = PKG / "csrc" / "solver_kernels.cu"
+    assert src.is_file()
+    text = src.read_text()
+    for entry in ("jt_xw_update", "jt_laplacian3d", "jt_lap3d_axpy_norm2"):
+        assert f"int {entry}(" in text
+    assert "triton" not in (PKG / "kernels.py").read_text()
