@@ -10,7 +10,14 @@ through the package's own entry points (``make_seismic_problem``,
 ``lsqr``) — at the repository's full sizes: the 3-D flagship (256³,
 16 shots, 4096 receivers) with and without the fused adjoint epilogue,
 the same problem against the CPU, and the 2-D headline (2048², 64 shots,
-4096 receivers). Every phase asserts; a failure raises and exits non-zero.
+4096 receivers) — and the second path, the 3-D FWI gradient
+(``wave_propagator``, ``born_operator``, ``multishot_wave_operator``) at
+the sizes of ``bench.py``'s wave stages: 256³ f32, order 2, 128
+receivers, a single-shot forward and int8-stored gradient at nt=220, a
+Born dot-product gate, and 16 shots in ``shot_map="map"`` mode at nt=120.
+Each path runs with the kernels' launch counts set to 0 just before it
+and read just after. Every phase asserts; a failure raises and exits
+non-zero.
 The last lines are a JSON object of the kernels (route, source, launches
 on the main path, error against the plain version, times), the card's
 name and power limit from ``nvidia-smi``, and the result line
@@ -28,6 +35,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 
@@ -76,6 +84,7 @@ def main() -> int:
         seismic_operator_from_arrays,
     )
     from jets_tpu_torch.ops import cuda_solver as cs
+    from jets_tpu_torch.ops import cuda_wave as cw
     from jets_tpu_torch.solvers import lsqr
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -88,15 +97,28 @@ def main() -> int:
 
     # ---- phase 0: environment and kernel build -------------------------------
     t0 = time.perf_counter()
-    kernels.load_library()
+    kernels.build_all()  # one nvcc per source, started together
+    for name in kernels.SOURCES:
+        kernels.load_library(name)
     build_s = time.perf_counter() - t0
-    regs = re.findall(r"Used (\d+) registers", kernels.build_log or "")
-    spills = re.findall(r"(\d+) bytes spill stores", kernels.build_log or "")
     log(0, f"python {sys.version.split()[0]} torch {torch.__version__} "
            f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
            f"count {torch.cuda.device_count()} | nvidia-smi: {smi} | "
-           f"kernel build+load {build_s:.2f} s (nvcc {kernels.build_seconds}) "
-           f"registers {regs} spill stores {spills}")
+           f"kernel build+load {build_s:.2f} s (nvcc {kernels.build_seconds})")
+    for name, text in kernels.build_log.items():
+        # ptxas -v: each "Compiling entry function" line is followed by its
+        # stack/spill line and its register line
+        fn = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                log(0, f"{name}: {fn} registers {m.group(1)}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and fn:
+                log(0, f"{name}: {fn} spill stores {m.group(1)} loads {m.group(2)}")
 
     # ---- phase 1: each kernel against its plain version ----------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -138,6 +160,54 @@ def main() -> int:
            f"K3 bitwise at 256^3; K2 vh bitwise, n2 rel err {n2_rel:.3e} vs f64 "
            f"(<= 1e-5); max_abs_err {err}")
     del x, w, vh, xp, wp, xk, wk, ro, rw, lap_k, lap_p, vh_k, vh_p
+
+    # K4 and K5 at the wave path's shape, every order and history type,
+    # bitwise against the plain versions, and in place
+    wshape = (256, 256, 256)
+    D, H, W = wshape
+    up, u, a1, a2, g2 = (rnd(wshape) for _ in range(5))
+    c2 = 0.3 * torch.rand(wshape, generator=gen, device=dev)
+    spz, spy, spx = (torch.linspace(lo, 1.0, n, device=dev)
+                     for lo, n in ((0.9, D), (0.8, H), (0.7, W)))
+    s_t, amp = torch.tensor(0.37, device=dev), torch.tensor(2.5e-7, device=dev)
+    src_flat = (128 * H + 128) * W + 128
+    err["fused_leapfrog_step"] = err["fused_adjoint_step"] = 0.0
+    for order in (2, 4, 8):
+        ref = cw.fused_leapfrog_step_torch(up, u, c2, spz, spy, spx, s_t, src_flat, amp,
+                                           order=order)
+        upk = up.clone()
+        out = cw.fused_leapfrog_step(upk, u, c2, spz, spy, spx, s_t, src_flat, amp,
+                                     order=order, out=upk)
+        torch.cuda.synchronize()
+        assert out.data_ptr() == upk.data_ptr(), "K4 not in place"
+        assert torch.equal(out, ref), f"K4 not bitwise at order {order}"
+        err["fused_leapfrog_step"] = max(err["fused_leapfrog_step"],
+                                         float((out - ref).abs().max()))
+    smax = u.abs().amax()
+    hists = {
+        "f32": (u, torch.tensor(1.0, device=dev)),
+        "bf16": (u.to(torch.bfloat16), torch.tensor(1.0, device=dev)),
+        "int8": (torch.round(u * (torch.full_like(smax, 127.0) / smax)).to(torch.int8),
+                 smax / torch.full_like(smax, 127.0)),
+    }
+    for store, (q, sc) in hists.items():
+        for order in (2, 4, 8):
+            core_r, g_r = cw.fused_adjoint_step_torch(a1, a2, g2, c2, q, sc, spz, spy,
+                                                      spx, order=order)
+            a2k, g2k = a2.clone(), g2.clone()
+            core, gk = cw.fused_adjoint_step(a1, a2k, g2k, c2, q, sc, spz, spy, spx,
+                                             order=order, inplace=True)
+            torch.cuda.synchronize()
+            assert core.data_ptr() == a2k.data_ptr() and gk.data_ptr() == g2k.data_ptr(), \
+                "K5 not in place"
+            assert torch.equal(core, core_r) and torch.equal(gk, g_r), \
+                f"K5 not bitwise ({store}, order {order})"
+            err["fused_adjoint_step"] = max(err["fused_adjoint_step"],
+                                            float((core - core_r).abs().max()),
+                                            float((gk - g_r).abs().max()))
+    log(1, f"K4 bitwise and in place at 256^3, orders 2/4/8; K5 bitwise and in "
+           f"place at 256^3 with f32/bf16/int8 histories, orders 2/4/8")
+    del a2k, g2k, core, gk, core_r, g_r, ref, upk, out
 
     # ---- phase 2: the 3-D flagship at full width -----------------------------
     grid3, nshots3, nrecv = (256, 256, 256), 16, 4096
@@ -251,17 +321,242 @@ def main() -> int:
            + ", ".join(f"{k} {1e3 * a:.1f} vs {1e3 * b:.1f} us" for k, (a, b) in kt.items())
            + f"; peak device memory {peak_gib:.2f} GiB [{smi}]")
 
-    src = "jets_tpu_torch/csrc/solver_kernels.cu"
+    del A, A_hook, A2, d, d2, x, w, vh, z, v
+
+    # ---- phases 8-12: the FWI gradient path, launches counted ------------------
+    from jets_tpu_torch.ops.wave import (born_operator, multishot_wave_operator,
+                                         wave_propagator)
+
+    # 1500 m/s plus four smooth Gaussian anomalies drawn from a numpy seed
+    rs = np.random.default_rng(0)
+    axis = torch.arange(256, dtype=torch.float32, device=dev)
+    c_true = torch.full(wshape, 1500.0, device=dev)
+    for _ in range(4):
+        (cz, cy, cx), a, sig = rs.uniform(48, 208, 3), rs.uniform(-80, 80), rs.uniform(12, 32)
+        gz, gy, gx = (torch.exp(-0.5 * ((axis - float(o)) / sig) ** 2) for o in (cz, cy, cx))
+        c_true += a * (gz[:, None, None] * gy[None, :, None] * gx[None, None, :])
+    c_bg = torch.full(wshape, 1500.0, device=dev)
+    rcv = [int(np.ravel_multi_index((128, 128, x), wshape)) for x in range(0, 256, 2)]
+    src0 = int(np.ravel_multi_index((128, 128, 128), wshape))
+    wkw = dict(dt=5e-4, dx=10.0, freq=15.0, rcv_idx=rcv, sponge_width=12, device=dev)
+
+    def delta(before):
+        now = cw.launch_counts()
+        return tuple(now[k] - before[k] for k in ("fused_leapfrog_step",
+                                                   "fused_adjoint_step"))
+
+    def live(t, name):
+        assert bool(torch.isfinite(t).all()), f"{name} is not finite"
+        assert float(t.abs().max()) > 0.0, f"{name} is identically zero"
+
+    def agree(a, b, name, tol):
+        r = rel(a, b)
+        assert r <= tol, f"{name}: rel {r} > {tol}"
+        return f"{name} rel {r:.3e} (<= {tol:g}, bitwise: {bool(torch.equal(a, b))})"
+
+    cw.reset_launch_counts()
+    F = wave_propagator(wshape, nt=220, src_idx=src0, **wkw)
+    Fp = wave_propagator(wshape, nt=220, src_idx=src0, fused=False, **wkw)
+    b = cw.launch_counts()
+    d_k = F(c_true)
+    assert delta(b) == (220, 0), delta(b)
+    d_p = Fp(c_true)
+    assert delta(b) == (220, 0), "the plain route launched a kernel"
+    assert d_k.shape == (220, 128)
+    live(d_k, "forward traces")
+    log(8, "forward 256^3, nt=220, 128 rcv: K4 launched 220 times; kernel vs plain "
+           "route " + agree(d_k, d_p, "traces", 1e-6))
+
+    resid = d_k - Fp(c_bg)  # a physical residual
+    live(resid, "residual")
+    Fg = wave_propagator(wshape, nt=220, src_idx=src0, store_adjoint="int8", **wkw)
+    Fgp = wave_propagator(wshape, nt=220, src_idx=src0, store_adjoint="int8",
+                          fused=False, **wkw)
+    b = cw.launch_counts()
+    g_k = Fg.linearize(c_true).H(resid)
+    assert delta(b) == (220, 220), delta(b)
+    g_p = Fgp.linearize(c_true).H(resid)
+    assert delta(b) == (220, 220), "the plain route launched a kernel"
+    live(g_k, "int8 gradient")
+    # the sweeps are the same trees; the receiver injection is an in-place
+    # index_add_ on the kernel route and a dense add on the plain one, which
+    # differ only in the sign of a zero
+    log(9, "int8-stored gradient 256^3, nt=220: K4 220 + K5 220 launches; kernel "
+           "vs plain route " + agree(g_k, g_p, "gradient", 1e-6))
+    del d_p, g_p, Fp, Fgp
+
+    F20 = wave_propagator(wshape, nt=20, src_idx=src0, store_adjoint="int8", **wkw)
+    F20c = wave_propagator(wshape, nt=20, src_idx=src0, store_adjoint="int8",
+                           **{**wkw, "device": "cpu"})
+    c_cpu = c_true.cpu()
+    r20 = torch.from_numpy(rs.standard_normal((20, 128)).astype(np.float32))
+    b = cw.launch_counts()
+    t0 = time.perf_counter()
+    d20c, g20c = F20c(c_cpu), F20c.linearize(c_cpu).H(r20)
+    t_cpu = time.perf_counter() - t0
+    assert delta(b) == (0, 0), "a CPU run launched a kernel"
+    d20, g20 = F20(c_true), F20.linearize(c_true).H(r20.to(dev))
+    assert delta(b) == (40, 20), delta(b)
+    live(d20c, "CPU traces")
+    live(g20c, "CPU gradient")
+    log(10, f"card vs CPU at 256^3, nt=20 (CPU {t_cpu:.1f} s): "
+            + agree(d20.cpu(), d20c, "traces", 1e-5) + "; "
+            + agree(g20.cpu(), g20c, "int8 gradient", 1e-5))
+    del F20c, c_cpu, d20c, g20c
+
+    Fb = wave_propagator(wshape, nt=60, src_idx=src0, store_adjoint="f32", **wkw)
+    J = born_operator(Fb, c_true)
+    gb = torch.Generator().manual_seed(3)
+    mb, db = J.dom.randn(gb), J.rng.randn(gb)
+    b = cw.launch_counts()
+    lhs, rhs = dot_product_test(J, mb, db)
+    assert delta(b) == (120, 60), delta(b)
+    gate_w = abs(float(lhs) - float(rhs)) / abs(float(rhs))
+    assert gate_w <= 1e-4, f"Born dot-product gate rel {gate_w}"
+    log(11, f"Born operator 256^3, nt=60, f32 history: dot-product gate rel "
+            f"{gate_w:.3e} (<= 1e-4; <d, J m> = {float(lhs):.6g}); launches K4 120 "
+            f"(Born forward 60 + adjoint sweep 60), K5 60")
+    del J, Fb, mb
+
+    nsh = 16
+    msrc = np.ravel_multi_index((np.full(nsh, 128), np.full(nsh, 128),
+                                 16 + 14 * np.arange(nsh)), wshape)
+    mkw = dict(store_adjoint="int8", shot_map="map", **wkw)
+    Fm = multishot_wave_operator(wshape, msrc, nt=120, **mkw)
+    b = cw.launch_counts()
+    dm = Fm(c_true)
+    assert delta(b) == (nsh * 120, 0), delta(b)
+    assert dm.shape == (nsh, 120, 128)
+    live(dm, "multishot traces")
+    ones = torch.ones(dm.shape, device=dev)
+    gm = Fm.linearize(c_true).H(ones)
+    assert delta(b) == (2 * nsh * 120, nsh * 120), delta(b)
+    live(gm, "multishot gradient")
+    n_ms = cw.launch_counts()
+    # shot 0 against a single-shot plain propagator, and the adjoint of two
+    # shots against the sum of their single-shot gradients
+    d0 = wave_propagator(wshape, nt=120, src_idx=int(msrc[0]), fused=False,
+                         **wkw)(c_true)
+    Fm2 = multishot_wave_operator(wshape, msrc[:2], nt=120, **mkw)
+    gm2 = Fm2.linearize(c_true).H(ones[:2])
+    gm2s = sum(wave_propagator(wshape, nt=120, src_idx=int(sidx), store_adjoint="int8",
+                              **wkw).linearize(c_true).H(ones[0]) for sidx in msrc[:2])
+    log(12, f"multishot 256^3, {nsh} shots, nt=120, map, int8: launches forward "
+            f"K4 {nsh * 120}, gradient K4 {nsh * 120} + K5 {nsh * 120}; "
+            + agree(dm[0], d0, "shot 0 vs single-shot plain", 1e-6) + "; "
+            + agree(gm2, gm2s, "2-shot gradient vs sum of single shots", 1e-6))
+    wave_path = {k: n_ms[k] for k in ("fused_leapfrog_step", "fused_adjoint_step")}
+    for name, n in wave_path.items():
+        assert n > 0, f"kernel {name} was not launched on the wave path"
+    del dm, gm, Fm, Fm2, gm2, gm2s, d0
+
+    # ---- phase 13: wave times ---------------------------------------------------
+    def event_ms(fn):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1)
+
+    def us_per_step(make, run, lo, hi, reps=3, per=1):
+        """Marginal µs per step between nt budgets lo and hi (median of reps)."""
+        ops = {n: make(n) for n in (lo, hi)}
+        run(ops[lo], lo)  # warm-up
+        t = {n: sorted(event_ms(lambda: run(ops[n], n)) for _ in range(reps))[reps // 2]
+             for n in (lo, hi)}
+        return 1e3 * (t[hi] - t[lo]) / (hi - lo) / per
+
+    def fwd(op, n):
+        return op(c_true)
+
+    def grad(op, n):
+        return op.linearize(c_true).H(torch.ones(op.rng.shape, device=dev))
+
+    def single(**kw):
+        return lambda n: wave_propagator(wshape, nt=n, src_idx=src0, **wkw, **kw)
+
+    def multi(n):
+        return multishot_wave_operator(wshape, msrc, nt=n, **mkw)
+
+    us = {
+        "forward": us_per_step(single(), fwd, 20, 220),
+        "forward_plain": us_per_step(single(fused=False), fwd, 20, 220),
+        "gradient": us_per_step(single(store_adjoint="int8"), grad, 20, 220),
+        "gradient_plain": us_per_step(single(store_adjoint="int8", fused=False), grad,
+                                      20, 220),
+        "multishot_forward": us_per_step(multi, fwd, 20, 120, reps=1, per=nsh),
+        "multishot_gradient": us_per_step(multi, grad, 20, 120, reps=1, per=nsh),
+    }
+    q8, sc8 = hists["int8"]
+    kt["fused_leapfrog_step"] = (
+        cuda_ms(lambda: cw.fused_leapfrog_step(up, u, c2, spz, spy, spx, s_t, src_flat,
+                                               amp), 20),
+        cuda_ms(lambda: cw.fused_leapfrog_step_torch(up, u, c2, spz, spy, spx, s_t,
+                                                     src_flat, amp), 20))
+    kt["fused_adjoint_step"] = (
+        cuda_ms(lambda: cw.fused_adjoint_step(a1, a2, g2, c2, q8, sc8, spz, spy, spx), 20),
+        cuda_ms(lambda: cw.fused_adjoint_step_torch(a1, a2, g2, c2, q8, sc8, spz, spy,
+                                                    spx), 20))
+
+    # device busy share of the wave steps from one profiler trace each
+    from torch.profiler import ProfilerActivity, profile
+
+    def busy_share(fn):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall = event_ms(fn)
+        ivs = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        busy, end = 0.0, None
+        for a0, a1_ in ivs:  # union of the kernel intervals, in µs
+            if end is None or a0 > end:
+                busy += a1_ - a0
+                end = a1_
+            elif a1_ > end:
+                busy += a1_ - end
+                end = a1_
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                t = by_name.setdefault(e.name[:48], [0.0, 0])
+                t[0] += e.time_range.end - e.time_range.start
+                t[1] += 1
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+        return (busy / (1e3 * wall) if ivs else None), wall, len(ivs), top
+
+    Fprof = wave_propagator(wshape, nt=40, src_idx=src0, store_adjoint="int8", **wkw)
+    shares = {"forward": busy_share(lambda: Fprof(c_true)),
+              "gradient": busy_share(lambda: grad(Fprof, 40))}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(13, "wave us/step (marginal, CUDA events): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in us.items())
+            + "; kernel vs plain at 256^3 "
+            + ", ".join(f"{k} {1e3 * kt[k][0]:.1f} vs {1e3 * kt[k][1]:.1f} us"
+                        for k in ("fused_leapfrog_step", "fused_adjoint_step"))
+            + "; device busy share under the profiler (nt=40): "
+            + ", ".join(f"{k} {'not measured' if sh is None else f'{sh:.3f}'} of "
+                        f"{wall:.2f} ms ({n} device events; top kernels, us total/"
+                        f"count: " + "; ".join(f"{nm} {t:.0f}/{c}" for nm, (t, c) in top)
+                        + ")"
+                        for k, (sh, wall, n, top) in shares.items())
+            + f"; peak device memory {peak_gib:.2f} GiB [{smi}]")
+
+    main_path.update(wave_path)
+    sources = {"solver": "jets_tpu_torch/csrc/solver_kernels.cu",
+               "wave": "jets_tpu_torch/csrc/wave_kernels.cu"}
     replaces = {
-        "xw_update": "jets_tpu/ops/pallas_solver.py:104",
-        "lap3d_axpy_norm2": "jets_tpu/ops/pallas_solver.py:410",
-        "laplacian3d": "jets_tpu/ops/pallas_solver.py:446",
+        "xw_update": ("solver", "jets_tpu/ops/pallas_solver.py:104"),
+        "lap3d_axpy_norm2": ("solver", "jets_tpu/ops/pallas_solver.py:410"),
+        "laplacian3d": ("solver", "jets_tpu/ops/pallas_solver.py:446"),
+        "fused_leapfrog_step": ("wave", "jets_tpu/ops/pallas_wave.py:274"),
+        "fused_adjoint_step": ("wave", "jets_tpu/ops/pallas_wave.py:1203"),
     }
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": src, "replaces": replaces[k],
+        {"name": k, "route": "cuda", "source": sources[lib], "replaces": where,
          "launches": main_path[k], "max_abs_err": err[k],
          "ms": kt[k][0], "plain_ms": kt[k][1]}
-        for k in ("xw_update", "lap3d_axpy_norm2", "laplacian3d")
+        for k, (lib, where) in replaces.items()
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

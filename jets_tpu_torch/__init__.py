@@ -3,10 +3,12 @@
 The same matrix-free operator-and-solver framework, for one NVIDIA H100
 (Hopper, ``sm_90a``): spaces with an explicit device, immutable jets and
 operators, the operator algebra, the correctness gates, the seismic
-flagship and its LSQR solver. Plain tensor code is PyTorch; the Pallas
-kernels of the JAX package on this path are hand-written CUDA C++ in
-``csrc/`` (see :mod:`jets_tpu_torch.ops.cuda_solver`), built with ``nvcc``
-at first use on a machine that has a card. This package never imports JAX.
+flagship and its LSQR solver, and the isotropic wave operators of FWI
+(:mod:`jets_tpu_torch.ops.wave`). Plain tensor code is PyTorch; the Pallas
+kernels of the JAX package on these paths are hand-written CUDA C++ in
+``csrc/`` (see :mod:`jets_tpu_torch.ops.cuda_solver` and
+:mod:`jets_tpu_torch.ops.cuda_wave`), built with ``nvcc`` at first use on
+a machine that has a card. This package never imports JAX.
 """
 from .core.spaces import Space, space_of, zeros, ones, rand, randn
 from .core.jet import (

@@ -1,16 +1,19 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The kernels are compiled with ``nvcc`` for Hopper (``sm_90a``) into a
-shared library with a plain C interface and loaded with :mod:`ctypes` —
-no PyTorch headers are compiled, so a build takes seconds. The library is
-built at first use into ``jets_tpu_torch/_build/`` (git-ignored), under a
-name keyed by a hash of the source, so an edited source is rebuilt and a
-stale library is never loaded.
+Each source in :data:`SOURCES` is compiled with ``nvcc`` for Hopper
+(``sm_90a``) into a shared library of its own with a plain C interface and
+loaded with :mod:`ctypes` — no PyTorch headers are compiled, so a build
+takes seconds. A library is built at first use into
+``jets_tpu_torch/_build/`` (git-ignored), under a name keyed by a hash of
+its source and the compiler flags, so an edited source is rebuilt and a
+stale library is never loaded. :func:`build_all` starts one ``nvcc`` per
+missing library, all at once, and waits for them.
 
 Nothing here runs at import time: importing the package needs neither
 ``nvcc`` nor a GPU. On a machine without CUDA the wrappers in
-:mod:`jets_tpu_torch.ops.cuda_solver` only ever take their plain PyTorch
-versions (for CPU tensors), and never reach :func:`load_library`.
+:mod:`jets_tpu_torch.ops.cuda_solver` and :mod:`jets_tpu_torch.ops.cuda_wave`
+only ever take their plain PyTorch versions (for CPU tensors), and never
+reach :func:`load_library`.
 """
 from __future__ import annotations
 
@@ -24,27 +27,37 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["has_cuda", "load_library", "check", "SOURCE", "BUILD_DIR"]
+__all__ = ["has_cuda", "load_library", "build_all", "check", "SOURCES", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent
-SOURCE = _PKG / "csrc" / "solver_kernels.cu"
+SOURCES = {
+    "solver": _PKG / "csrc" / "solver_kernels.cu",
+    "wave": _PKG / "csrc" / "wave_kernels.cu",
+}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_lib = None
-build_seconds = None  # wall time of the build this process ran (None: cached)
-build_log = None  # nvcc's output of that build (ptxas registers and spills)
+_libs: dict = {}
+build_seconds: dict = {}  # library -> wall time of the build this process ran
+build_log: dict = {}  # library -> nvcc's output of that build (ptxas registers, spills)
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
-    "jt_error_string": ([_INT], ctypes.c_char_p),
-    "jt_lap3d_num_partials": ([_I64] * 3, _I64),
-    "jt_xw_update": ([_P] * 6 + [_I64, _P], _INT),
-    "jt_laplacian3d": ([_P, _P] + [_I64] * 3 + [_P], _INT),
-    "jt_lap3d_axpy_norm2": ([_P] * 6 + [_I64] * 3 + [_P], _INT),
+    "solver": {
+        "jt_error_string": ([_INT], ctypes.c_char_p),
+        "jt_lap3d_num_partials": ([_I64] * 3, _I64),
+        "jt_xw_update": ([_P] * 6 + [_I64, _P], _INT),
+        "jt_laplacian3d": ([_P, _P] + [_I64] * 3 + [_P], _INT),
+        "jt_lap3d_axpy_norm2": ([_P] * 6 + [_I64] * 3 + [_P], _INT),
+    },
+    "wave": {
+        "jt_error_string": ([_INT], ctypes.c_char_p),
+        "jt_leapfrog_step": ([_P] * 8 + [_I64, _P] + [_I64] * 3 + [_INT, _P], _INT),
+        "jt_adjoint_step": ([_P] * 11 + [_I64] * 3 + [_INT, _INT, _P], _INT),
+    },
 }
 
 
@@ -63,42 +76,59 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _build(so: Path) -> None:
-    global build_seconds, build_log
+def _so_path(name: str) -> Path:
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{SOURCES[name].stem}_{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=None) -> None:
+    """Build every missing library of ``names`` (default: all), one
+    ``nvcc`` process per source, started together."""
+    names = list(SOURCES) if names is None else list(names)
+    todo = [(n, _so_path(n)) for n in names]
+    todo = [(n, so) for n, so in todo if not so.is_file()]
+    if not todo:
+        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    procs = []
+    for n, so in todo:
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])]
+        procs.append((n, so, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for n, so, tmp, cmd, proc in procs:
+        out, _ = proc.communicate()
+        build_seconds[n] = time.perf_counter() - t0
+        build_log[n] = out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+        else:
+            os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernel library, built from :data:`SOURCE` on first use."""
-    global _lib
-    if _lib is None:
-        digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-        so = BUILD_DIR / f"solver_kernels_{digest}.so"
+def load_library(name: str = "solver") -> ctypes.CDLL:
+    """The kernel library built from ``SOURCES[name]``, built on first use."""
+    if name not in _libs:
+        so = _so_path(name)
         if not so.is_file():
-            _build(so)
+            build_all([name])
         lib = ctypes.CDLL(str(so))
-        for name, (argtypes, restype) in _SIGNATURES.items():
-            fn = getattr(lib, name)
+        for fname, (argtypes, restype) in _SIGNATURES[name].items():
+            fn = getattr(lib, fname)
             fn.argtypes = argtypes
             fn.restype = restype
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]
 
 
-def check(err: int, name: str) -> None:
+def check(err: int, name: str, library: str = "solver") -> None:
     """Raise if a C entry point reported a CUDA error (a refused launch)."""
     if err != 0:
-        msg = load_library().jt_error_string(err).decode()
+        msg = load_library(library).jt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")

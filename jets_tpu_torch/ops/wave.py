@@ -1,0 +1,656 @@
+"""Isotropic acoustic wave operators (counterpart of the isotropic part of
+``jets_tpu/ops/wave.py``, with the same names).
+
+Physics: constant-density acoustic wave equation, 2nd order in time,
+orders 2/4/8 in space, time-stepped by an explicit leapfrog with a sponge
+taper at the boundaries::
+
+    u_next = ((2u − u_prev) + c²dt²/dx²·L(u))·S + s(t)·dt²·δ(x − x_src)
+
+* :func:`wave_propagator` — nonlinear forward modelling ``F: c → traces``;
+  its tangent is ``torch.func.jvp`` through the time loop, its adjoint
+  either ``torch.func.vjp`` through it (``store_adjoint=None``) or the
+  hand-derived reverse sweep over a stored, optionally compressed,
+  forward-wavefield history (``store_adjoint`` ∈ f32/bf16/int8).
+* :func:`born_operator` — the Jacobian pinned at a background velocity.
+* :func:`multishot_wave_operator` — one propagator per shot, stacked over
+  shots (``shot_map="map"``: a loop over shots, each on the kernels;
+  ``"vmap"``: one batched plain program).
+
+On a 3-D float32 grid on a CUDA card the forward step is the hand-written
+kernel K4 (:func:`cuda_wave.fused_leapfrog_step`) and the reverse step of
+the stored adjoint K5 (:func:`cuda_wave.fused_adjoint_step`); elsewhere, and
+with ``fused=False``, the plain PyTorch step with the same floating-point
+tree. The JAX package pairs two steps per ``lax.scan`` iteration on the TPU
+to avoid carry copies; a Python loop rotates ``(u_prev, u) → (u, u_next)``
+for free, so the port steps one at a time and writes ``u_next`` into
+``u_prev``'s buffer on sweeps that no autodiff transform watches.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): ``remat_blocks > 1``, ``wavefield_sharding``, custom source masks
+and extractors (off-grid geometry), ginsu windows, CPML boundaries and
+``mesh=``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core.jet import Jet, LinearOperator, Operator, with_state
+from ..core.spaces import Space
+from ..parallel.sharded import stacked_block_operator
+from . import cuda_wave
+from .stencil import laplacian_nd as _laplacian
+
+__all__ = [
+    "wave_propagator",
+    "born_operator",
+    "multishot_wave_operator",
+    "with_wave_arrays",
+]
+
+_STORES = ("f32", "bf16", "int8")
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
+
+
+def _check_space_order(order: int) -> int:
+    """Validate the spatial accuracy order at operator construction time."""
+    if order not in (2, 4, 8):
+        raise ValueError(f"space_order must be one of (2, 4, 8), got {order}")
+    return int(order)
+
+
+def _damp(n: int, width: int, strength: float, bottom_only: bool):
+    """One axis of the cosine-taper sponge, float32 on the CPU (the sponge
+    is made on the CPU and moved, so it is the same on every device)."""
+    x = torch.arange(n)
+    edge = (n - 1 - x) if bottom_only else torch.minimum(x, n - 1 - x)
+    edge = edge.to(torch.float32)
+    return torch.where(edge < width,
+                       torch.exp(-strength * (width - edge) ** 2 / width),
+                       torch.ones_like(edge))
+
+
+def _sponge_factors(shape, width: int, strength: float = 0.015,
+                    free_surface: bool = False):
+    """The per-axis factors of :func:`_sponge`, in broadcastable shapes.
+    With ``free_surface`` the top of axis 0 is left undamped."""
+    nd = len(shape)
+    return tuple(
+        _damp(n, width, strength, free_surface and ax == 0).reshape(
+            tuple(n if i == ax else 1 for i in range(nd)))
+        for ax, n in enumerate(shape))
+
+
+def _sponge(shape, width: int, strength: float = 0.015, free_surface: bool = False):
+    """The full-grid sponge: ``((1·d0)·d1)·…`` as the JAX package builds it."""
+    prof = torch.ones(shape, dtype=torch.float32)
+    for d in _sponge_factors(shape, width, strength, free_surface):
+        prof = prof * d
+    return prof
+
+
+def _make_sponge(shape, width: int, strength: float = 0.015,
+                 free_surface: bool = False, dtype=torch.float32):
+    """A tuple of per-axis factors for 3-D+ grids, a full-grid tensor for
+    1-/2-D grids (the representations of the JAX package)."""
+    if len(shape) >= 3:
+        return tuple(f.to(dtype) for f in _sponge_factors(shape, width, strength,
+                                                          free_surface))
+    return _sponge(shape, width, strength, free_surface).to(dtype)
+
+
+def _sponge_full(sponge):
+    """The full-grid sponge from either representation: the factor product
+    ``(s0·s1)·s2`` (the JAX package's ``_mul_sponge`` tree) is bit-identical
+    to the full array, so the plain steps build it once and multiply each
+    step by it (``e·S``)."""
+    if isinstance(sponge, tuple):
+        s = sponge[0]
+        for p in sponge[1:]:
+            s = s * p
+        return s
+    return sponge
+
+
+def _ricker(nt: int, dt: float, freq: float, dtype=torch.float32):
+    t0 = min(1.0 / freq, 0.25 * nt * dt)
+    t = torch.arange(nt, dtype=dtype) * dt - t0
+    a = (math.pi * freq * t) ** 2
+    return ((1 - 2 * a) * torch.exp(-a)).to(dtype)
+
+
+def _trace_resampler(nt: int, dt: float, dtrec, dtype=torch.float32):
+    """``(ntrec, resample)``: linear interpolation of ``(nt, ...)`` traces
+    on the modelling grid onto the recording interval ``dtrec`` (``None``:
+    the identity, ``resample`` is None)."""
+    if dtrec is None:
+        return nt, None
+    dtrec = float(dtrec)
+    if dtrec < dt - 1e-12:
+        raise ValueError(f"dtrec={dtrec} must be >= modeling dt={dt}")
+    ntrec = int(np.floor((nt - 1) * dt / dtrec + 1e-9)) + 1
+    t = np.arange(ntrec) * (dtrec / dt)
+    i0 = np.minimum(np.floor(t).astype(np.int64), max(nt - 2, 0))
+    i1 = np.minimum(i0 + 1, nt - 1)
+    w = torch.as_tensor(t - i0).to(dtype)
+    i0, i1 = torch.as_tensor(i0), torch.as_tensor(i1)
+
+    def resample(traces):
+        dev = traces.device
+        wb = w.to(dev).reshape((ntrec,) + (1,) * (traces.ndim - 1))
+        lo = traces.index_select(0, i0.to(dev))
+        hi = traces.index_select(0, i1.to(dev))
+        return (1.0 - wb) * lo + wb * hi
+
+    return ntrec, resample
+
+
+def _resample_transpose(resample, nt, nrcv, dtype):
+    """The adjoint of ``resample`` (``torch.func.vjp`` at zero traces)."""
+    def rt(d):
+        zeros = torch.zeros((nt, nrcv), dtype=dtype, device=d.device)
+        _, vjp = torch.func.vjp(resample, zeros)
+        (out,) = vjp(d)
+        return out
+
+    return rt
+
+
+def _div(x, v: float):
+    """``x / v`` as a true division on every device (PyTorch turns a
+    division by a Python float on CUDA into a multiply by its reciprocal,
+    which rounds differently from JAX's weak-typed scalar division)."""
+    return x / torch.tensor(v, dtype=x.dtype, device=x.device)
+
+
+def _c2dt2(c, dt: float, dx: float):
+    """``(c*c) * (dt*dt) / (dx*dx)``, rounded as the JAX package rounds it."""
+    return _div((c * c) * (dt * dt), dx * dx)
+
+
+def _store_codec(store: str, dtype):
+    """Per-snapshot ``(enc, dec)`` of the stored-wavefield adjoint: ``f32``
+    lossless, ``bf16`` 2× smaller, ``int8`` max-abs-scaled 4× smaller.
+    ``enc(u) -> (encoded, scale)``; ``dec(encoded, scale)`` inverts it.
+    The int8 code is ``round(u·(127/s))`` (half to even, as ``jnp.round``)
+    with ``s = max(max|u|, 1e-30)``."""
+    if store == "f32":
+        return ((lambda u: (u, torch.ones((), dtype=dtype, device=u.device))),
+                (lambda q, s: q))
+    if store == "bf16":
+        return ((lambda u: (u.to(torch.bfloat16),
+                            torch.ones((), dtype=dtype, device=u.device))),
+                (lambda q, s: q.to(dtype)))
+    if store == "int8":
+        def enc(u):
+            s = torch.maximum(torch.linalg.vector_norm(u, float("inf")),  # max|u|
+                              torch.tensor(1e-30, dtype=dtype, device=u.device))
+            return torch.round(u * (torch.full_like(s, 127.0) / s)).to(torch.int8), s
+
+        return enc, (lambda q, s: q.to(dtype) * _div(s, 127.0))
+    raise ValueError(f"store must be one of {_STORES}, got {store!r}")
+
+
+def _kernel_route(fused, c, sponge, order: int) -> bool:
+    """Whether the time loop rides the kernels: ``fused=None`` takes them
+    for a 3-D float32 grid on a CUDA card; ``fused=True`` insists (on a CPU
+    tensor the wrappers then run their plain versions) and raises where the
+    kernels cannot go, as the JAX package does."""
+    can = isinstance(sponge, tuple) and cuda_wave.fits_wave_kernel(
+        c.shape, c.dtype, order)
+    if fused is None:
+        return can and c.device.type == "cuda"
+    if fused and not can:
+        raise ValueError("fused wave step requires a 3-D float32 grid with the "
+                         "default on-grid source and receivers")
+    return bool(fused)
+
+
+def _factors_1d(sponge):
+    return tuple(f.reshape(-1).contiguous() for f in sponge)
+
+
+class _LeapfrogStep(torch.autograd.Function):
+    """K4 under autodiff (the counterpart of the ``custom_jvp`` around the
+    Pallas step in ``jets_tpu/ops/wave.py``): the forward is the kernel,
+    writing a fresh tensor; the tangent is the plain expression
+    ``S⊙(2du − dup + dc2·L(u) + c2·L(du)) + dst·mask`` and the backward its
+    transpose, both plain PyTorch (the JAX package has no backward kernel
+    for K4 either)."""
+
+    @staticmethod
+    def forward(u_prev, u, c2, s_t, spz, sy, sx, src, amp, order):
+        return cuda_wave.fused_leapfrog_step(u_prev, u, c2, spz, sy, sx, s_t, src,
+                                             amp, order=order)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, u, c2, _, spz, sy, sx, src, amp, order = inputs
+        ctx.save_for_backward(u, c2, spz, sy, sx, amp)
+        ctx.save_for_forward(u, c2, spz, sy, sx, amp)
+        ctx.src, ctx.order = src, order
+
+    @staticmethod
+    def jvp(ctx, dup, du, dc2, dst, *_):
+        u, c2, spz, sy, sx, amp = ctx.saved_tensors
+        zero = torch.zeros_like(u)
+        dup = zero if dup is None else dup
+        du = zero if du is None else du
+        dc2 = zero if dc2 is None else dc2
+        t = (2.0 * du - dup + dc2 * _laplacian(u, order=ctx.order)
+             + c2 * _laplacian(du, order=ctx.order))
+        out = t * cuda_wave.sponge_product(spz, sy, sx)
+        if dst is not None:
+            out = out + dst * cuda_wave.source_mask(u.shape, ctx.src, amp)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        u, c2, spz, sy, sx, amp = ctx.saved_tensors
+        gs = g * cuda_wave.sponge_product(spz, sy, sx)
+        d_up = -gs
+        d_u = 2.0 * gs + _laplacian(c2 * gs, order=ctx.order)
+        d_c2 = _laplacian(u, order=ctx.order) * gs
+        d_st = torch.sum(g * cuda_wave.source_mask(u.shape, ctx.src, amp))
+        return d_up, d_u, d_c2, d_st, None, None, None, None, None, None
+
+
+def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
+               remat_blocks: int = 1, order: int = 2, src_mask=None, extract=None,
+               fused=None, wavefield_sharding=None, inplace: bool = False):
+    """Leapfrog time stepping; returns receiver traces ``(nt, nrcv)``.
+
+    ``fused`` selects the kernel route (see :func:`_kernel_route`).
+    ``inplace=True`` allows the no-autodiff fast path: ``u_next`` written
+    into ``u_prev``'s buffer and the traces gathered into a preallocated
+    tensor. It is ignored while a tape records ``c``; callers inside a
+    ``torch.func`` transform (or ``vmap``) pass ``inplace=False``.
+    """
+    if wavefield_sharding is not None:
+        raise _not_ported("wavefield_sharding", "18")
+    if src_mask is not None or extract is not None:
+        raise _not_ported("custom src_mask/extract (off-grid geometry)", "14")
+    if remat_blocks > 1:
+        raise _not_ported("remat_blocks > 1", "12")
+    shape, dtype, dev = c.shape, c.dtype, c.device
+    nt = int(src_wavelet.shape[0])
+    c2dt2 = _c2dt2(c, dt, dx)
+    amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
+    kernel = _kernel_route(fused, c, sponge, order)
+    inplace = inplace and not (torch.is_grad_enabled() and c.requires_grad)
+    u_prev = torch.zeros(shape, dtype=dtype, device=dev)
+    u = torch.zeros(shape, dtype=dtype, device=dev)
+    nrcv = int(rcv_idx.shape[0])
+    traces = torch.empty((nt, nrcv), dtype=dtype, device=dev) if inplace else []
+
+    if kernel:
+        spz, sy, sx = _factors_1d(sponge)
+        src = int(src_idx)
+        if inplace:
+            def step(up, uu, s_t):
+                return cuda_wave.fused_leapfrog_step(up, uu, c2dt2, spz, sy, sx, s_t,
+                                                     src, amp, order=order, out=up)
+        else:
+            def step(up, uu, s_t):
+                return _LeapfrogStep.apply(up, uu, c2dt2, s_t, spz, sy, sx, src, amp,
+                                           order)
+    else:
+        S = _sponge_full(sponge)
+        mask = cuda_wave.source_mask(shape, src_idx, amp)
+
+        def step(up, uu, s_t):
+            return cuda_wave.leapfrog_plain(up, uu, c2dt2, S, s_t, mask, order)
+
+    for k in range(nt):
+        u_next = step(u_prev, u, src_wavelet[k])
+        if inplace:
+            torch.index_select(u_next.reshape(-1), 0, rcv_idx, out=traces[k])
+        else:
+            traces.append(u_next.reshape(-1).index_select(0, rcv_idx))
+        u_prev, u = u, u_next
+    return traces if inplace else torch.stack(traces)
+
+
+def _adjoint_stored(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
+                    order: int = 2, store: str = "int8", fused=None,
+                    wavefield_sharding=None, src_mask=None, inject=None):
+    """Adjoint-state gradient ``(∂F/∂c)ᵀ dd`` over a stored forward-wavefield
+    history, encoded per snapshot (``store``: f32 lossless, bf16, int8).
+    With ``ē_k = S ⊙ a_{k+1}``::
+
+        a_k  = Pᵀ ḡ_{k-1} + 2ē_k + L(c²dt²·ē_k) − ē_{k+1}
+        gc2 += L(u_k) ⊙ ē_k
+
+    On the kernel route the forward sweep is K4 (in place, except for an
+    f32 history, which keeps the fields themselves) and the reverse sweep
+    K5 (``a_k`` into ``a_{k+2}``'s buffer, ``gc2`` in place) followed by the
+    receiver injection ``index_add_``. The plain route is the JAX package's
+    XLA sweep, tree for tree."""
+    if wavefield_sharding is not None:
+        raise _not_ported("wavefield_sharding", "18")
+    if src_mask is not None or inject is not None:
+        raise _not_ported("custom src_mask/inject (off-grid geometry)", "14")
+    shape, dtype, dev = c.shape, c.dtype, c.device
+    size = math.prod(shape)
+    nt = int(src_wavelet.shape[0])
+    c2dt2 = _c2dt2(c, dt, dx)
+    amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
+    enc, dec = _store_codec(store, dtype)
+    dd = dd.to(dtype)
+
+    def inject(row):
+        return torch.zeros(size, dtype=dtype, device=dev).index_add(
+            0, rcv_idx, row).reshape(shape)
+
+    scale = torch.tensor((dt * dt) / (dx * dx), dtype=dtype, device=dev)
+    hist, scales = [], []
+    if _kernel_route(fused, c, sponge, order):
+        spz, sy, sx = _factors_1d(sponge)
+        src = int(src_idx)
+        u_prev = torch.zeros(shape, dtype=dtype, device=dev)
+        u = torch.zeros(shape, dtype=dtype, device=dev)
+        for k in range(nt):
+            q, s = enc(u)
+            hist.append(q)
+            scales.append(s)
+            u_next = cuda_wave.fused_leapfrog_step(
+                u_prev, u, c2dt2, spz, sy, sx, src_wavelet[k], src, amp, order=order,
+                out=None if store == "f32" else u_prev)
+            u_prev, u = u, u_next
+        del u_prev, u, u_next  # the history holds what the reverse sweep needs
+        scs = (_div(torch.stack(scales), 127.0) if store == "int8"
+               else torch.ones(nt, dtype=dtype, device=dev))
+        a1 = inject(dd[-1])
+        a2 = torch.zeros(shape, dtype=dtype, device=dev)
+        gc2 = torch.zeros(shape, dtype=dtype, device=dev)
+        for k in range(nt - 1, -1, -1):
+            core, gc2 = cuda_wave.fused_adjoint_step(
+                a1, a2, gc2, c2dt2, hist[k], scs[k], spz, sy, sx, order=order,
+                inplace=True)
+            hist[k] = None  # release the snapshot as the sweep passes it
+            if k > 0:  # ḡ_{k-1}; the JAX sweep adds a zero row at k = 0
+                core.reshape(-1).index_add_(0, rcv_idx, dd[k - 1])
+            a1, a2 = core, a1
+        return gc2 * (2.0 * c) * scale
+
+    S = _sponge_full(sponge)
+    mask = cuda_wave.source_mask(shape, src_idx, amp)
+    u_prev = torch.zeros(shape, dtype=dtype, device=dev)
+    u = torch.zeros(shape, dtype=dtype, device=dev)
+    for k in range(nt):
+        hist.append(enc(u))  # history entry k holds u_k
+        u_next = cuda_wave.leapfrog_plain(u_prev, u, c2dt2, S, src_wavelet[k], mask,
+                                          order)
+        u_prev, u = u, u_next
+    # ḡ_{k-1} aligned to reverse step k (rec_k samples u_{k+1})
+    dd_shift = torch.cat([torch.zeros_like(dd[:1]), dd[:-1]])
+    a_next = inject(dd[-1])
+    ebar_next = torch.zeros(shape, dtype=dtype, device=dev)
+    gc2 = torch.zeros(shape, dtype=dtype, device=dev)
+    for k in range(nt - 1, -1, -1):
+        q, s = hist[k]
+        hist[k] = None
+        ebar = a_next * S
+        gc2 = gc2 + _laplacian(dec(q, s), order=order) * ebar
+        # sum order of the kernel's tree: the stencil/sponge core first, the
+        # (sparse) receiver injection added last
+        a_next = ((2.0 * ebar + _laplacian(c2dt2 * ebar, order=order)) - ebar_next
+                  + inject(dd_shift[k]))
+        ebar_next = ebar
+    return gc2 * (2.0 * c) * scale
+
+
+def _check_store(store_adjoint):
+    if store_adjoint is not None and store_adjoint not in _STORES:
+        raise ValueError("store_adjoint must be one of (None, 'f32', 'bf16', "
+                         f"'int8'), got {store_adjoint!r}")
+
+
+def _index_tensor(idx, device):
+    return torch.as_tensor(np.array(idx), dtype=torch.int64).reshape(-1).to(device)
+
+
+def _default_receivers(size: int):
+    return torch.arange(0, size, max(1, size // 128))[:128]
+
+
+def wave_propagator(
+    grid_shape: Sequence[int],
+    *,
+    nt: int = 256,
+    dt: float = 0.001,
+    dx: float = 10.0,
+    freq: float = 15.0,
+    src_idx: int = 0,
+    rcv_idx=None,
+    sponge_width: int = 12,
+    space_order: int = 2,
+    remat_blocks: int = 1,
+    free_surface: bool = False,
+    fused=None,
+    dtrec: Optional[float] = None,
+    store_adjoint: Optional[str] = None,
+    wavefield_sharding=None,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str = "cpu",
+) -> Operator:
+    """Nonlinear forward-modelling operator ``F: velocity c → traces d``.
+
+    Domain: the velocity grid on ``device``. Range: ``(ntrec, nrcv)``
+    receiver traces (``ntrec = nt`` unless the recording interval ``dtrec``
+    is given). ``space_order`` ∈ {2, 4, 8}. ``fused``: ``None`` rides the
+    kernels K4/K5 on a 3-D float32 grid on a CUDA card, ``True`` insists,
+    ``False`` takes the plain step. ``store_adjoint`` ∈ {None, "f32",
+    "bf16", "int8"} switches the adjoint from ``torch.func.vjp`` through the
+    time loop to the stored-history sweep (:func:`_adjoint_stored`).
+    """
+    grid_shape = tuple(int(s) for s in grid_shape)
+    space_order = _check_space_order(space_order)
+    _check_store(store_adjoint)
+    if wavefield_sharding is not None:
+        raise _not_ported("wave_propagator(wavefield_sharding=...)", "18")
+    if remat_blocks > 1:
+        raise _not_ported("remat_blocks > 1", "12")
+    if fused and not cuda_wave.fits_wave_kernel(grid_shape, dtype, space_order):
+        raise ValueError("fused wave step requires a 3-D float32 grid")
+    sp = Space(grid_shape, dtype, device)
+    rcv = _index_tensor(_default_receivers(sp.size) if rcv_idx is None else rcv_idx,
+                        sp.device)
+    ntrec, resample = _trace_resampler(nt, dt, dtrec, dtype)
+    rng = Space((ntrec, int(rcv.shape[0])), dtype, device)
+    cfg = dict(dt=dt, dx=dx, order=space_order)
+
+    def _forward(c, state, inplace):
+        traces = _propagate(c, state["wavelet"], state["src_idx"], state["rcv_idx"],
+                            sponge=state["sponge"], fused=fused, inplace=inplace,
+                            **cfg)
+        return resample(traces) if resample is not None else traces
+
+    def _f(c, state):
+        return _forward(c, state, True)
+
+    def _df(dc, m0, state):
+        _, tangent = torch.func.jvp(lambda c: _forward(c, state, False), (m0,), (dc,))
+        return tangent
+
+    if store_adjoint is None:
+        def _dft(dd, m0, state):
+            _, vjp = torch.func.vjp(lambda c: _forward(c, state, False), m0)
+            (out,) = vjp(dd)
+            return out
+    else:
+        rt = (_resample_transpose(resample, nt, int(rcv.shape[0]), dtype)
+              if resample is not None else None)
+
+        def _dft(dd, m0, state):
+            if rt is not None:
+                dd = rt(dd)
+            return _adjoint_stored(m0, dd, state["wavelet"], state["src_idx"],
+                                   state["rcv_idx"], sponge=state["sponge"],
+                                   store=store_adjoint, fused=fused, **cfg)
+
+    sponge = _make_sponge(grid_shape, sponge_width, free_surface=free_surface,
+                          dtype=dtype)
+    j = Jet(dom=sp, rng=rng, f=_f, df=_df, dft=_dft, state={
+        "wavelet": _ricker(nt, dt, freq, dtype).to(sp.device),
+        "sponge": _to_device(sponge, sp.device),
+        "src_idx": torch.tensor(int(src_idx), dtype=torch.int64),
+        "rcv_idx": rcv,
+    })
+    return Operator(j)
+
+
+def _to_device(sponge, device):
+    if isinstance(sponge, tuple):
+        return tuple(f.to(device) for f in sponge)
+    return sponge.to(device)
+
+
+def born_operator(F: Operator, c0) -> LinearOperator:
+    """Linearized (Born) modelling operator: the Jacobian of the wave
+    propagator pinned at the background velocity ``c0``. Forward =
+    demigration, adjoint = migration."""
+    return F.linearize(c0)
+
+
+def multishot_wave_operator(
+    grid_shape: Sequence[int],
+    src_indices,
+    *,
+    nt: int = 128,
+    dt: float = 0.001,
+    dx: float = 10.0,
+    freq: float = 15.0,
+    rcv_idx=None,
+    sponge_width: int = 12,
+    space_order: int = 2,
+    remat_blocks: int = 1,
+    window_corners=None,
+    window_shape: Optional[Sequence[int]] = None,
+    dtrec: Optional[float] = None,
+    store_adjoint: Optional[str] = None,
+    free_surface: bool = False,
+    boundary: str = "sponge",
+    cmax: float = 4000.0,
+    mesh=None,
+    axis: str = "block",
+    shot_map: str = "vmap",
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str = "cpu",
+) -> Operator:
+    """Nonlinear multi-shot modelling ``F: c → (nshots, ntrec, nrcv)``.
+
+    Per-shot state is the source location; receivers are shared. With
+    ``shot_map="map"`` the shots run one after another, each on the
+    kernels K4/K5 where they apply; with ``"vmap"`` the shots run as one
+    batched plain program (``torch.func.vmap``; the kernels do not batch).
+    ``store_adjoint`` switches the per-shot adjoint to the stored-history
+    sweep, summed over shots; without it the adjoint is derived: per shot
+    (``torch.func.vjp`` of the tangent) in ``map`` mode, over the whole
+    stack in ``vmap`` mode.
+    """
+    grid_shape = tuple(int(s) for s in grid_shape)
+    space_order = _check_space_order(space_order)
+    _check_store(store_adjoint)
+    if (window_shape is None) != (window_corners is None):
+        raise ValueError("ginsu windowing needs BOTH window_shape and "
+                         "window_corners (or neither)")
+    if window_shape is not None:
+        raise _not_ported("ginsu windows (window_shape/window_corners)", "12")
+    if boundary not in ("sponge", "cpml"):
+        raise ValueError(f"boundary must be 'sponge' or 'cpml', got {boundary!r}")
+    if boundary == "cpml":
+        raise _not_ported("boundary='cpml'", "12")
+    if mesh is not None:
+        raise _not_ported("multishot_wave_operator(mesh=...)", "18")
+    if remat_blocks > 1:
+        raise _not_ported("remat_blocks > 1", "12")
+    sp = Space(grid_shape, dtype, device)
+    src = _index_tensor(src_indices, "cpu")
+    nshots = int(src.shape[0])
+    rcv = _index_tensor(_default_receivers(sp.size) if rcv_idx is None else rcv_idx,
+                        sp.device)
+    nrcv = int(rcv.shape[0])
+    ntrec, resample = _trace_resampler(nt, dt, dtrec, dtype)
+    rt = (_resample_transpose(resample, nt, nrcv, dtype)
+          if resample is not None else None)
+    cfg = dict(dt=dt, dx=dx, order=space_order)
+    is_map = shot_map == "map"
+
+    def shot_f(c, s, st, inplace):
+        traces = _propagate(c, st["wavelet"], s, st["rcv"], sponge=st["sponge"],
+                            fused=None if is_map else False, inplace=inplace, **cfg)
+        return resample(traces) if resample is not None else traces
+
+    def child(c, bs, inplace):
+        if is_map:
+            return shot_f(c, bs["src"][0], bs, inplace)[None]
+        return torch.func.vmap(lambda s: shot_f(c, s, bs, False))(bs["src"])
+
+    def f(m, bs):
+        return child(m, bs, True)
+
+    def df(dm, m0, bs):
+        _, tangent = torch.func.jvp(lambda c: child(c, bs, False), (m0,), (dm,))
+        return tangent
+
+    dft = None
+    if store_adjoint is not None:
+        def shot_dft(d, m0, s, st):
+            if rt is not None:
+                d = rt(d)
+            return _adjoint_stored(m0, d, st["wavelet"], s, st["rcv"],
+                                   sponge=st["sponge"], store=store_adjoint,
+                                   fused=None if is_map else False, **cfg)
+
+        def dft(d_b, m0, bs):
+            if is_map:
+                return shot_dft(d_b[0], m0, bs["src"][0], bs)[None]
+            return torch.func.vmap(lambda d, s: shot_dft(d, m0, s, bs))(d_b, bs["src"])
+
+    sponge = _make_sponge(grid_shape, sponge_width, free_surface=free_surface,
+                          dtype=dtype)
+    return stacked_block_operator(
+        nblocks=nshots,
+        dom=sp,
+        rng_block=Space((ntrec, nrcv), dtype, device),
+        bstate={"src": src},
+        sstate={"wavelet": _ricker(nt, dt, freq, dtype).to(sp.device),
+                "sponge": _to_device(sponge, sp.device), "rcv": rcv},
+        f=f,
+        df=df,
+        dft=dft,
+        shot_map=shot_map,
+    )
+
+
+def with_wave_arrays(op: Operator, *, wavelet, sponge, src_idx, rcv_idx) -> Operator:
+    """``op`` (from :func:`wave_propagator` or :func:`multishot_wave_operator`)
+    with its wavelet, sponge, source and receiver indices replaced by the
+    given arrays (numpy or tensors; ``sponge`` one array or a tuple of
+    per-axis factors), moved to the operator's device and dtype. This
+    carries a JAX wave operator's state across, so both packages run on the
+    same wavelet and sponge even where ``exp`` rounds differently."""
+    dev, dtype = op.dom.device, op.dom.dtype
+
+    def arr(a):
+        return torch.as_tensor(np.array(a)).to(device=dev, dtype=dtype)
+
+    wav = arr(wavelet)
+    sp = tuple(arr(f) for f in sponge) if isinstance(sponge, (tuple, list)) else arr(sponge)
+    src = torch.as_tensor(np.array(src_idx), dtype=torch.int64)
+    rcv = _index_tensor(rcv_idx, dev)
+    st = op.jet.state
+    if "sstate" in st:
+        return with_state(op, sstate={**st["sstate"], "wavelet": wav, "sponge": sp,
+                                      "rcv": rcv},
+                          bstate={**st["bstate"], "src": src.reshape(-1)})
+    return with_state(op, wavelet=wav, sponge=sp, src_idx=src.reshape(()),
+                      rcv_idx=rcv)

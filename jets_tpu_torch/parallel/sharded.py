@@ -97,8 +97,8 @@ def stacked_block_operator(
     ``sstate``: shared tensors, merged into every kernel's state; keys must
     not collide with ``bstate``. ``df``/``f``/``dft`` are batched child
     kernels (see the module docstring); ``dft=None`` and ``stack_dft=None``
-    derive the adjoint of the whole stacked forward with
-    ``torch.func.vjp``. The range is ``(nblocks,) + rng_block.shape``.
+    derive the adjoint with ``torch.func.vjp``: of the whole stacked
+    forward (``vmap``), or of each block's tangent in turn (``map``). The range is ``(nblocks,) + rng_block.shape``.
     ``mesh`` must be None: sharding over devices is not ported yet.
     """
     if mesh is not None:
@@ -128,6 +128,18 @@ def stacked_block_operator(
         "shot_map": shot_map,
     }
     have_adjoint = dft is not None or stack_dft is not None
+    if not have_adjoint and shot_map == "map":
+        # sequential mode: derive the adjoint per block (vjp of that block's
+        # tangent), so one shot's tape is held at a time, as the JAX
+        # package's _auto_child_dft does
+        def _auto_child_dft(d_b, m0, bs, __df=df):
+            prim = m0 if m0 is not None else dom.zeros()
+            _, vjp = torch.func.vjp(lambda dm: __df(dm, m0, bs), prim)
+            (out,) = vjp(d_b)
+            return out[None]
+
+        state["child_dft"] = _auto_child_dft
+        have_adjoint = True
     j = Jet(
         dom=dom,
         rng=rng,

@@ -1,6 +1,6 @@
 """The port stands alone: it never imports JAX, and importing it (and
-solving on the CPU) needs neither nvcc nor triton nor a built kernel
-library."""
+solving, or taking a stored-adjoint wave gradient, on the CPU) needs
+neither nvcc nor triton nor a built kernel library."""
 import os
 import pathlib
 import re
@@ -24,7 +24,13 @@ assert res.iterations == 5 and bool(torch.isfinite(res.history).all())
 g = torch.Generator().manual_seed(0)
 lhs, rhs = tt.dot_product_test(A, A.dom.randn(g), A.rng.randn(g))
 assert abs(float(lhs) - float(rhs)) <= 1e-4 * abs(float(rhs))
-assert kernels._lib is None, "the CPU path loaded the kernel library"
+from jets_tpu_torch.ops.wave import wave_propagator
+F = wave_propagator((6, 8, 16), nt=12, dt=6e-4, src_idx=3 * 128 + 4 * 16 + 8,
+                    sponge_width=2, store_adjoint="int8", fused=True)
+c = torch.full((6, 8, 16), 1500.0)
+g = F.linearize(c).H(F(c * 1.02) - F(c))
+assert g.shape == (6, 8, 16) and bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)
+assert kernels._libs == {}, "the CPU path loaded a kernel library"
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "triton"))
 assert not bad, bad
 print("OK")
@@ -48,9 +54,13 @@ def test_no_module_of_the_port_names_jax_and_the_kernels_ship():
     offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
                  if pat.search(p.read_text())]
     assert not offenders, offenders
-    src = PKG / "csrc" / "solver_kernels.cu"
-    assert src.is_file()
-    text = src.read_text()
-    for entry in ("jt_xw_update", "jt_laplacian3d", "jt_lap3d_axpy_norm2"):
-        assert f"int {entry}(" in text
+    for name, entries in (
+            ("solver_kernels.cu", ("jt_xw_update", "jt_laplacian3d",
+                                   "jt_lap3d_axpy_norm2")),
+            ("wave_kernels.cu", ("jt_leapfrog_step", "jt_adjoint_step"))):
+        src = PKG / "csrc" / name
+        assert src.is_file()
+        text = src.read_text()
+        for entry in entries:
+            assert f"int {entry}(" in text
     assert "triton" not in (PKG / "kernels.py").read_text()
