@@ -10,11 +10,17 @@ through the package's own entry points (``make_seismic_problem``,
 ``lsqr``) — at the repository's full sizes: the 3-D flagship (256³,
 16 shots, 4096 receivers) with and without the fused adjoint epilogue,
 the same problem against the CPU, and the 2-D headline (2048², 64 shots,
-4096 receivers) — and the second path, the 3-D FWI gradient
+4096 receivers) — the second path, the 3-D FWI gradient
 (``wave_propagator``, ``born_operator``, ``multishot_wave_operator``) at
 the sizes of ``bench.py``'s wave stages: 256³ f32, order 2, 128
 receivers, a single-shot forward and int8-stored gradient at nt=220, a
-Born dot-product gate, and 16 shots in ``shot_map="map"`` mode at nt=120.
+Born dot-product gate, and 16 shots in ``shot_map="map"`` mode at nt=120
+— and the third, the 3-D VTI anisotropic FWI gradient
+(``vti_wave_propagator``, ``multishot_vti_wave_operator``) at the size of
+``bench.py``'s VTI stage: 256³ f32, model (c, ε, δ), a forward at nt=220,
+an int8-stored gradient at nt=160 (all three blocks), the card against the
+CPU, a Jacobian dot-product gate with an f32 history, and 16 shots in map
+mode at nt=120.
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after. Every phase asserts; a failure raises and exits
 non-zero.
@@ -84,6 +90,7 @@ def main() -> int:
         seismic_operator_from_arrays,
     )
     from jets_tpu_torch.ops import cuda_solver as cs
+    from jets_tpu_torch.ops import cuda_vti as cv
     from jets_tpu_torch.ops import cuda_wave as cw
     from jets_tpu_torch.solvers import lsqr
 
@@ -208,6 +215,75 @@ def main() -> int:
     log(1, f"K4 bitwise and in place at 256^3, orders 2/4/8; K5 bitwise and in "
            f"place at 256^3 with f32/bf16/int8 histories, orders 2/4/8")
     del a2k, g2k, core, gk, core_r, g_r, ref, upk, out
+
+    # K8, K9 and K10 at the VTI path's shape, every order and history type,
+    # bitwise against the plain versions, in place; fields from a numpy seed,
+    # with C = c²dt², ah = 1+2ε and av = √(1+2δ) from physical (c, ε, δ)
+    rk = np.random.default_rng(7)
+
+    def npf(draw):
+        return torch.from_numpy(draw(wshape).astype(np.float32)).to(dev)
+
+    vpp, vp, vqp, vq, ap1, aq1, ap2, aq2, vgC, vgah, vgav = (
+        npf(rk.standard_normal) for _ in range(11))
+    vc = npf(lambda n: rk.uniform(1400.0, 4500.0, n))
+    vC = (vc * vc) * (5e-4 * 5e-4)
+    vah = 1.0 + 2.0 * npf(lambda n: rk.uniform(0.0, 0.3, n))
+    vav = torch.sqrt(1.0 + 2.0 * npf(lambda n: rk.uniform(-0.1, 0.2, n)))
+    idx2 = torch.tensor(1.0 / (10.0 * 10.0), device=dev)
+    vst = torch.tensor(-0.37, device=dev)  # a negative sample: s_t·0 is -0.0
+    vkw = dict(C=vC, ah=vah, av=vav, spz=spz, sy=spy, sx=spx, inv_dx2=idx2, s_t=vst,
+               src_idx=src_flat, amp=amp)
+    vsc = torch.stack([vp.abs().amax(), vq.abs().amax()])
+    vqf = {"f32": torch.ones(2, device=dev), "bf16": torch.ones(2, device=dev),
+           "int8": torch.full_like(vsc, 127.0) / vsc}
+    vdec = {"f32": torch.ones(2, device=dev), "bf16": torch.ones(2, device=dev),
+            "int8": vsc / torch.full_like(vsc, 127.0)}
+    vhist = {}
+    for k in ("fused_vti_step", "fused_vti_hist_step", "fused_vti_adjoint_step"):
+        err[k] = 0.0
+
+    def maxerr(name, got, ref):
+        err[name] = max(err[name], *(float((a.float() - b.float()).abs().max())
+                                     for a, b in zip(got, ref)))
+
+    for order in (2, 4, 8):
+        ref = cv.fused_vti_step_torch(vpp, vp, vqp, vq, order=order, **vkw)
+        o = (vpp.clone(), vqp.clone())
+        got = cv.fused_vti_step(o[0], vp, o[1], vq, order=order, out=o, **vkw)
+        torch.cuda.synchronize()
+        assert got[0] is o[0] and got[1] is o[1], "K8 not in place"
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), f"K8 not bitwise, order {order}"
+        maxerr("fused_vti_step", got, ref)
+        for store in ("f32", "bf16", "int8"):
+            qf = vqf[store]
+            ref = cv.fused_vti_hist_step_torch(vpp, vp, vqp, vq, qfp=qf[0], qfq=qf[1],
+                                               store=store, order=order, **vkw)
+            o = (vpp.clone(), vqp.clone())
+            got = cv.fused_vti_hist_step(o[0], vp, o[1], vq, qfp=qf[0], qfq=qf[1],
+                                         store=store, order=order, out=o, **vkw)
+            torch.cuda.synchronize()
+            assert got[0] is o[0] and got[1] is o[1], "K9 not in place"
+            assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
+                f"K9 not bitwise (fields, codes, maxima; {store}, order {order})"
+            maxerr("fused_vti_hist_step", got, ref)
+            vhist[store] = (ref[2], ref[3])
+            dsc = vdec[store]
+            args = (vC, vav, vah, *vhist[store], dsc[0], dsc[1], idx2, spz, spy, spx)
+            ref = cv.fused_vti_adjoint_step_torch(ap1, aq1, ap2, aq2, vgC, vgah, vgav,
+                                                  *args, order=order)
+            o = tuple(t.clone() for t in (ap2, aq2, vgC, vgah, vgav))
+            got = cv.fused_vti_adjoint_step(ap1, aq1, *o, *args, order=order,
+                                            inplace=True)
+            torch.cuda.synchronize()
+            assert all(a is b for a, b in zip(got, o)), "K10 not in place"
+            assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
+                f"K10 not bitwise ({store}, order {order})"
+            maxerr("fused_vti_adjoint_step", got, ref)
+    log(1, "K8 bitwise and in place at 256^3, orders 2/4/8; K9 (fields, f32/bf16/int8 "
+           "codes, reduced maxima) and K10 (five outputs) bitwise and in place at 256^3 "
+           "with f32/bf16/int8 histories, orders 2/4/8")
+    del ref, got, o
 
     # ---- phase 2: the 3-D flagship at full width -----------------------------
     grid3, nshots3, nrecv = (256, 256, 256), 16, 4096
@@ -542,15 +618,191 @@ def main() -> int:
                         for k, (sh, wall, n, top) in shares.items())
             + f"; peak device memory {peak_gib:.2f} GiB [{smi}]")
 
+    # ---- phases 14-18: the VTI gradient path, launches counted -----------------
+    from jets_tpu_torch import BlockVector
+    from jets_tpu_torch.ops.wave import multishot_vti_wave_operator, vti_wave_propagator
+
+    def vdelta(before):
+        now = cv.launch_counts()
+        return tuple(now[k] - before[k] for k in ("fused_vti_step", "fused_vti_hist_step",
+                                                   "fused_vti_adjoint_step"))
+
+    def same(a, b, name):
+        """Bitwise equality (every block of a BlockVector), or fail."""
+        pa = a.blocks if isinstance(a, BlockVector) else (a,)
+        pb = b.blocks if isinstance(b, BlockVector) else (b,)
+        for i, (x, y) in enumerate(zip(pa, pb)):
+            live(y, f"{name}[{i}]")
+            assert torch.equal(x, y), f"{name}[{i}] not bitwise: rel {rel(x, y)}"
+        return f"{name} bitwise ({len(pa)} block{'s' * (len(pa) > 1)})"
+
+    def vti_model(dom, c):
+        return BlockVector((c, torch.full(wshape, 0.1, device=dev),
+                            torch.full(wshape, 0.05, device=dev)), dom)
+
+    cv.reset_launch_counts()
+    Fv = vti_wave_propagator(wshape, nt=220, src_idx=src0, **wkw)
+    m_true, m_bg = vti_model(Fv.dom, c_true), vti_model(Fv.dom, c_bg)
+    b = cv.launch_counts()
+    dv_k = Fv(m_true)
+    assert vdelta(b) == (220, 0, 0), vdelta(b)
+    dv_p = vti_wave_propagator(wshape, nt=220, src_idx=src0, fused=False, **wkw)(m_true)
+    assert vdelta(b) == (220, 0, 0), "the plain route launched a kernel"
+    assert dv_k.shape == (220, 128)
+    log(14, "VTI forward 256^3, nt=220, (c, eps, delta) = (1500 + anomalies, 0.1, 0.05): "
+            "K8 launched 220 times; kernel vs plain route " + same(dv_k, dv_p, "traces"))
+    del dv_k, dv_p
+
+    Fg = vti_wave_propagator(wshape, nt=160, src_idx=src0, store_adjoint="int8", **wkw)
+    Fgp = vti_wave_propagator(wshape, nt=160, src_idx=src0, store_adjoint="int8",
+                              fused=False, **wkw)
+    vres = Fg(m_true) - Fg(m_bg)  # a physical residual
+    live(vres, "VTI residual")
+    b = cv.launch_counts()
+    gv_k = Fg.linearize(m_true).H(vres)
+    assert vdelta(b) == (0, 160, 160), vdelta(b)
+    gv_p = Fgp.linearize(m_true).H(vres)
+    assert vdelta(b) == (0, 160, 160), "the plain route launched a kernel"
+    log(15, "VTI int8-stored gradient 256^3, nt=160: K9 160 + K10 160 launches; kernel vs "
+            "plain route " + same(gv_k, gv_p, "(gc, geps, gdelta)"))
+    del gv_k, gv_p, Fgp
+
+    F12 = vti_wave_propagator(wshape, nt=12, src_idx=src0, store_adjoint="int8", **wkw)
+    F12c = vti_wave_propagator(wshape, nt=12, src_idx=src0, store_adjoint="int8",
+                               **{**wkw, "device": "cpu"})
+    m_cpu = BlockVector(tuple(t.cpu() for t in m_true.blocks), F12c.dom)
+    r12 = torch.from_numpy(rs.standard_normal((12, 128)).astype(np.float32))
+    b = cv.launch_counts()
+    t0 = time.perf_counter()
+    d12c, g12c = F12c(m_cpu), F12c.linearize(m_cpu).H(r12)
+    t_cpu = time.perf_counter() - t0
+    assert vdelta(b) == (0, 0, 0), "a CPU run launched a kernel"
+    d12, g12 = F12(m_true), F12.linearize(m_true).H(r12.to(dev))
+    assert vdelta(b) == (12, 12, 12), vdelta(b)
+    g12 = BlockVector(tuple(t.cpu() for t in g12.blocks), F12c.dom)
+    log(16, f"VTI card vs CPU at 256^3, nt=12 (CPU {t_cpu:.1f} s): "
+            + same(d12.cpu(), d12c, "traces") + "; " + same(g12, g12c, "int8 gradient"))
+    del F12c, m_cpu, d12c, g12c, g12
+
+    Fb = vti_wave_propagator(wshape, nt=60, src_idx=src0, store_adjoint="f32", **wkw)
+    J = born_operator(Fb, m_true)
+    gb = torch.Generator().manual_seed(4)
+    mb, db = J.dom.randn(gb), J.rng.randn(gb)
+    b = cv.launch_counts()
+    lhs, rhs = dot_product_test(J, mb, db)
+    assert vdelta(b) == (60, 60, 60), vdelta(b)
+    gate_v = abs(float(lhs) - float(rhs)) / abs(float(rhs))
+    assert gate_v <= 1e-4, f"VTI Jacobian dot-product gate rel {gate_v}"
+    # the same two products of the same f32 vectors, summed in f64: the f32
+    # sums above can round both sides to one value
+    Jm, Jd = J(mb), J.H(db)
+    assert vdelta(b) == (120, 120, 120), vdelta(b)
+    lhs64 = float(torch.vdot(db.double().reshape(-1), Jm.double().reshape(-1)))
+    rhs64 = sum(float(torch.vdot(x.double().reshape(-1), y.double().reshape(-1)))
+                for x, y in zip(Jd.blocks, mb.blocks))
+    gate64 = abs(lhs64 - rhs64) / abs(rhs64)
+    assert gate64 <= 1e-4, f"VTI Jacobian dot-product gate (f64 sums) rel {gate64}"
+    log(17, f"VTI Jacobian 256^3, nt=60, f32 history: dot-product gate rel {gate_v:.3e} "
+            f"(<= 1e-4; <d, J m> = {float(lhs):.6g}), with f64 sums rel {gate64:.3e} "
+            f"(<d, J m> = {lhs64:.9g}, <J^H d, m> = {rhs64:.9g}); launches K8 60 "
+            f"(tangent through the autograd Function), K9 60 + K10 60 (adjoint), twice")
+    del Jm, Jd
+    del J, Fb, mb
+
+    Fvm = multishot_vti_wave_operator(wshape, msrc, nt=120, **mkw)
+    b = cv.launch_counts()
+    dvm = Fvm(m_true)
+    assert vdelta(b) == (nsh * 120, 0, 0), vdelta(b)
+    assert dvm.shape == (nsh, 120, 128)
+    gvm = Fvm.linearize(m_true).H(torch.ones(dvm.shape, device=dev))
+    assert vdelta(b) == (nsh * 120, nsh * 120, nsh * 120), vdelta(b)
+    for i, blk in enumerate(gvm.blocks):
+        live(blk, f"VTI multishot gradient[{i}]")
+    n_vti = cv.launch_counts()
+    dv0 = vti_wave_propagator(wshape, nt=120, src_idx=int(msrc[0]), **wkw)(m_true)
+    Fvm2 = multishot_vti_wave_operator(wshape, msrc[:2], nt=120, **mkw)
+    gvm2 = Fvm2.linearize(m_true).H(torch.ones((2, 120, 128), device=dev))
+    g1 = [vti_wave_propagator(wshape, nt=120, src_idx=int(sidx), store_adjoint="int8",
+                              **wkw).linearize(m_true).H(torch.ones((120, 128), device=dev))
+          for sidx in msrc[:2]]
+    log(18, f"VTI multishot 256^3, {nsh} shots, nt=120, map, int8: launches forward K8 "
+            f"{nsh * 120}, gradient K9 {nsh * 120} + K10 {nsh * 120}; "
+            + same(dvm[0], dv0, "shot 0 vs single shot") + "; "
+            + same(gvm2, g1[0] + g1[1], "2-shot gradient vs sum of single shots"))
+    vti_path = {k: n_vti[k] for k in ("fused_vti_step", "fused_vti_hist_step",
+                                      "fused_vti_adjoint_step")}
+    for name, n in vti_path.items():
+        assert n > 0, f"kernel {name} was not launched on the VTI path"
+    del dvm, gvm, Fvm, Fvm2, gvm2, g1, dv0
+
+    # ---- phase 19: VTI times ------------------------------------------------------
+    def vfwd(op, n):
+        return op(m_true)
+
+    def vgrad(op, n):
+        return op.linearize(m_true).H(torch.ones(op.rng.shape, device=dev))
+
+    def vsingle(**kw):
+        return lambda n: vti_wave_propagator(wshape, nt=n, src_idx=src0, **wkw, **kw)
+
+    def vmulti(n):
+        return multishot_vti_wave_operator(wshape, msrc, nt=n, **mkw)
+
+    vus = {
+        "forward": us_per_step(vsingle(), vfwd, 20, 220),
+        "forward_plain": us_per_step(vsingle(fused=False), vfwd, 20, 220),
+        "gradient": us_per_step(vsingle(store_adjoint="int8"), vgrad, 20, 160),
+        "gradient_plain": us_per_step(vsingle(store_adjoint="int8", fused=False), vgrad,
+                                      20, 160),
+        "multishot_forward": us_per_step(vmulti, vfwd, 20, 120, reps=1, per=nsh),
+        "multishot_gradient": us_per_step(vmulti, vgrad, 20, 120, reps=1, per=nsh),
+    }
+    qf8, dec8, (pe8, qe8) = vqf["int8"], vdec["int8"], vhist["int8"]
+    adj8 = (ap1, aq1, ap2, aq2, vgC, vgah, vgav, vC, vav, vah, pe8, qe8, dec8[0], dec8[1],
+            idx2, spz, spy, spx)
+    kt["fused_vti_step"] = (
+        cuda_ms(lambda: cv.fused_vti_step(vpp, vp, vqp, vq, **vkw), 20),
+        cuda_ms(lambda: cv.fused_vti_step_torch(vpp, vp, vqp, vq, **vkw), 20))
+    kt["fused_vti_hist_step"] = (
+        cuda_ms(lambda: cv.fused_vti_hist_step(vpp, vp, vqp, vq, qfp=qf8[0], qfq=qf8[1],
+                                               **vkw), 20),
+        cuda_ms(lambda: cv.fused_vti_hist_step_torch(vpp, vp, vqp, vq, qfp=qf8[0],
+                                                     qfq=qf8[1], **vkw), 20))
+    kt["fused_vti_adjoint_step"] = (
+        cuda_ms(lambda: cv.fused_vti_adjoint_step(*adj8), 20),
+        cuda_ms(lambda: cv.fused_vti_adjoint_step_torch(*adj8), 20))
+    Fvprof = vti_wave_propagator(wshape, nt=40, src_idx=src0, store_adjoint="int8", **wkw)
+    vshares = {"forward": busy_share(lambda: Fvprof(m_true)),
+               "gradient": busy_share(lambda: vgrad(Fvprof, 40))}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(19, "VTI us/step (marginal, CUDA events): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in vus.items())
+            + "; kernel vs plain at 256^3 "
+            + ", ".join(f"{k} {1e3 * kt[k][0]:.1f} vs {1e3 * kt[k][1]:.1f} us"
+                        for k in ("fused_vti_step", "fused_vti_hist_step",
+                                  "fused_vti_adjoint_step"))
+            + "; device busy share under the profiler (nt=40): "
+            + ", ".join(f"{k} {'not measured' if sh is None else f'{sh:.3f}'} of "
+                        f"{wall:.2f} ms ({n} device events; top kernels, us total/"
+                        f"count: " + "; ".join(f"{nm} {t:.0f}/{c}" for nm, (t, c) in top)
+                        + ")"
+                        for k, (sh, wall, n, top) in vshares.items())
+            + f"; peak device memory {peak_gib:.2f} GiB [{smi}]")
+
     main_path.update(wave_path)
+    main_path.update(vti_path)
     sources = {"solver": "jets_tpu_torch/csrc/solver_kernels.cu",
-               "wave": "jets_tpu_torch/csrc/wave_kernels.cu"}
+               "wave": "jets_tpu_torch/csrc/wave_kernels.cu",
+               "vti": "jets_tpu_torch/csrc/vti_kernels.cu"}
     replaces = {
         "xw_update": ("solver", "jets_tpu/ops/pallas_solver.py:104"),
         "lap3d_axpy_norm2": ("solver", "jets_tpu/ops/pallas_solver.py:410"),
         "laplacian3d": ("solver", "jets_tpu/ops/pallas_solver.py:446"),
         "fused_leapfrog_step": ("wave", "jets_tpu/ops/pallas_wave.py:274"),
         "fused_adjoint_step": ("wave", "jets_tpu/ops/pallas_wave.py:1203"),
+        "fused_vti_step": ("vti", "jets_tpu/ops/pallas_wave.py:501"),
+        "fused_vti_hist_step": ("vti", "jets_tpu/ops/pallas_wave.py:544"),
+        "fused_vti_adjoint_step": ("vti", "jets_tpu/ops/pallas_wave.py:1660"),
     }
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[lib], "replaces": where,

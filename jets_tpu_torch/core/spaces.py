@@ -10,8 +10,8 @@ of ``jax.random`` keys). The generator may live on another device than the
 space; the draw is made on the generator's device and moved, so a CPU
 generator gives the same numbers whatever the space's device.
 
-``SymmetricSpace``, ``MappedSymmetricSpace`` and ``BlockSpace`` are not
-ported yet: nothing on the seismic LSQR path uses them.
+``BlockSpace`` lives in :mod:`jets_tpu_torch.core.blockspace`.
+``SymmetricSpace`` and ``MappedSymmetricSpace`` are not ported yet.
 """
 from __future__ import annotations
 

@@ -11,9 +11,9 @@ missing library, all at once, and waits for them.
 
 Nothing here runs at import time: importing the package needs neither
 ``nvcc`` nor a GPU. On a machine without CUDA the wrappers in
-:mod:`jets_tpu_torch.ops.cuda_solver` and :mod:`jets_tpu_torch.ops.cuda_wave`
-only ever take their plain PyTorch versions (for CPU tensors), and never
-reach :func:`load_library`.
+:mod:`jets_tpu_torch.ops.cuda_solver`, :mod:`jets_tpu_torch.ops.cuda_wave`
+and :mod:`jets_tpu_torch.ops.cuda_vti` only ever take their plain PyTorch
+versions (for CPU tensors), and never reach :func:`load_library`.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ _PKG = Path(__file__).resolve().parent
 SOURCES = {
     "solver": _PKG / "csrc" / "solver_kernels.cu",
     "wave": _PKG / "csrc" / "wave_kernels.cu",
+    "vti": _PKG / "csrc" / "vti_kernels.cu",
 }
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -57,6 +58,14 @@ _SIGNATURES = {
         "jt_error_string": ([_INT], ctypes.c_char_p),
         "jt_leapfrog_step": ([_P] * 8 + [_I64, _P] + [_I64] * 3 + [_INT, _P], _INT),
         "jt_adjoint_step": ([_P] * 11 + [_I64] * 3 + [_INT, _INT, _P], _INT),
+    },
+    "vti": {
+        "jt_error_string": ([_INT], ctypes.c_char_p),
+        "jt_vti_num_partials": ([_I64] * 3, _I64),
+        "jt_vti_step": ([_P] * 13 + [_I64] + [_P] * 2 + [_I64] * 3 + [_INT, _P], _INT),
+        "jt_vti_hist_step": ([_P] * 15 + [_I64] + [_P] * 5 + [_I64] * 3
+                             + [_INT, _INT, _P], _INT),
+        "jt_vti_adjoint_step": ([_P] * 23 + [_I64] * 3 + [_INT, _INT, _P], _INT),
     },
 }
 

@@ -52,9 +52,10 @@ _STORE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def fits_wave_kernel(shape, dtype, order: int) -> bool:
-    """True when K4/K5 take a grid: 3-D float32, order 2/4/8, and a grid the
-    launch limits admit (one block row of 8 per y-block, one z-plane per
-    gridDim.z)."""
+    """True when K4/K5 (and the VTI kernels K8–K10 of :mod:`.cuda_vti`,
+    which launch alike) take a grid: 3-D float32, order 2/4/8, and a grid
+    the launch limits admit (one block row of 8 per y-block, one z-plane
+    per gridDim.z)."""
     if len(shape) != 3 or dtype != torch.float32 or order not in _D2_COEFFS:
         return False
     D, H, W = (int(s) for s in shape)

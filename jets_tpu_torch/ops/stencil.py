@@ -4,8 +4,10 @@
 :func:`laplacian_nd` keeps the JAX package's floating-point add tree, so on
 the same inputs it is bitwise equal to the eager (non-jitted)
 ``jets_tpu.ops.stencil.laplacian_nd``; the hand-written 3-D CUDA kernel
-(``ops/cuda_solver.laplacian3d``) keeps it too. ``stencil_operator`` and
-``blur2d_operator`` are not ported yet.
+(``ops/cuda_solver.laplacian3d``) keeps it too. :func:`d2_axis` is the
+one-axis second derivative of the anisotropic wave physics (the JAX
+package's ``ops/wave._d2_axis``), with its own tree. ``stencil_operator``
+and ``blur2d_operator`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch.nn.functional as F
 from ..core.jet import Jet, LinearOperator
 from ..core.spaces import Space
 
-__all__ = ["laplacian_nd", "laplacian_operator"]
+__all__ = ["laplacian_nd", "d2_axis", "laplacian_operator"]
 
 # Central finite-difference coefficients of the second derivative,
 # (c0, (c1, c2, ...)): d²u/dx² ≈ (c0*u[i] + Σ_s c_s*(u[i-s]+u[i+s])) / h².
@@ -58,6 +60,27 @@ def laplacian_nd(x: torch.Tensor, order: int = 2) -> torch.Tensor:
             else:
                 out = out + c * (xp[lo] + xp[hi])
     return out
+
+
+def d2_axis(x: torch.Tensor, ax: int, inv_dx2, order: int = 2) -> torch.Tensor:
+    """Second derivative along ``ax`` with a zero boundary: the tree
+    ``(c0·x + Σ_s c_s·(x[i+s] + x[i−s]))·inv_dx2`` of the JAX package's
+    ``ops/wave._d2_axis``, bitwise equal to it when eager."""
+    c0, cs = _D2_COEFFS[order]
+    hw = len(cs)
+    nd = x.ndim
+    pad = [0] * (2 * nd)
+    pad[2 * (nd - 1 - ax)] = pad[2 * (nd - 1 - ax) + 1] = hw
+    xp = F.pad(x, pad)
+    n = x.shape[ax]
+
+    def shifted(s):
+        return xp.narrow(ax, hw + s, n)
+
+    out = c0 * x
+    for s, c in enumerate(cs, start=1):
+        out = out + c * (shifted(s) + shifted(-s))
+    return out * inv_dx2
 
 
 def _laplacian_df(dm, m0, state):

@@ -1,5 +1,6 @@
-"""Isotropic acoustic wave operators (counterpart of the isotropic part of
-``jets_tpu/ops/wave.py``, with the same names).
+"""Isotropic and VTI anisotropic acoustic wave operators (counterpart of
+the isotropic and VTI parts of ``jets_tpu/ops/wave.py``, with the same
+names).
 
 Physics: constant-density acoustic wave equation, 2nd order in time,
 orders 2/4/8 in space, time-stepped by an explicit leapfrog with a sponge
@@ -16,20 +17,28 @@ taper at the boundaries::
 * :func:`multishot_wave_operator` — one propagator per shot, stacked over
   shots (``shot_map="map"``: a loop over shots, each on the kernels;
   ``"vmap"``: one batched plain program).
+* :func:`vti_wave_propagator` and :func:`multishot_vti_wave_operator` —
+  the pseudo-acoustic VTI system (two coupled fields p, q; model
+  ``(c, ε, δ)`` on a ``BlockSpace([grid, grid, grid])``), with the same
+  tangent, autodiff adjoint and stored two-field-history adjoint.
 
-On a 3-D float32 grid on a CUDA card the forward step is the hand-written
-kernel K4 (:func:`cuda_wave.fused_leapfrog_step`) and the reverse step of
-the stored adjoint K5 (:func:`cuda_wave.fused_adjoint_step`); elsewhere, and
-with ``fused=False``, the plain PyTorch step with the same floating-point
-tree. The JAX package pairs two steps per ``lax.scan`` iteration on the TPU
-to avoid carry copies; a Python loop rotates ``(u_prev, u) → (u, u_next)``
-for free, so the port steps one at a time and writes ``u_next`` into
-``u_prev``'s buffer on sweeps that no autodiff transform watches.
+On a 3-D float32 grid on a CUDA card the isotropic forward step is the
+hand-written kernel K4 (:func:`cuda_wave.fused_leapfrog_step`) and the
+reverse step of its stored adjoint K5 (:func:`cuda_wave.fused_adjoint_step`);
+the VTI step is K8 (:func:`cuda_vti.fused_vti_step`), its stored adjoint's
+forward sweep K9 (:func:`cuda_vti.fused_vti_hist_step`, which also encodes
+the history) and reverse sweep K10 (:func:`cuda_vti.fused_vti_adjoint_step`).
+Elsewhere, and with ``fused=False``, the plain PyTorch step with the same
+floating-point tree runs. The JAX package pairs two steps per ``lax.scan``
+iteration on the TPU to avoid carry copies; a Python loop rotates
+``(u_prev, u) → (u, u_next)`` for free, so the port steps one at a time and
+writes ``u_next`` into ``u_prev``'s buffer on sweeps that no autodiff
+transform watches.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): ``remat_blocks > 1``, ``wavefield_sharding``, custom source masks
-and extractors (off-grid geometry), ginsu windows, CPML boundaries and
-``mesh=``.
+and extractors (off-grid geometry), ginsu windows, CPML boundaries,
+static Q (``q=``) and ``mesh=``.
 """
 from __future__ import annotations
 
@@ -39,16 +48,20 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.blockspace import BlockSpace, BlockVector
 from ..core.jet import Jet, LinearOperator, Operator, with_state
 from ..core.spaces import Space
 from ..parallel.sharded import stacked_block_operator
-from . import cuda_wave
+from ..utils.tree import tmap
+from . import cuda_vti, cuda_wave
 from .stencil import laplacian_nd as _laplacian
 
 __all__ = [
     "wave_propagator",
     "born_operator",
     "multishot_wave_operator",
+    "vti_wave_propagator",
+    "multishot_vti_wave_operator",
     "with_wave_arrays",
 ]
 
@@ -461,56 +474,134 @@ def wave_propagator(
     if fused and not cuda_wave.fits_wave_kernel(grid_shape, dtype, space_order):
         raise ValueError("fused wave step requires a 3-D float32 grid")
     sp = Space(grid_shape, dtype, device)
-    rcv = _index_tensor(_default_receivers(sp.size) if rcv_idx is None else rcv_idx,
-                        sp.device)
-    ntrec, resample = _trace_resampler(nt, dt, dtrec, dtype)
-    rng = Space((ntrec, int(rcv.shape[0])), dtype, device)
-    cfg = dict(dt=dt, dx=dx, order=space_order)
-
-    def _forward(c, state, inplace):
-        traces = _propagate(c, state["wavelet"], state["src_idx"], state["rcv_idx"],
-                            sponge=state["sponge"], fused=fused, inplace=inplace,
-                            **cfg)
-        return resample(traces) if resample is not None else traces
-
-    def _f(c, state):
-        return _forward(c, state, True)
-
-    def _df(dc, m0, state):
-        _, tangent = torch.func.jvp(lambda c: _forward(c, state, False), (m0,), (dc,))
-        return tangent
-
-    if store_adjoint is None:
-        def _dft(dd, m0, state):
-            _, vjp = torch.func.vjp(lambda c: _forward(c, state, False), m0)
-            (out,) = vjp(dd)
-            return out
-    else:
-        rt = (_resample_transpose(resample, nt, int(rcv.shape[0]), dtype)
-              if resample is not None else None)
-
-        def _dft(dd, m0, state):
-            if rt is not None:
-                dd = rt(dd)
-            return _adjoint_stored(m0, dd, state["wavelet"], state["src_idx"],
-                                   state["rcv_idx"], sponge=state["sponge"],
-                                   store=store_adjoint, fused=fused, **cfg)
-
-    sponge = _make_sponge(grid_shape, sponge_width, free_surface=free_surface,
-                          dtype=dtype)
-    j = Jet(dom=sp, rng=rng, f=_f, df=_df, dft=_dft, state={
-        "wavelet": _ricker(nt, dt, freq, dtype).to(sp.device),
-        "sponge": _to_device(sponge, sp.device),
-        "src_idx": torch.tensor(int(src_idx), dtype=torch.int64),
-        "rcv_idx": rcv,
-    })
-    return Operator(j)
+    return _single_shot_operator(
+        sp, sp, _propagate, _adjoint_stored, nt=nt, dt=dt, dx=dx, freq=freq,
+        src_idx=src_idx, rcv_idx=rcv_idx, dtrec=dtrec, store_adjoint=store_adjoint,
+        fused=fused, order=space_order,
+        sponge=_make_sponge(grid_shape, sponge_width, free_surface=free_surface,
+                            dtype=dtype))
 
 
 def _to_device(sponge, device):
     if isinstance(sponge, tuple):
         return tuple(f.to(device) for f in sponge)
     return sponge.to(device)
+
+
+def _single_shot_operator(dom, gsp, propagate, adjoint, *, nt, dt, dx, freq, src_idx,
+                          rcv_idx, sponge, dtrec, store_adjoint, fused, order):
+    """The single-shot propagator of :func:`wave_propagator` and
+    :func:`vti_wave_propagator` on the model space ``dom`` (grid space
+    ``gsp``): ``propagate(m, wavelet, src, rcv, *, sponge, inplace, ...)``
+    runs the time loop, ``adjoint(m, dd, wavelet, src, rcv, *, sponge,
+    store, ...)`` the stored-history sweep. The tangent is ``torch.func.jvp``
+    through the loop, the adjoint ``torch.func.vjp`` through it or, with
+    ``store_adjoint``, the stored sweep."""
+    dtype = gsp.dtype
+    rcv = _index_tensor(_default_receivers(gsp.size) if rcv_idx is None else rcv_idx,
+                        gsp.device)
+    nrcv = int(rcv.shape[0])
+    ntrec, resample = _trace_resampler(nt, dt, dtrec, dtype)
+    cfg = dict(dt=dt, dx=dx, order=order, fused=fused)
+
+    def _forward(m, state, inplace):
+        traces = propagate(m, state["wavelet"], state["src_idx"], state["rcv_idx"],
+                           sponge=state["sponge"], inplace=inplace, **cfg)
+        return resample(traces) if resample is not None else traces
+
+    def _f(m, state):
+        return _forward(m, state, True)
+
+    def _df(dm, m0, state):
+        _, tangent = torch.func.jvp(lambda m: _forward(m, state, False), (m0,), (dm,))
+        return tangent
+
+    if store_adjoint is None:
+        def _dft(dd, m0, state):
+            _, vjp = torch.func.vjp(lambda m: _forward(m, state, False), m0)
+            (out,) = vjp(dd)
+            return out
+    else:
+        rt = (_resample_transpose(resample, nt, nrcv, dtype)
+              if resample is not None else None)
+
+        def _dft(dd, m0, state):
+            if rt is not None:
+                dd = rt(dd)
+            return adjoint(m0, dd, state["wavelet"], state["src_idx"], state["rcv_idx"],
+                           sponge=state["sponge"], store=store_adjoint, **cfg)
+
+    j = Jet(dom=dom, rng=Space((ntrec, nrcv), dtype, gsp.device), f=_f, df=_df,
+            dft=_dft, state={
+                "wavelet": _ricker(nt, dt, freq, dtype).to(gsp.device),
+                "sponge": _to_device(sponge, gsp.device),
+                "src_idx": torch.tensor(int(src_idx), dtype=torch.int64),
+                "rcv_idx": rcv,
+            })
+    return Operator(j)
+
+
+def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx, freq,
+                        rcv_idx, sponge, dtrec, store_adjoint, shot_map, order):
+    """The multi-shot propagator of :func:`multishot_wave_operator` and
+    :func:`multishot_vti_wave_operator` (``propagate``/``adjoint`` as for
+    :func:`_single_shot_operator`): the shots' source indices are the
+    stacked block state, everything else is shared. ``shot_map="map"`` runs
+    the shots one after another with ``fused=None`` (the kernels where they
+    apply), ``"vmap"`` as one ``torch.func.vmap`` of the plain step."""
+    dtype = gsp.dtype
+    src = _index_tensor(src_indices, "cpu")
+    rcv = _index_tensor(_default_receivers(gsp.size) if rcv_idx is None else rcv_idx,
+                        gsp.device)
+    nrcv = int(rcv.shape[0])
+    ntrec, resample = _trace_resampler(nt, dt, dtrec, dtype)
+    rt = (_resample_transpose(resample, nt, nrcv, dtype)
+          if resample is not None else None)
+    is_map = shot_map == "map"
+    cfg = dict(dt=dt, dx=dx, order=order, fused=None if is_map else False)
+
+    def shot_f(m, s, st, inplace):
+        traces = propagate(m, st["wavelet"], s, st["rcv"], sponge=st["sponge"],
+                           inplace=inplace, **cfg)
+        return resample(traces) if resample is not None else traces
+
+    def child(m, bs, inplace):
+        if is_map:
+            return shot_f(m, bs["src"][0], bs, inplace)[None]
+        return torch.func.vmap(lambda s: shot_f(m, s, bs, False))(bs["src"])
+
+    def f(m, bs):
+        return child(m, bs, True)
+
+    def df(dm, m0, bs):
+        _, tangent = torch.func.jvp(lambda m: child(m, bs, False), (m0,), (dm,))
+        return tangent
+
+    dft = None
+    if store_adjoint is not None:
+        def shot_dft(d, m0, s, st):
+            if rt is not None:
+                d = rt(d)
+            return adjoint(m0, d, st["wavelet"], s, st["rcv"], sponge=st["sponge"],
+                           store=store_adjoint, **cfg)
+
+        def dft(d_b, m0, bs):
+            if is_map:
+                return tmap(lambda t: t[None], shot_dft(d_b[0], m0, bs["src"][0], bs))
+            return torch.func.vmap(lambda d, s: shot_dft(d, m0, s, bs))(d_b, bs["src"])
+
+    return stacked_block_operator(
+        nblocks=int(src.shape[0]),
+        dom=dom,
+        rng_block=Space((ntrec, nrcv), dtype, gsp.device),
+        bstate={"src": src},
+        sstate={"wavelet": _ricker(nt, dt, freq, dtype).to(gsp.device),
+                "sponge": _to_device(sponge, gsp.device), "rcv": rcv},
+        f=f,
+        df=df,
+        dft=dft,
+        shot_map=shot_map,
+    )
 
 
 def born_operator(F: Operator, c0) -> LinearOperator:
@@ -573,67 +664,362 @@ def multishot_wave_operator(
     if remat_blocks > 1:
         raise _not_ported("remat_blocks > 1", "12")
     sp = Space(grid_shape, dtype, device)
-    src = _index_tensor(src_indices, "cpu")
-    nshots = int(src.shape[0])
-    rcv = _index_tensor(_default_receivers(sp.size) if rcv_idx is None else rcv_idx,
-                        sp.device)
-    nrcv = int(rcv.shape[0])
-    ntrec, resample = _trace_resampler(nt, dt, dtrec, dtype)
-    rt = (_resample_transpose(resample, nt, nrcv, dtype)
-          if resample is not None else None)
-    cfg = dict(dt=dt, dx=dx, order=space_order)
-    is_map = shot_map == "map"
+    return _multishot_operator(
+        sp, sp, _propagate, _adjoint_stored, src_indices, nt=nt, dt=dt, dx=dx,
+        freq=freq, rcv_idx=rcv_idx, dtrec=dtrec, store_adjoint=store_adjoint,
+        shot_map=shot_map, order=space_order,
+        sponge=_make_sponge(grid_shape, sponge_width, free_surface=free_surface,
+                            dtype=dtype))
 
-    def shot_f(c, s, st, inplace):
-        traces = _propagate(c, st["wavelet"], s, st["rcv"], sponge=st["sponge"],
-                            fused=None if is_map else False, inplace=inplace, **cfg)
-        return resample(traces) if resample is not None else traces
 
-    def child(c, bs, inplace):
-        if is_map:
-            return shot_f(c, bs["src"][0], bs, inplace)[None]
-        return torch.func.vmap(lambda s: shot_f(c, s, bs, False))(bs["src"])
+# ---------------------------------------------------------------------------
+# VTI anisotropy: the pseudo-acoustic coupled p/q system (axis 0 = z)
+#     p_tt = c²[(1+2ε)·Lh(p) + √(1+2δ)·∂zz(q)] + s
+#     q_tt = c²[√(1+2δ)·Lh(p) + ∂zz(q)] + s
+# Model (c, ε, δ) on a BlockSpace([grid, grid, grid]). Each axis of Lh and
+# ∂zz is scaled by 1/dx² on its own (stencil.d2_axis), not folded into c²dt²
+# as the isotropic step folds it.
+# ---------------------------------------------------------------------------
 
-    def f(m, bs):
-        return child(m, bs, True)
 
-    def df(dm, m0, bs):
-        _, tangent = torch.func.jvp(lambda c: child(c, bs, False), (m0,), (dm,))
-        return tangent
+def _vti_coefficients(c, eps, delta, dt: float, dx: float):
+    """``(C, ah, av, inv_dx2)``: ``C = (c·c)·(dt·dt)``, ``ah = 1 + 2ε``,
+    ``av = √(1 + 2δ)`` and ``1/dx²`` as a 0-d tensor, rounded as the JAX
+    package rounds them. PyTorch's vectorised float32 square root on the
+    CPU is not correctly rounded (1 ulp off for ~0.6% of inputs), JAX's
+    and CUDA's are; a float64 root rounded to float32 is, so ``av`` is
+    taken that way and the CPU, the card and JAX agree bit for bit."""
+    C = (c * c) * (dt * dt)
+    ah = 1.0 + 2.0 * eps
+    av = 1.0 + 2.0 * delta
+    av = (torch.sqrt(av.double()).to(av.dtype) if av.dtype == torch.float32
+          else torch.sqrt(av))
+    return C, ah, av, torch.tensor(1.0 / (dx * dx), dtype=c.dtype, device=c.device)
 
-    dft = None
-    if store_adjoint is not None:
-        def shot_dft(d, m0, s, st):
-            if rt is not None:
-                d = rt(d)
-            return _adjoint_stored(m0, d, st["wavelet"], s, st["rcv"],
-                                   sponge=st["sponge"], store=store_adjoint,
-                                   fused=None if is_map else False, **cfg)
 
-        def dft(d_b, m0, bs):
-            if is_map:
-                return shot_dft(d_b[0], m0, bs["src"][0], bs)[None]
-            return torch.func.vmap(lambda d, s: shot_dft(d, m0, s, bs))(d_b, bs["src"])
+class _VtiStep(torch.autograd.Function):
+    """K8 under autodiff (the counterpart of the ``custom_jvp`` around the
+    Pallas VTI step in ``jets_tpu/ops/wave.py``): the forward is the kernel,
+    writing fresh tensors; the tangent is the plain expression
+    ``dp_next = S⊙(2dp − dpp + dC·(ah·Lh(p) + av·∂zz(q)) + C·(dah·Lh(p) +
+    ah·Lh(dp) + dav·∂zz(q) + av·∂zz(dq))) + dst·mask`` (and ``dq_next``
+    likewise) and the backward its transpose, both plain PyTorch."""
 
-    sponge = _make_sponge(grid_shape, sponge_width, free_surface=free_surface,
-                          dtype=dtype)
-    return stacked_block_operator(
-        nblocks=nshots,
-        dom=sp,
-        rng_block=Space((ntrec, nrcv), dtype, device),
-        bstate={"src": src},
-        sstate={"wavelet": _ricker(nt, dt, freq, dtype).to(sp.device),
-                "sponge": _to_device(sponge, sp.device), "rcv": rcv},
-        f=f,
-        df=df,
-        dft=dft,
-        shot_map=shot_map,
-    )
+    @staticmethod
+    def forward(p_prev, p, q_prev, q, C, ah, av, s_t, spz, sy, sx, inv_dx2, src, amp,
+                order):
+        return cuda_vti.fused_vti_step(p_prev, p, q_prev, q, C, ah, av, spz, sy, sx,
+                                       inv_dx2, s_t, src, amp, order=order)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, p, _, q, C, ah, av, _, spz, sy, sx, inv_dx2, src, amp, order = inputs
+        ctx.save_for_backward(p, q, C, ah, av, spz, sy, sx, inv_dx2, amp)
+        ctx.save_for_forward(p, q, C, ah, av, spz, sy, sx, inv_dx2, amp)
+        ctx.src, ctx.order = src, order
+
+    @staticmethod
+    def jvp(ctx, dpp, dp, dqp, dq, dC, dah, dav, dst, *_):
+        p, q, C, ah, av, spz, sy, sx, inv_dx2, amp = ctx.saved_tensors
+        o = ctx.order
+        zero = torch.zeros_like(p)
+        dpp, dp, dqp, dq, dC, dah, dav = (zero if t is None else t
+                                          for t in (dpp, dp, dqp, dq, dC, dah, dav))
+        lhp, dzq = cuda_vti.lh(p, inv_dx2, o), cuda_vti.dzz(q, inv_dx2, o)
+        dlh, ddz = cuda_vti.lh(dp, inv_dx2, o), cuda_vti.dzz(dq, inv_dx2, o)
+        S = cuda_wave.sponge_product(spz, sy, sx)
+        dpn = (2.0 * dp - dpp + dC * (ah * lhp + av * dzq)
+               + C * (dah * lhp + ah * dlh + dav * dzq + av * ddz)) * S
+        dqn = (2.0 * dq - dqp + dC * (av * lhp + dzq)
+               + C * (dav * lhp + av * dlh + ddz)) * S
+        if dst is not None:
+            m = dst * cuda_wave.source_mask(p.shape, ctx.src, amp)
+            dpn, dqn = dpn + m, dqn + m
+        return dpn, dqn
+
+    @staticmethod
+    def backward(ctx, gpn, gqn):
+        p, q, C, ah, av, spz, sy, sx, inv_dx2, amp = ctx.saved_tensors
+        o = ctx.order
+        S = cuda_wave.sponge_product(spz, sy, sx)
+        gp, gq = gpn * S, gqn * S
+        lhp, dzq = cuda_vti.lh(p, inv_dx2, o), cuda_vti.dzz(q, inv_dx2, o)
+        d_p = (2.0 * gp + cuda_vti.lh(C * ah * gp, inv_dx2, o)
+               + cuda_vti.lh(C * av * gq, inv_dx2, o))
+        d_q = (2.0 * gq + cuda_vti.dzz(C * av * gp, inv_dx2, o)
+               + cuda_vti.dzz(C * gq, inv_dx2, o))
+        d_C = (ah * lhp + av * dzq) * gp + (av * lhp + dzq) * gq
+        d_ah = C * lhp * gp
+        d_av = C * (dzq * gp + lhp * gq)
+        d_st = torch.sum((gpn + gqn) * cuda_wave.source_mask(p.shape, ctx.src, amp))
+        return (-gp, d_p, -gq, d_q, d_C, d_ah, d_av, d_st) + (None,) * 7
+
+
+def _propagate_vti(c, eps, delta, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
+                   order: int = 2, fused=None, inplace: bool = False):
+    """Coupled VTI leapfrog; returns the p-field receiver traces
+    ``(nt, nrcv)``. ``fused`` and ``inplace`` as for :func:`_propagate`: on
+    the kernel route the step is K8, in place on sweeps no transform
+    watches and inside :class:`_VtiStep` otherwise."""
+    shape, dtype, dev = c.shape, c.dtype, c.device
+    nt = int(src_wavelet.shape[0])
+    C, ah, av, inv_dx2 = _vti_coefficients(c, eps, delta, dt, dx)
+    amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
+    kernel = _kernel_route(fused, c, sponge, order)
+    inplace = inplace and not (torch.is_grad_enabled()
+                               and any(t.requires_grad for t in (c, eps, delta)))
+    pp, p, qp, q = (torch.zeros(shape, dtype=dtype, device=dev) for _ in range(4))
+    nrcv = int(rcv_idx.shape[0])
+    traces = torch.empty((nt, nrcv), dtype=dtype, device=dev) if inplace else []
+
+    if kernel:
+        spz, sy, sx = _factors_1d(sponge)
+        src = int(src_idx)
+        if inplace:
+            def step(pp, p, qp, q, s_t):
+                return cuda_vti.fused_vti_step(pp, p, qp, q, C, ah, av, spz, sy, sx,
+                                               inv_dx2, s_t, src, amp, order=order,
+                                               out=(pp, qp))
+        else:
+            def step(pp, p, qp, q, s_t):
+                return _VtiStep.apply(pp, p, qp, q, C, ah, av, s_t, spz, sy, sx,
+                                      inv_dx2, src, amp, order)
+    else:
+        S = _sponge_full(sponge)
+        mask = cuda_wave.source_mask(shape, src_idx, amp)
+
+        def step(pp, p, qp, q, s_t):
+            return cuda_vti.vti_plain(pp, p, qp, q, C, ah, av, S, inv_dx2, s_t, mask,
+                                      order)
+
+    for k in range(nt):
+        p_next, q_next = step(pp, p, qp, q, src_wavelet[k])
+        if inplace:
+            torch.index_select(p_next.reshape(-1), 0, rcv_idx, out=traces[k])
+        else:
+            traces.append(p_next.reshape(-1).index_select(0, rcv_idx))
+        pp, p, qp, q = p, p_next, q, q_next
+    return traces if inplace else torch.stack(traces)
+
+
+def _adjoint_stored_vti(c, eps, delta, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx,
+                        sponge, order: int = 2, store: str = "int8", fused=None):
+    """Adjoint-state gradient ``(∂F/∂(c, ε, δ))ᵀ dd`` over a stored two-field
+    forward history, encoded per snapshot (``store``: f32, bf16, int8).
+    With ``ēp = S⊙ap₊``, ``ēq = S⊙aq₊``, ``C = c²dt²``::
+
+        ap  = Pᵀḡ + 2ēp + Lh(C·ah·ēp) + Lh(C·av·ēq) − ēp₊
+        aq  =       2ēq + ∂zz(C·av·ēp) + ∂zz(C·ēq)  − ēq₊
+        gC  += (ah·Lh(p_k) + av·∂zz(q_k))⊙ēp + (av·Lh(p_k) + ∂zz(q_k))⊙ēq
+        gah += C·Lh(p_k)⊙ēp
+        gav += C·(∂zz(q_k)⊙ēp + Lh(p_k)⊙ēq)
+
+    and the outer chain ``gc = gC·(2c)·dt²``, ``gε = 2·gah``,
+    ``gδ = gav/av``. On the kernel route the forward sweep is K9 (in place;
+    it encodes each input snapshot at the scale the previous step's
+    partial maxima give) and the reverse sweep K10 (``ap``/``aq`` into the
+    ``ap₊₊``/``aq₊₊`` buffers, the accumulators in place) followed by the
+    receiver injection ``index_add_``. The plain route is the JAX package's
+    XLA sweeps (``fstep``/``bstep``), tree for tree. Returns
+    ``(gc, gε, gδ)``."""
+    shape, dtype, dev = c.shape, c.dtype, c.device
+    size = math.prod(shape)
+    nt = int(src_wavelet.shape[0])
+    C, ah, av, inv_dx2 = _vti_coefficients(c, eps, delta, dt, dx)
+    amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
+    dd = dd.to(dtype)
+
+    def zeros():
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def inject(row):
+        return torch.zeros(size, dtype=dtype, device=dev).index_add(
+            0, rcv_idx, row).reshape(shape)
+
+    def outer(gC, gah, gav):
+        return (gC * (2.0 * c) * torch.tensor(dt * dt, dtype=dtype, device=dev),
+                2.0 * gah, gav / av)
+
+    if _kernel_route(fused, c, sponge, order):
+        spz, sy, sx = _factors_1d(sponge)
+        src = int(src_idx)
+        pp, p, qp, q = (zeros() for _ in range(4))
+        scale = torch.full((2,), cuda_vti.SCALE_FLOOR, dtype=dtype, device=dev)
+        one = torch.ones(2, dtype=dtype, device=dev)
+        ph, qh, scales = [], [], []
+        for k in range(nt):
+            qf = torch.full_like(scale, 127.0) / scale if store == "int8" else one
+            p_next, q_next, p_enc, q_enc, nxt = cuda_vti.fused_vti_hist_step(
+                pp, p, qp, q, C, ah, av, spz, sy, sx, inv_dx2, src_wavelet[k], src, amp,
+                qf[0], qf[1], store=store, order=order, out=(pp, qp))
+            ph.append(p_enc)
+            qh.append(q_enc)
+            scales.append(scale)
+            scale = nxt  # snapshot k+1's scales, from this step's partial maxima
+            pp, p, qp, q = p, p_next, q, q_next
+        del pp, p, qp, q, p_next, q_next  # the history holds what the sweep needs
+        decs = (_div(torch.stack(scales), 127.0) if store == "int8"
+                else torch.ones((nt, 2), dtype=dtype, device=dev))
+        ap1 = inject(dd[-1])
+        aq1, ap2, aq2, gC, gah, gav = (zeros() for _ in range(6))
+        for k in range(nt - 1, -1, -1):
+            ap, aq, gC, gah, gav = cuda_vti.fused_vti_adjoint_step(
+                ap1, aq1, ap2, aq2, gC, gah, gav, C, av, ah, ph[k], qh[k], decs[k, 0],
+                decs[k, 1], inv_dx2, spz, sy, sx, order=order, inplace=True)
+            ph[k] = qh[k] = None  # release the snapshots as the sweep passes them
+            if k > 0:  # ḡ_{k-1}; the JAX sweep adds a zero row at k = 0
+                ap.reshape(-1).index_add_(0, rcv_idx, dd[k - 1])
+            ap1, aq1, ap2, aq2 = ap, aq, ap1, aq1
+        return outer(gC, gah, gav)
+
+    S = _sponge_full(sponge)
+    mask = cuda_wave.source_mask(shape, src_idx, amp)
+    enc, dec = _store_codec(store, dtype)
+    pp, p, qp, q = (zeros() for _ in range(4))
+    hist = []
+    for k in range(nt):
+        hist.append((enc(p), enc(q)))  # history entry k holds (p_k, q_k)
+        p_next, q_next = cuda_vti.vti_plain(pp, p, qp, q, C, ah, av, S, inv_dx2,
+                                            src_wavelet[k], mask, order)
+        pp, p, qp, q = p, p_next, q, q_next
+    # ḡ_{k-1} aligned to reverse step k (rec_k samples p_{k+1})
+    dd_shift = torch.cat([torch.zeros_like(dd[:1]), dd[:-1]])
+    ap1 = inject(dd[-1])
+    aq1, ebp1, ebq1, gC, gah, gav = (zeros() for _ in range(6))
+    for k in range(nt - 1, -1, -1):
+        (pq, psv), (qq, qsv) = hist[k]
+        hist[k] = None
+        p_k, q_k = dec(pq, psv), dec(qq, qsv)
+        ebp, ebq = ap1 * S, aq1 * S
+        lh_k = cuda_vti.lh(p_k, inv_dx2, order)
+        dzz_k = cuda_vti.dzz(q_k, inv_dx2, order)
+        gC = gC + ((ah * lh_k + av * dzz_k) * ebp + (av * lh_k + dzz_k) * ebq)
+        gah = gah + (C * lh_k) * ebp
+        gav = gav + C * (dzz_k * ebp + lh_k * ebq)
+        ap = (2.0 * ebp + cuda_vti.lh(C * ah * ebp, inv_dx2, order)
+              + cuda_vti.lh(C * av * ebq, inv_dx2, order) - ebp1) + inject(dd_shift[k])
+        aq = (2.0 * ebq + cuda_vti.dzz(C * av * ebp, inv_dx2, order)
+              + cuda_vti.dzz(C * ebq, inv_dx2, order)) - ebq1
+        ap1, aq1, ebp1, ebq1 = ap, aq, ebp, ebq
+    return outer(gC, gah, gav)
+
+
+def _vti_domain(grid_shape, dtype, device):
+    gsp = Space(grid_shape, dtype, device)
+    return BlockSpace([gsp, gsp, gsp])
+
+
+def _propagate_vti_m(m, *args, **kw):
+    """:func:`_propagate_vti` on a ``(c, ε, δ)`` :class:`BlockVector`."""
+    return _propagate_vti(*m.blocks, *args, **kw)
+
+
+def _adjoint_stored_vti_m(m, dd, *args, **kw):
+    """:func:`_adjoint_stored_vti` on a ``(c, ε, δ)`` :class:`BlockVector`,
+    returning the gradient as one."""
+    return BlockVector(_adjoint_stored_vti(*m.blocks, dd, *args, **kw), m.space)
+
+
+def vti_wave_propagator(
+    grid_shape: Sequence[int],
+    *,
+    nt: int = 256,
+    dt: float = 0.001,
+    dx: float = 10.0,
+    freq: float = 15.0,
+    src_idx: int = 0,
+    rcv_idx=None,
+    sponge_width: int = 12,
+    space_order: int = 2,
+    remat_blocks: int = 1,
+    fused=None,
+    dtrec: Optional[float] = None,
+    q=None,
+    f0: Optional[float] = None,
+    store_adjoint: Optional[str] = None,
+    wavefield_sharding=None,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str = "cpu",
+) -> Operator:
+    """Three-parameter VTI forward modelling ``F: (c, ε, δ) → traces``.
+
+    Domain: ``BlockSpace([grid, grid, grid])`` on ``device`` (vertical
+    velocity and the Thomsen parameters); members are :class:`BlockVector`.
+    Range: ``(ntrec, nrcv)`` traces of the p field. With ``ε = δ = 0`` the
+    system reduces to :func:`wave_propagator`'s isotropic physics.
+    ``fused``: ``None`` rides the kernels K8 (forward, tangent) and, with a
+    stored adjoint, K9/K10 on a 3-D float32 grid on a CUDA card; ``True``
+    insists; ``False`` takes the plain step. ``store_adjoint`` ∈ {None,
+    "f32", "bf16", "int8"} switches the adjoint from ``torch.func.vjp``
+    through the time loop to the stored two-field-history sweep
+    (:func:`_adjoint_stored_vti`), which returns the ``(δc, δε, δδ)`` triple
+    in one reverse pass. Static Q (``q=``/``f0``), ``remat_blocks > 1`` and
+    ``wavefield_sharding`` are not ported yet.
+    """
+    grid_shape = tuple(int(s) for s in grid_shape)
+    space_order = _check_space_order(space_order)
+    _check_store(store_adjoint)
+    if q is not None:
+        raise _not_ported("vti_wave_propagator(q=...) (static Q)", "14")
+    if wavefield_sharding is not None:
+        raise _not_ported("vti_wave_propagator(wavefield_sharding=...)", "18")
+    if remat_blocks > 1:
+        raise _not_ported("remat_blocks > 1", "12")
+    if fused and not cuda_wave.fits_wave_kernel(grid_shape, dtype, space_order):
+        raise ValueError("fused VTI step requires a 3-D float32 grid")
+    dom = _vti_domain(grid_shape, dtype, device)
+    return _single_shot_operator(
+        dom, dom.subspace(0), _propagate_vti_m, _adjoint_stored_vti_m, nt=nt, dt=dt,
+        dx=dx, freq=freq, src_idx=src_idx, rcv_idx=rcv_idx, dtrec=dtrec,
+        store_adjoint=store_adjoint, fused=fused, order=space_order,
+        sponge=_make_sponge(grid_shape, sponge_width, dtype=dtype))
+
+
+def multishot_vti_wave_operator(
+    grid_shape: Sequence[int],
+    src_indices,
+    *,
+    nt: int = 128,
+    dt: float = 0.001,
+    dx: float = 10.0,
+    freq: float = 15.0,
+    rcv_idx=None,
+    sponge_width: int = 12,
+    space_order: int = 2,
+    remat_blocks: int = 1,
+    dtrec: Optional[float] = None,
+    store_adjoint: Optional[str] = None,
+    mesh=None,
+    axis: str = "block",
+    shot_map: str = "vmap",
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str = "cpu",
+) -> Operator:
+    """Multi-shot VTI modelling ``F: (c, ε, δ) → (nshots, ntrec, nrcv)``
+    through :func:`stacked_block_operator`, as :func:`multishot_wave_operator`
+    does for the isotropic physics: ``shot_map="map"`` runs the shots one
+    after another, each on the kernels K8/K9/K10 where they apply;
+    ``"vmap"`` runs them as one batched plain program. The model is one
+    :class:`BlockVector` shared by every shot; the adjoint returns the
+    ``(δc, δε, δδ)`` triple summed over shots."""
+    grid_shape = tuple(int(s) for s in grid_shape)
+    space_order = _check_space_order(space_order)
+    _check_store(store_adjoint)
+    if mesh is not None:
+        raise _not_ported("multishot_vti_wave_operator(mesh=...)", "18")
+    if remat_blocks > 1:
+        raise _not_ported("remat_blocks > 1", "12")
+    dom = _vti_domain(grid_shape, dtype, device)
+    return _multishot_operator(
+        dom, dom.subspace(0), _propagate_vti_m, _adjoint_stored_vti_m, src_indices,
+        nt=nt, dt=dt, dx=dx, freq=freq, rcv_idx=rcv_idx, dtrec=dtrec,
+        store_adjoint=store_adjoint, shot_map=shot_map, order=space_order,
+        sponge=_make_sponge(grid_shape, sponge_width, dtype=dtype))
 
 
 def with_wave_arrays(op: Operator, *, wavelet, sponge, src_idx, rcv_idx) -> Operator:
-    """``op`` (from :func:`wave_propagator` or :func:`multishot_wave_operator`)
-    with its wavelet, sponge, source and receiver indices replaced by the
+    """``op`` (from :func:`wave_propagator`, :func:`multishot_wave_operator`,
+    or their VTI counterparts, whose state keys are the same) with its wavelet, sponge, source and receiver indices replaced by the
     given arrays (numpy or tensors; ``sponge`` one array or a tuple of
     per-axis factors), moved to the operator's device and dtype. This
     carries a JAX wave operator's state across, so both packages run on the

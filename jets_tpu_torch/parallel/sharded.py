@@ -26,6 +26,7 @@ import torch
 
 from ..core.jet import Jet, LinearOperator, Operator
 from ..core.spaces import Space
+from ..utils.tree import tmap
 
 __all__ = ["stacked_block_operator"]
 
@@ -57,7 +58,8 @@ def _stacked_dft(dd, m0, state):
     """Adjoint accumulation. ``stack_dft(dd, m0, state) -> model`` consumes
     the whole stack at once (in both shot modes, as in the JAX package);
     ``child_dft(dd, m0, state)`` returns stacked per-block model-space
-    contributions, summed over the block axis."""
+    contributions (a tensor or a pytree such as a ``BlockVector``), summed
+    over the block axis."""
     child_dft, stack_dft = state["child_dft"], state["stack_dft"]
     if stack_dft is not None:
         return stack_dft(dd, m0, {**state["bstate"], **state["sstate"]})
@@ -67,7 +69,7 @@ def _stacked_dft(dd, m0, state):
         parts = [dd]
     acc = None
     for d_b, bs in zip(parts, _blocks(state)):
-        term = torch.sum(child_dft(d_b, m0, bs), dim=0)
+        term = tmap(lambda t: torch.sum(t, dim=0), child_dft(d_b, m0, bs))
         acc = term if acc is None else acc + term
     return acc
 
@@ -136,7 +138,7 @@ def stacked_block_operator(
             prim = m0 if m0 is not None else dom.zeros()
             _, vjp = torch.func.vjp(lambda dm: __df(dm, m0, bs), prim)
             (out,) = vjp(d_b)
-            return out[None]
+            return tmap(lambda t: t[None], out)
 
         state["child_dft"] = _auto_child_dft
         have_adjoint = True

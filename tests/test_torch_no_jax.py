@@ -1,6 +1,6 @@
 """The port stands alone: it never imports JAX, and importing it (and
-solving, or taking a stored-adjoint wave gradient, on the CPU) needs
-neither nvcc nor triton nor a built kernel library."""
+solving, or taking a stored-adjoint isotropic or VTI wave gradient, on the
+CPU) needs neither nvcc nor triton nor a built kernel library."""
 import os
 import pathlib
 import re
@@ -30,6 +30,12 @@ F = wave_propagator((6, 8, 16), nt=12, dt=6e-4, src_idx=3 * 128 + 4 * 16 + 8,
 c = torch.full((6, 8, 16), 1500.0)
 g = F.linearize(c).H(F(c * 1.02) - F(c))
 assert g.shape == (6, 8, 16) and bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)
+Fv = tt.vti_wave_propagator((6, 8, 16), nt=12, dt=6e-4, src_idx=3 * 128 + 4 * 16 + 8,
+                            sponge_width=2, store_adjoint="int8", fused=True)
+m = tt.BlockVector((c, torch.full_like(c, 0.1), torch.full_like(c, 0.05)), Fv.dom)
+gv = Fv.linearize(m).H(Fv(m * 1.02) - Fv(m))
+assert isinstance(gv, tt.BlockVector) and gv.nblocks == 3
+assert all(bool(torch.isfinite(b).all()) and bool(b.abs().max() > 0) for b in gv)
 assert kernels._libs == {}, "the CPU path loaded a kernel library"
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "triton"))
 assert not bad, bad
@@ -57,7 +63,9 @@ def test_no_module_of_the_port_names_jax_and_the_kernels_ship():
     for name, entries in (
             ("solver_kernels.cu", ("jt_xw_update", "jt_laplacian3d",
                                    "jt_lap3d_axpy_norm2")),
-            ("wave_kernels.cu", ("jt_leapfrog_step", "jt_adjoint_step"))):
+            ("wave_kernels.cu", ("jt_leapfrog_step", "jt_adjoint_step")),
+            ("vti_kernels.cu", ("jt_vti_step", "jt_vti_hist_step",
+                                "jt_vti_adjoint_step"))):
         src = PKG / "csrc" / name
         assert src.is_file()
         text = src.read_text()
