@@ -20,14 +20,23 @@ Born dot-product gate, and 16 shots in ``shot_map="map"`` mode at nt=120
 ``bench.py``'s VTI stage: 256³ f32, model (c, ε, δ), a forward at nt=220,
 an int8-stored gradient at nt=160 (all three blocks), the card against the
 CPU, a Jacobian dot-product gate with an f32 history, and 16 shots in map
-mode at nt=120.
+mode at nt=120 — and the fourth, the 3-D TTI anisotropic FWI gradient
+(``tti_wave_propagator``, ``multishot_tti_wave_operator``) at the size of
+``bench.py``'s TTI stages: 256³ f32, model (c, ε, δ, θ, φ), with f32 and
+bf16 coefficient fields, a forward and an int8-stored gradient (all five
+blocks) at nt=60, the card against the CPU on a (32, 64, 128) grid, the
+θ = φ = 0 reduction to VTI, a Jacobian dot-product gate with an f32
+history and the int8 gradient's cosine to it, and 2 shots in map mode.
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after. Every phase asserts; a failure raises and exits
-non-zero.
+non-zero. Every entry point runs on the card by default; the CPU runs ask
+for ``device="cpu"``.
 The last lines are a JSON object of the kernels (route, source, launches
-on the main path, error against the plain version, times), the card's
-name and power limit from ``nvidia-smi``, and the result line
-``{"ok": true, "device": {...}}``.
+on the main path, error against the plain version, times, the bound from
+the bytes each call moves and its operations, and the time of the one
+PyTorch call that computes the same function where there is one), the
+card's name and power limit from ``nvidia-smi``, the script's total time,
+and the result line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card, ``nvcc`` (``CUDA_HOME``, ``PATH`` or
 ``/usr/local/cuda``) and a few minutes. Times are CUDA-event times on the
@@ -68,6 +77,45 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def kernel_of(mangled):
+    """``(name, order)`` of a mangled kernel symbol: its last
+    length-prefixed name (after any namespaces) and its first template
+    argument when that is an int (the stencil order), else 0."""
+    i = len("_ZN") if mangled.startswith("_ZN") else len("_Z")
+    names = []
+    while (d := re.match(r"\d+", mangled[i:])):
+        i += d.end()
+        names.append(mangled[i:i + int(d.group())])
+        i += int(d.group())
+    order = re.match(r"ILi(\d+)E", mangled[i:])
+    return (names[-1] if names else mangled), int(order.group(1)) if order else 0
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# Per grid point operation counts of each kernel's function at order 2 (each
+# derived field counted once, as the least work the function needs); with
+# the bytes each call moves they give the bound below.
+FLOPS_PER_POINT = {
+    "xw_update": 5, "lap3d_axpy_norm2": 11, "laplacian3d": 7,
+    "fused_leapfrog_step": 16, "fused_adjoint_step": 25,
+    "fused_vti_step": 36, "fused_vti_hist_step": 40, "fused_vti_adjoint_step": 85,
+    "fused_tti_step": 110, "fused_tti_hist_step": 114, "fused_tti_adjoint_step": 300,
+}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+
+
+def bound_ms(nbytes_moved, npoints, name):
+    """The least time for a call: the larger of its bytes over the memory
+    rate and its operations over the float32 peak, and which bounds it."""
+    t_b = nbytes_moved / HBM_BYTES_PER_S
+    t_f = FLOPS_PER_POINT[name] * npoints / F32_FLOPS_PER_S
+    return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
 def check_history(res, maxiter, dnorm, phase):
     h = res.history
     assert res.iterations == maxiter, f"ran {res.iterations} of {maxiter} iterations"
@@ -90,10 +138,12 @@ def main() -> int:
         seismic_operator_from_arrays,
     )
     from jets_tpu_torch.ops import cuda_solver as cs
+    from jets_tpu_torch.ops import cuda_tti as ct
     from jets_tpu_torch.ops import cuda_vti as cv
     from jets_tpu_torch.ops import cuda_wave as cw
     from jets_tpu_torch.solvers import lsqr
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -114,18 +164,24 @@ def main() -> int:
            f"kernel build+load {build_s:.2f} s (nvcc {kernels.build_seconds})")
     for name, text in kernels.build_log.items():
         # ptxas -v: each "Compiling entry function" line is followed by its
-        # stack/spill line and its register line
-        fn = None
+        # stack/spill line and its register line; one line per kernel
+        # template and order: the registers over its instantiations (store
+        # and coefficient types) and their spill bytes
+        fn, regs, spills = None, {}, {}
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                fn = m.group(1)
+                fn = kernel_of(m.group(1))
             m = re.search(r"Used (\d+) registers", line)
             if m and fn:
-                log(0, f"{name}: {fn} registers {m.group(1)}")
+                regs.setdefault(fn, []).append(int(m.group(1)))
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m and fn:
-                log(0, f"{name}: {fn} spill stores {m.group(1)} loads {m.group(2)}")
+                spills[fn] = spills.get(fn, 0) + int(m.group(1)) + int(m.group(2))
+        for (base, order), r in sorted(regs.items()):
+            log(0, f"{name}: {base}" + (f" order {order}" if order else "")
+                   + f": {len(r)} instantiation(s), registers {min(r)}-{max(r)}, "
+                   f"spill bytes {spills.get((base, order), 0)}")
 
     # ---- phase 1: each kernel against its plain version ----------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -285,11 +341,72 @@ def main() -> int:
            "with f32/bf16/int8 histories, orders 2/4/8")
     del ref, got, o
 
+    # K11, K12 and K13 at the TTI path's shape, every order, coefficient width
+    # and history type, bitwise against the plain versions, in place; the axis
+    # (cosθ, sinθcosφ, sinθsinφ) of random tilt and azimuth angles
+    th = npf(lambda n: rk.uniform(-0.6, 0.6, n)).double()
+    az = npf(lambda n: rk.uniform(-3.0, 3.0, n)).double()
+    tnz = torch.cos(th).float()
+    tny = torch.sin(th).float() * torch.cos(az).float()
+    tnx = torch.sin(th).float() * torch.sin(az).float()
+    del th, az
+    tco = {torch.float32: (vah, vav, tnz, tny, tnx)}
+    tco[torch.bfloat16] = tuple(t.to(torch.bfloat16) for t in tco[torch.float32])
+    tacc = [npf(rk.standard_normal) for _ in range(3)]  # gnz, gny, gnx
+    idx1 = torch.tensor(1.0 / 10.0, device=dev)
+    tkw = dict(spz=spz, sy=spy, sx=spx, inv_dx2=idx2, inv_dx=idx1, s_t=vst,
+               src_idx=src_flat, amp=amp)
+    thist = {}
+    for k in ("fused_tti_step", "fused_tti_hist_step", "fused_tti_adjoint_step"):
+        err[k] = 0.0
+    for cdt, co in tco.items():
+        for order in (2, 4, 8):
+            ref = ct.fused_tti_step_torch(vpp, vp, vqp, vq, vC, *co, order=order, **tkw)
+            o = (vpp.clone(), vqp.clone())
+            got = ct.fused_tti_step(o[0], vp, o[1], vq, vC, *co, order=order, out=o, **tkw)
+            torch.cuda.synchronize()
+            assert got[0] is o[0] and got[1] is o[1], "K11 not in place"
+            assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
+                f"K11 not bitwise ({cdt}, order {order})"
+            maxerr("fused_tti_step", got, ref)
+            for store in ("f32", "bf16", "int8"):
+                qf = vqf[store]
+                ref = ct.fused_tti_hist_step_torch(vpp, vp, vqp, vq, vC, *co, qfp=qf[0],
+                                                   qfq=qf[1], store=store, order=order,
+                                                   **tkw)
+                o = (vpp.clone(), vqp.clone())
+                got = ct.fused_tti_hist_step(o[0], vp, o[1], vq, vC, *co, qfp=qf[0],
+                                             qfq=qf[1], store=store, order=order, out=o,
+                                             **tkw)
+                torch.cuda.synchronize()
+                assert got[0] is o[0] and got[1] is o[1], "K12 not in place"
+                assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
+                    f"K12 not bitwise (fields, codes, maxima; {cdt}, {store}, order {order})"
+                maxerr("fused_tti_hist_step", got, ref)
+                thist[store] = (ref[2], ref[3])
+                dsc = vdec[store]
+                targs = (vC, *co, *thist[store], dsc[0], dsc[1], idx2, idx1, spz, spy, spx)
+                accs = (vgC, vgah, vgav, *tacc)
+                ref = ct.fused_tti_adjoint_step_torch(ap1, aq1, ap2, aq2, *accs, *targs,
+                                                      order=order)
+                o = tuple(t.clone() for t in (ap2, aq2, *accs))
+                got = ct.fused_tti_adjoint_step(ap1, aq1, *o, *targs, order=order,
+                                                inplace=True)
+                torch.cuda.synchronize()
+                assert all(a is b for a, b in zip(got, o)), "K13 not in place"
+                assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
+                    f"K13 not bitwise ({cdt}, {store}, order {order})"
+                maxerr("fused_tti_adjoint_step", got, ref)
+    log(1, "K11 bitwise and in place at 256^3, orders 2/4/8, f32 and bf16 coefficients; "
+           "K12 (fields, f32/bf16/int8 codes, reduced maxima) and K13 (eight outputs) "
+           "bitwise and in place at 256^3 with f32/bf16/int8 histories, orders 2/4/8, "
+           "f32 and bf16 coefficients")
+    del ref, got, o
+
     # ---- phase 2: the 3-D flagship at full width -----------------------------
     grid3, nshots3, nrecv = (256, 256, 256), 16, 4096
     t0 = time.perf_counter()
-    A, m_true, d = make_seismic_problem(grid3, nshots3, nrecv, seed=0, noise=0.05,
-                                        device=dev)
+    A, m_true, d = make_seismic_problem(grid3, nshots3, nrecv, seed=0, noise=0.05)
     torch.cuda.synchronize()
     build3 = time.perf_counter() - t0
     wr = A.jet.state["bstate"]["wr"]
@@ -298,8 +415,7 @@ def main() -> int:
     lhs, rhs = dot_product_test(A, mt, dt)
     gate = abs(float(lhs) - float(rhs)) / abs(float(rhs))
     assert gate <= 1e-4, f"dot-product gate rel {gate}"
-    Ac = seismic_operator_from_arrays(grid3, nshots3, nrecv, wr=wr, impl="composed",
-                                      device=dev)
+    Ac = seismic_operator_from_arrays(grid3, nshots3, nrecv, wr=wr, impl="composed")
     fused, composed = A(m_true), Ac(m_true)
     fc = rel(fused, composed)
     assert fc <= 1e-6, f"fused vs composed rel {fc}"
@@ -320,7 +436,7 @@ def main() -> int:
     log(3, f"lsqr 3-D 50 iterations: launches {c3}")
 
     A_hook = seismic_operator_from_arrays(grid3, nshots3, nrecv, wr=wr,
-                                          epilogue_hook=True, device=dev)
+                                          epilogue_hook=True)
     assert A_hook.jet.state.get("adjoint_axpy_norm") is not None
     r4 = lsqr(A_hook, d, maxiter=50, tol=0.0)
     c4 = cs.launch_counts()
@@ -348,8 +464,7 @@ def main() -> int:
     del A_cpu, d_cpu, r_cpu, r_gpu, r3, r4
 
     t0 = time.perf_counter()
-    A2, _, d2 = make_seismic_problem((2048, 2048), 64, nrecv, seed=0, noise=0.05,
-                                     device=dev)
+    A2, _, d2 = make_seismic_problem((2048, 2048), 64, nrecv, seed=0, noise=0.05)
     d2norm = float(torch.linalg.vector_norm(d2))
     r6 = lsqr(A2, d2, maxiter=100, tol=0.0)
     c6 = cs.launch_counts()
@@ -391,11 +506,28 @@ def main() -> int:
         "laplacian3d": (cuda_ms(lambda: cs.laplacian3d(z), 20),
                         cuda_ms(lambda: cs.laplacian3d_torch(z), 20)),
     }
+    # the one PyTorch call that computes a kernel's function: K3 as a 3-D
+    # convolution with the 7-point stencil and zero padding (timed as a
+    # yardstick only; TF32 is off above)
+    w7 = torch.zeros((1, 1, 3, 3, 3), device=dev)
+    w7[0, 0, 1, 1, 1] = -6.0
+    for a_ in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0), (1, 1, 2)):
+        w7[(0, 0) + a_] = 1.0
+    conv = torch.nn.functional.conv3d(z[None, None], w7, padding=1)[0, 0]
+    conv_rel = rel(conv, cs.laplacian3d(z))
+    assert conv_rel <= 1e-6, f"conv3d vs K3 rel {conv_rel}"
+    kbytes = {"xw_update": nbytes(x, w, vh, x, w), "lap3d_axpy_norm2": nbytes(z, v, z),
+              "laplacian3d": nbytes(z, z)}
+    lib_ms = {"laplacian3d": cuda_ms(
+        lambda: torch.nn.functional.conv3d(z[None, None], w7, padding=1), 20)}
+    del conv
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log(7, f"3-D LSQR {ms3:.4f} ms/iter, hooked {ms3h:.4f} ms/iter; 2-D LSQR "
            f"{ms2:.4f} ms/iter ({1e3 / ms2:.1f} iter/s); kernel vs plain at 256^3 "
            + ", ".join(f"{k} {1e3 * a:.1f} vs {1e3 * b:.1f} us" for k, (a, b) in kt.items())
-           + f"; peak device memory {peak_gib:.2f} GiB [{smi}]")
+           + f"; conv3d (the library call for K3, rel {conv_rel:.1e} to K3) "
+           f"{1e3 * lib_ms['laplacian3d']:.1f} us; peak device memory {peak_gib:.2f} GiB "
+           f"[{smi}]")
 
     del A, A_hook, A2, d, d2, x, w, vh, z, v
 
@@ -414,7 +546,7 @@ def main() -> int:
     c_bg = torch.full(wshape, 1500.0, device=dev)
     rcv = [int(np.ravel_multi_index((128, 128, x), wshape)) for x in range(0, 256, 2)]
     src0 = int(np.ravel_multi_index((128, 128, 128), wshape))
-    wkw = dict(dt=5e-4, dx=10.0, freq=15.0, rcv_idx=rcv, sponge_width=12, device=dev)
+    wkw = dict(dt=5e-4, dx=10.0, freq=15.0, rcv_idx=rcv, sponge_width=12)
 
     def delta(before):
         now = cw.launch_counts()
@@ -566,6 +698,8 @@ def main() -> int:
         "multishot_gradient": us_per_step(multi, grad, 20, 120, reps=1, per=nsh),
     }
     q8, sc8 = hists["int8"]
+    kbytes["fused_leapfrog_step"] = nbytes(up, u, c2, spz, spy, spx, up)
+    kbytes["fused_adjoint_step"] = nbytes(a1, a2, g2, c2, q8, spz, spy, spx, a2, g2)
     kt["fused_leapfrog_step"] = (
         cuda_ms(lambda: cw.fused_leapfrog_step(up, u, c2, spz, spy, spx, s_t, src_flat,
                                                amp), 20),
@@ -760,6 +894,11 @@ def main() -> int:
     qf8, dec8, (pe8, qe8) = vqf["int8"], vdec["int8"], vhist["int8"]
     adj8 = (ap1, aq1, ap2, aq2, vgC, vgah, vgav, vC, vav, vah, pe8, qe8, dec8[0], dec8[1],
             idx2, spz, spy, spx)
+    kbytes["fused_vti_step"] = nbytes(vpp, vp, vqp, vq, vC, vah, vav, spz, spy, spx, vpp,
+                                      vqp)
+    kbytes["fused_vti_hist_step"] = kbytes["fused_vti_step"] + nbytes(pe8, qe8)
+    kbytes["fused_vti_adjoint_step"] = nbytes(*adj8[:12], spz, spy, spx, ap2, aq2, vgC,
+                                              vgah, vgav)
     kt["fused_vti_step"] = (
         cuda_ms(lambda: cv.fused_vti_step(vpp, vp, vqp, vq, **vkw), 20),
         cuda_ms(lambda: cv.fused_vti_step_torch(vpp, vp, vqp, vq, **vkw), 20))
@@ -789,11 +928,240 @@ def main() -> int:
                         for k, (sh, wall, n, top) in vshares.items())
             + f"; peak device memory {peak_gib:.2f} GiB [{smi}]")
 
+    del Fvprof
+
+    # ---- phases 20-25: the TTI gradient path, launches counted -----------------
+    from jets_tpu_torch.ops.wave import multishot_tti_wave_operator, tti_wave_propagator
+
+    def tdelta(before):
+        now = ct.launch_counts()
+        return tuple(now[k] - before[k] for k in ("fused_tti_step", "fused_tti_hist_step",
+                                                   "fused_tti_adjoint_step"))
+
+    # (c, ε, δ, θ, φ) = (1500 m/s + anomalies, 0.1, 0.05, 0.2, 0.7), bench.py's model
+    def tti_model(dom, c, theta=0.2, phi=0.7):
+        return BlockVector((c, *(torch.full(wshape, v, device=dev)
+                                 for v in (0.1, 0.05, theta, phi))), dom)
+
+    cdts = (None, torch.bfloat16)
+    ct.reset_launch_counts()
+    for cdt in cdts:
+        Ft = tti_wave_propagator(wshape, nt=60, src_idx=src0, coeff_dtype=cdt, **wkw)
+        mt_true = tti_model(Ft.dom, c_true)
+        b = ct.launch_counts()
+        dt_k = Ft(mt_true)
+        assert tdelta(b) == (60, 0, 0), tdelta(b)
+        dt_p = tti_wave_propagator(wshape, nt=60, src_idx=src0, coeff_dtype=cdt,
+                                   fused=False, **wkw)(mt_true)
+        assert tdelta(b) == (60, 0, 0), "the plain route launched a kernel"
+        assert dt_k.shape == (60, 128)
+        log(20, f"TTI forward 256^3, nt=60, {cdt or 'f32'} coefficients, (c, eps, delta, "
+                "theta, phi) = (1500 + anomalies, 0.1, 0.05, 0.2, 0.7): K11 launched 60 "
+                "times; kernel vs plain route " + same(dt_k, dt_p, "traces"))
+    del dt_k, dt_p
+
+    for cdt in cdts:
+        Fg = tti_wave_propagator(wshape, nt=60, src_idx=src0, store_adjoint="int8",
+                                 coeff_dtype=cdt, **wkw)
+        Fgp = tti_wave_propagator(wshape, nt=60, src_idx=src0, store_adjoint="int8",
+                                  coeff_dtype=cdt, fused=False, **wkw)
+        mt_true, mt_bg = tti_model(Fg.dom, c_true), tti_model(Fg.dom, c_bg)
+        tres = Fg(mt_true) - Fg(mt_bg)  # a physical residual
+        live(tres, "TTI residual")
+        b = ct.launch_counts()
+        gt_k = Fg.linearize(mt_true).H(tres)
+        assert tdelta(b) == (0, 60, 60), tdelta(b)
+        gt_p = Fgp.linearize(mt_true).H(tres)
+        assert tdelta(b) == (0, 60, 60), "the plain route launched a kernel"
+        log(21, f"TTI int8-stored gradient 256^3, nt=60, {cdt or 'f32'} coefficients: K12 "
+                "60 + K13 60 launches; kernel vs plain route "
+                + same(gt_k, gt_p, "(gc, geps, gdelta, gtheta, gphi)"))
+    del gt_p, Fgp
+
+    cshape = (32, 64, 128)
+    csrc = int(np.ravel_multi_index((16, 32, 64), cshape))
+    ckw = dict(dt=5e-4, dx=10.0, freq=15.0, sponge_width=6, src_idx=csrc,
+               rcv_idx=[int(np.ravel_multi_index((16, 32, x), cshape))
+                        for x in range(0, 128, 2)])
+    r12 = torch.from_numpy(rs.standard_normal((12, 64)).astype(np.float32))
+    for cdt in cdts:
+        F12 = tti_wave_propagator(cshape, nt=12, store_adjoint="int8", coeff_dtype=cdt,
+                                  **ckw)
+        F12c = tti_wave_propagator(cshape, nt=12, store_adjoint="int8", coeff_dtype=cdt,
+                                   device="cpu", **ckw)
+        m12 = BlockVector((c_true[:32, :64, :128].contiguous(),
+                           *(torch.full(cshape, v, device=dev) for v in (0.1, 0.05)),
+                           0.2 + 0.1 * torch.rand(cshape, generator=gen, device=dev),
+                           0.7 + 0.3 * torch.rand(cshape, generator=gen, device=dev)),
+                          F12.dom)
+        m_cpu = BlockVector(tuple(t.cpu() for t in m12.blocks), F12c.dom)
+        b = ct.launch_counts()
+        t0 = time.perf_counter()
+        d12c, g12c = F12c(m_cpu), F12c.linearize(m_cpu).H(r12)
+        t_cpu = time.perf_counter() - t0
+        assert tdelta(b) == (0, 0, 0), "a CPU run launched a kernel"
+        d12, g12 = F12(m12), F12.linearize(m12).H(r12.to(dev))
+        assert tdelta(b) == (12, 12, 12), tdelta(b)
+        g12 = BlockVector(tuple(t.cpu() for t in g12.blocks), F12c.dom)
+        log(22, f"TTI card vs CPU at {cshape}, nt=12, {cdt or 'f32'} coefficients, random "
+                f"tilt and azimuth fields (CPU {t_cpu:.1f} s): "
+                + same(d12.cpu(), d12c, "traces") + "; " + same(g12, g12c, "int8 gradient"))
+    del F12, F12c, m12, m_cpu, d12c, g12c, g12
+
+    # at θ = φ = 0 the TTI system is the VTI one: K11's traces are K8's
+    Ft0 = tti_wave_propagator(wshape, nt=60, src_idx=src0, **wkw)
+    Fv0 = vti_wave_propagator(wshape, nt=60, src_idx=src0, **wkw)
+    b = ct.launch_counts()
+    dt0 = Ft0(tti_model(Ft0.dom, c_true, 0.0, 0.0))
+    assert tdelta(b) == (60, 0, 0), tdelta(b)
+    log(23, "TTI at theta = phi = 0 vs VTI on the card, 256^3, nt=60: "
+            + same(dt0, Fv0(vti_model(Fv0.dom, c_true)), "traces"))
+    del Ft0, Fv0, dt0
+
+    Fb = tti_wave_propagator(wshape, nt=60, src_idx=src0, store_adjoint="f32", **wkw)
+    mt_true = tti_model(Fb.dom, c_true)
+    J = born_operator(Fb, mt_true)
+    gb = torch.Generator().manual_seed(5)
+    mb, db = J.dom.randn(gb), J.rng.randn(gb)
+    b = ct.launch_counts()
+    lhs, rhs = dot_product_test(J, mb, db)
+    assert tdelta(b) == (60, 60, 60), tdelta(b)
+    gate_t = abs(float(lhs) - float(rhs)) / abs(float(rhs))
+    assert gate_t <= 1e-4, f"TTI Jacobian dot-product gate rel {gate_t}"
+    Jm, Jd = J(mb), J.H(db)
+    assert tdelta(b) == (120, 120, 120), tdelta(b)
+    lhs64 = float(torch.vdot(db.double().reshape(-1), Jm.double().reshape(-1)))
+    rhs64 = sum(float(torch.vdot(x.double().reshape(-1), y.double().reshape(-1)))
+                for x, y in zip(Jd.blocks, mb.blocks))
+    gate64 = abs(lhs64 - rhs64) / abs(rhs64)
+    assert gate64 <= 1e-4, f"TTI Jacobian dot-product gate (f64 sums) rel {gate64}"
+    del Jm, Jd, J, mb
+    # the int8 history's gradient against the f32 history's, per block
+    g32 = Fb.linearize(mt_true).H(tres)
+    coss = []
+    Fg8 = tti_wave_propagator(wshape, nt=60, src_idx=src0, store_adjoint="int8", **wkw)
+    g8 = Fg8.linearize(mt_true).H(tres)
+    for i, (x, y) in enumerate(zip(g8.blocks, g32.blocks)):
+        live(y, f"f32-history gradient[{i}]")
+        cos = float(torch.vdot(x.double().reshape(-1), y.double().reshape(-1))
+                    / (torch.linalg.vector_norm(x.double())
+                       * torch.linalg.vector_norm(y.double())))
+        coss.append(cos)
+        assert cos > 1.0 - 5e-2, f"int8 vs f32 history gradient[{i}] cosine {cos}"
+    assert tdelta(b) == (120, 240, 240), tdelta(b)
+    log(24, f"TTI Jacobian 256^3, nt=60, f32 history: dot-product gate rel {gate_t:.3e} "
+            f"(<= 1e-4; <d, J m> = {float(lhs):.6g}), with f64 sums rel {gate64:.3e}; "
+            "launches K11 60 (tangent through the autograd Function), K12 60 + K13 60 "
+            "(adjoint), twice; int8 vs f32 history gradient cosines per block "
+            + ", ".join(f"{c_:.6f}" for c_ in coss) + " (> 0.95)")
+    del Fb, g32, Fg8, g8
+
+    tmkw = dict(store_adjoint="int8", shot_map="map", **wkw)
+    Ftm = multishot_tti_wave_operator(wshape, msrc[:2], nt=60, **tmkw)
+    b = ct.launch_counts()
+    dtm = Ftm(mt_true)
+    assert tdelta(b) == (120, 0, 0), tdelta(b)
+    gtm = Ftm.linearize(mt_true).H(torch.ones(dtm.shape, device=dev))
+    assert tdelta(b) == (120, 120, 120), tdelta(b)
+    n_tti = ct.launch_counts()
+    dts = [tti_wave_propagator(wshape, nt=60, src_idx=int(sidx), **wkw)(mt_true)
+           for sidx in msrc[:2]]
+    g1 = [tti_wave_propagator(wshape, nt=60, src_idx=int(sidx), store_adjoint="int8",
+                              **wkw).linearize(mt_true).H(torch.ones((60, 128), device=dev))
+          for sidx in msrc[:2]]
+    log(25, "TTI multishot 256^3, 2 shots, nt=60, map, int8: launches forward K11 120, "
+            "gradient K12 120 + K13 120; " + same(dtm[0], dts[0], "shot 0 vs single shot")
+            + "; " + same(dtm[1], dts[1], "shot 1 vs single shot") + "; "
+            + same(gtm, g1[0] + g1[1], "2-shot gradient vs sum of single shots"))
+    tti_path = {k: n_tti[k] for k in ("fused_tti_step", "fused_tti_hist_step",
+                                      "fused_tti_adjoint_step")}
+    for name, n in tti_path.items():
+        assert n > 0, f"kernel {name} was not launched on the TTI path"
+    del dtm, gtm, Ftm, dts, g1, tres
+
+    # ---- phase 26: TTI times ------------------------------------------------------
+    def tsingle(**kw):
+        return lambda n: tti_wave_propagator(wshape, nt=n, src_idx=src0, **wkw, **kw)
+
+    def tfwd(op, n):
+        return op(mt_true)
+
+    def tgrad(op, n):
+        return op.linearize(mt_true).H(torch.ones(op.rng.shape, device=dev))
+
+    tus = {}
+    for cdt, tag in ((None, ""), (torch.bfloat16, "bf16_")):
+        tus[f"tti3d_{tag}step_us"] = us_per_step(tsingle(coeff_dtype=cdt), tfwd, 10, 60)
+        tus[f"tti3d_{tag}grad_step_us"] = us_per_step(
+            tsingle(coeff_dtype=cdt, store_adjoint="int8"), tgrad, 10, 60)
+        tus[f"tti3d_{tag}step_us_plain"] = us_per_step(
+            tsingle(coeff_dtype=cdt, fused=False), tfwd, 10, 60, reps=1)
+        tus[f"tti3d_{tag}grad_step_us_plain"] = us_per_step(
+            tsingle(coeff_dtype=cdt, store_adjoint="int8", fused=False), tgrad, 10, 60,
+            reps=1)
+    tq8 = thist["int8"]
+    tadj = {cdt: (ap1, aq1, ap2, aq2, vgC, vgah, vgav, *tacc, vC, *co, *tq8,
+                  vdec["int8"][0], vdec["int8"][1], idx2, idx1, spz, spy, spx)
+            for cdt, co in tco.items()}
+    tkt = {}
+    for cdt, co in tco.items():
+        tag = "" if cdt == torch.float32 else " bf16"
+        tkt["fused_tti_step" + tag] = (
+            cuda_ms(lambda: ct.fused_tti_step(vpp, vp, vqp, vq, vC, *co, **tkw), 20),
+            cuda_ms(lambda: ct.fused_tti_step_torch(vpp, vp, vqp, vq, vC, *co, **tkw), 20))
+        tkt["fused_tti_hist_step" + tag] = (
+            cuda_ms(lambda: ct.fused_tti_hist_step(vpp, vp, vqp, vq, vC, *co, qfp=qf8[0],
+                                                   qfq=qf8[1], **tkw), 20),
+            cuda_ms(lambda: ct.fused_tti_hist_step_torch(vpp, vp, vqp, vq, vC, *co,
+                                                         qfp=qf8[0], qfq=qf8[1], **tkw), 20))
+        tkt["fused_tti_adjoint_step" + tag] = (
+            cuda_ms(lambda: ct.fused_tti_adjoint_step(*tadj[cdt]), 20),
+            cuda_ms(lambda: ct.fused_tti_adjoint_step_torch(*tadj[cdt]), 20))
+    for k in ("fused_tti_step", "fused_tti_hist_step", "fused_tti_adjoint_step"):
+        kt[k] = tkt[k]
+    kbytes["fused_tti_step"] = nbytes(vpp, vp, vqp, vq, vC, *tco[torch.float32], spz, spy,
+                                      spx, vpp, vqp)
+    kbytes["fused_tti_hist_step"] = kbytes["fused_tti_step"] + nbytes(*tq8)
+    kbytes["fused_tti_adjoint_step"] = nbytes(*tadj[torch.float32][:18], spz, spy, spx,
+                                              *tadj[torch.float32][2:10])
+    tbounds = {}
+    for cdt, co in tco.items():
+        tag = "" if cdt == torch.float32 else " bf16"
+        b11 = nbytes(vpp, vp, vqp, vq, vC, *co, spz, spy, spx, vpp, vqp)
+        tbounds["fused_tti_step" + tag] = bound_ms(b11, vp.numel(), "fused_tti_step")[0]
+        tbounds["fused_tti_hist_step" + tag] = bound_ms(b11 + nbytes(*tq8), vp.numel(),
+                                                        "fused_tti_hist_step")[0]
+        tbounds["fused_tti_adjoint_step" + tag] = bound_ms(
+            nbytes(*tadj[cdt][:18], spz, spy, spx, *tadj[cdt][2:10]), vp.numel(),
+            "fused_tti_adjoint_step")[0]
+    Ftprof = tti_wave_propagator(wshape, nt=40, src_idx=src0, store_adjoint="int8", **wkw)
+    tshares = {"forward": busy_share(lambda: Ftprof(mt_true)),
+               "gradient": busy_share(lambda: tgrad(Ftprof, 40))}
+    peak_all = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    tgrad(Ftprof, 40)
+    tpeak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(26, "TTI us/step (marginal nt 60 vs 10, CUDA events; bench.py's keys): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in tus.items())
+            + "; kernel vs plain at 256^3 (int8 history; bound by bytes) "
+            + ", ".join(f"{k} {1e3 * a:.1f} vs {1e3 * b_:.1f} us (bound "
+                        f"{1e3 * tbounds[k]:.1f} us)" for k, (a, b_) in tkt.items())
+            + "; device busy share under the profiler (nt=40): "
+            + ", ".join(f"{k} {'not measured' if sh is None else f'{sh:.3f}'} of "
+                        f"{wall:.2f} ms ({n} device events; top kernels, us total/"
+                        f"count: " + "; ".join(f"{nm} {t:.0f}/{c}" for nm, (t, c) in top)
+                        + ")"
+                        for k, (sh, wall, n, top) in tshares.items())
+            + f"; peak device memory of the nt=40 int8 gradient {tpeak_gib:.2f} GiB, "
+            f"of the whole run before it {peak_all:.2f} GiB [{smi}]")
+
     main_path.update(wave_path)
     main_path.update(vti_path)
+    main_path.update(tti_path)
     sources = {"solver": "jets_tpu_torch/csrc/solver_kernels.cu",
                "wave": "jets_tpu_torch/csrc/wave_kernels.cu",
-               "vti": "jets_tpu_torch/csrc/vti_kernels.cu"}
+               "vti": "jets_tpu_torch/csrc/vti_kernels.cu",
+               "tti": "jets_tpu_torch/csrc/tti_kernels.cu"}
     replaces = {
         "xw_update": ("solver", "jets_tpu/ops/pallas_solver.py:104"),
         "lap3d_axpy_norm2": ("solver", "jets_tpu/ops/pallas_solver.py:410"),
@@ -803,13 +1171,20 @@ def main() -> int:
         "fused_vti_step": ("vti", "jets_tpu/ops/pallas_wave.py:501"),
         "fused_vti_hist_step": ("vti", "jets_tpu/ops/pallas_wave.py:544"),
         "fused_vti_adjoint_step": ("vti", "jets_tpu/ops/pallas_wave.py:1660"),
+        "fused_tti_step": ("tti", "jets_tpu/ops/pallas_wave.py:869"),
+        "fused_tti_hist_step": ("tti", "jets_tpu/ops/pallas_wave.py:922"),
+        "fused_tti_adjoint_step": ("tti", "jets_tpu/ops/pallas_wave.py:2014"),
     }
-    print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": sources[lib], "replaces": where,
-         "launches": main_path[k], "max_abs_err": err[k],
-         "ms": kt[k][0], "plain_ms": kt[k][1]}
-        for k, (lib, where) in replaces.items()
-    ]}))
+    log(27, f"chip_smoke total {time.perf_counter() - t_start:.1f} s, kernel build "
+            f"included")
+    rows = []
+    for k, (lib, where) in replaces.items():
+        bms, by = bound_ms(kbytes[k], 256 ** 3, k)
+        rows.append({"name": k, "route": "cuda", "source": sources[lib], "replaces": where,
+                     "launches": main_path[k], "max_abs_err": err[k], "ms": kt[k][0],
+                     "plain_ms": kt[k][1], "bound_ms": bms, "bound_by": by,
+                     "library_ms": lib_ms.get(k)})
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

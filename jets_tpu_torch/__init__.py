@@ -3,13 +3,15 @@
 The same matrix-free operator-and-solver framework, for one NVIDIA H100
 (Hopper, ``sm_90a``): spaces with an explicit device, immutable jets and
 operators, the operator algebra, the correctness gates, the seismic
-flagship and its LSQR solver, block spaces, and the isotropic and VTI
+flagship and its LSQR solver, block spaces, and the isotropic, VTI and TTI
 anisotropic wave operators of FWI (:mod:`jets_tpu_torch.ops.wave`). Plain
 tensor code is PyTorch; the Pallas kernels of the JAX package on these
 paths are hand-written CUDA C++ in ``csrc/`` (see
-:mod:`jets_tpu_torch.ops.cuda_solver`, :mod:`jets_tpu_torch.ops.cuda_wave`
-and :mod:`jets_tpu_torch.ops.cuda_vti`), built with ``nvcc`` at first use
-on a machine that has a card. This package never imports JAX.
+:mod:`jets_tpu_torch.ops.cuda_solver`, :mod:`jets_tpu_torch.ops.cuda_wave`,
+:mod:`jets_tpu_torch.ops.cuda_vti` and :mod:`jets_tpu_torch.ops.cuda_tti`),
+built with ``nvcc`` at first use on a machine that has a card. Every
+constructor builds on the card unless the caller passes ``device="cpu"``
+(or another device). This package never imports JAX.
 """
 from .core.spaces import Space, space_of, zeros, ones, rand, randn
 from .core.blockspace import BlockSpace, BlockVector
@@ -36,7 +38,12 @@ from .core.verify import (
     materialize,
 )
 from .kernels import has_cuda
-from .ops.wave import vti_wave_propagator, multishot_vti_wave_operator
+from .ops.wave import (
+    multishot_tti_wave_operator,
+    multishot_vti_wave_operator,
+    tti_wave_propagator,
+    vti_wave_propagator,
+)
 from . import utils  # noqa: E402
 
 __version__ = "0.1.0"

@@ -5,6 +5,10 @@ or data vectors live. Spaces are immutable and hashable. Unlike the JAX
 package, a space names its device explicitly, and its members are created
 there.
 
+A constructor that is given no device builds on the CUDA card
+(:func:`resolve_device`); there is no fallback to the CPU, which a caller
+asks for with ``device="cpu"``.
+
 Random members take an explicit :class:`torch.Generator` (the counterpart
 of ``jax.random`` keys). The generator may live on another device than the
 space; the draw is made on the generator's device and moved, so a CPU
@@ -20,7 +24,20 @@ from typing import Sequence, Tuple
 
 import torch
 
-__all__ = ["Space", "space_of", "zeros", "ones", "rand", "randn"]
+__all__ = ["Space", "space_of", "zeros", "ones", "rand", "randn", "resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a :class:`torch.device`; ``None`` is the CUDA card.
+    Without a card, ``None`` raises: nothing builds on the CPU unless the
+    caller asks for it with ``device="cpu"``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: jets_tpu_torch builds on the card "
+                           "unless asked otherwise; pass device='cpu' to build "
+                           "on the CPU")
+    return torch.device("cuda")
 
 
 def _canon_shape(shape: Sequence[int] | int) -> Tuple[int, ...]:
@@ -30,15 +47,16 @@ def _canon_shape(shape: Sequence[int] | int) -> Tuple[int, ...]:
 
 
 class Space:
-    """A dense n-D vector space: ``(shape, dtype, device)``."""
+    """A dense n-D vector space: ``(shape, dtype, device)``; ``device=None``
+    is the CUDA card (:func:`resolve_device`)."""
 
     __slots__ = ("_shape", "_dtype", "_device")
 
     def __init__(self, shape: Sequence[int] | int, dtype: torch.dtype = torch.float32,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         object.__setattr__(self, "_shape", _canon_shape(shape))
         object.__setattr__(self, "_dtype", dtype)
-        object.__setattr__(self, "_device", torch.device(device))
+        object.__setattr__(self, "_device", resolve_device(device))
 
     def __setattr__(self, *a):  # pragma: no cover - defensive
         raise AttributeError("Space is immutable")

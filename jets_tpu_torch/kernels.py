@@ -11,8 +11,9 @@ missing library, all at once, and waits for them.
 
 Nothing here runs at import time: importing the package needs neither
 ``nvcc`` nor a GPU. On a machine without CUDA the wrappers in
-:mod:`jets_tpu_torch.ops.cuda_solver`, :mod:`jets_tpu_torch.ops.cuda_wave`
-and :mod:`jets_tpu_torch.ops.cuda_vti` only ever take their plain PyTorch
+:mod:`jets_tpu_torch.ops.cuda_solver`, :mod:`jets_tpu_torch.ops.cuda_wave`,
+:mod:`jets_tpu_torch.ops.cuda_vti` and :mod:`jets_tpu_torch.ops.cuda_tti`
+only ever take their plain PyTorch
 versions (for CPU tensors), and never reach :func:`load_library`.
 """
 from __future__ import annotations
@@ -34,6 +35,7 @@ SOURCES = {
     "solver": _PKG / "csrc" / "solver_kernels.cu",
     "wave": _PKG / "csrc" / "wave_kernels.cu",
     "vti": _PKG / "csrc" / "vti_kernels.cu",
+    "tti": _PKG / "csrc" / "tti_kernels.cu",
 }
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -66,6 +68,15 @@ _SIGNATURES = {
         "jt_vti_hist_step": ([_P] * 15 + [_I64] + [_P] * 5 + [_I64] * 3
                              + [_INT, _INT, _P], _INT),
         "jt_vti_adjoint_step": ([_P] * 23 + [_I64] * 3 + [_INT, _INT, _P], _INT),
+    },
+    "tti": {
+        "jt_error_string": ([_INT], ctypes.c_char_p),
+        "jt_tti_num_partials": ([_I64] * 3, _I64),
+        "jt_tti_step": ([_P] * 17 + [_I64] + [_P] * 2 + [_I64] * 3 + [_INT, _INT, _P],
+                        _INT),
+        "jt_tti_hist_step": ([_P] * 19 + [_I64] + [_P] * 5 + [_I64] * 3
+                             + [_INT, _INT, _INT, _P], _INT),
+        "jt_tti_adjoint_step": ([_P] * 33 + [_I64] * 3 + [_INT, _INT, _INT, _P], _INT),
     },
 }
 

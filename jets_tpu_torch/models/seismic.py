@@ -34,7 +34,7 @@ import torch
 
 from ..core.algebra import compose
 from ..core.jet import Operator, with_state
-from ..core.spaces import Space
+from ..core.spaces import Space, resolve_device
 from ..ops.cuda_solver import lap3d_axpy_norm2, laplacian3d
 from ..ops.stencil import laplacian_nd as _lap
 from ..ops.stencil import laplacian_operator
@@ -291,7 +291,7 @@ def seismic_operator_from_arrays(
     impl: str = "fused",
     epilogue_hook: bool = False,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> Operator:
     """The operator ``A = S ∘ L`` from given per-shot receiver weights ``wr``
     (nshots, nreceivers) and, for an irregular geometry (a receiver count
@@ -299,6 +299,7 @@ def seismic_operator_from_arrays(
     ``rcv`` (nreceivers,). ``rcv`` is not used with a regular subgrid, which
     is fixed by the grid shape and the receiver count."""
     grid_shape = tuple(int(s) for s in grid_shape)
+    device = resolve_device(device)
     if impl not in ("fused", "composed"):
         raise ValueError(f"impl must be 'fused' or 'composed', got {impl!r}")
     dom = Space(grid_shape, dtype, device)
@@ -370,7 +371,7 @@ def make_seismic_operator(
     rcv=None,
     mesh=None,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
     impl: str = "fused",
     epilogue_hook: bool = False,
 ) -> Operator:
@@ -381,8 +382,9 @@ def make_seismic_operator(
     ``rcv`` arrays are used as given instead (see
     :func:`seismic_operator_from_arrays`).
 
-    Model space: ``grid_shape`` (2-D or 3-D). Range: ``(nshots,
-    nreceivers)``. ``mesh`` must be None (distribution is not ported yet).
+    Model space: ``grid_shape`` (2-D or 3-D) on ``device`` (``None``: the
+    CUDA card). Range: ``(nshots, nreceivers)``. ``mesh`` must be None
+    (distribution is not ported yet).
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -416,7 +418,7 @@ def make_seismic_problem(
     mesh=None,
     noise: float = 0.0,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
     impl: str = "fused",
     epilogue_hook: bool = False,
 ) -> Tuple[Operator, torch.Tensor, torch.Tensor]:
@@ -429,6 +431,7 @@ def make_seismic_problem(
     Krylov loops run their full iteration budget).
     """
     g = torch.Generator().manual_seed(seed)
+    device = resolve_device(device)
     A = make_seismic_operator(
         grid_shape, nshots, nreceivers, g, wr=wr, rcv=rcv, mesh=mesh, dtype=dtype,
         device=device, impl=impl, epilogue_hook=epilogue_hook,

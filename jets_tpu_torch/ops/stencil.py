@@ -6,7 +6,9 @@ the same inputs it is bitwise equal to the eager (non-jitted)
 ``jets_tpu.ops.stencil.laplacian_nd``; the hand-written 3-D CUDA kernel
 (``ops/cuda_solver.laplacian3d``) keeps it too. :func:`d2_axis` is the
 one-axis second derivative of the anisotropic wave physics (the JAX
-package's ``ops/wave._d2_axis``), with its own tree. ``stencil_operator``
+package's ``ops/wave._d2_axis``), with its own tree, and :func:`d1_axis` the
+one-axis first derivative of the TTI physics (``ops/wave._d1_axis``).
+``stencil_operator``
 and ``blur2d_operator`` are not ported yet.
 """
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch.nn.functional as F
 from ..core.jet import Jet, LinearOperator
 from ..core.spaces import Space
 
-__all__ = ["laplacian_nd", "d2_axis", "laplacian_operator"]
+__all__ = ["laplacian_nd", "d2_axis", "d1_axis", "laplacian_operator"]
 
 # Central finite-difference coefficients of the second derivative,
 # (c0, (c1, c2, ...)): d²u/dx² ≈ (c0*u[i] + Σ_s c_s*(u[i-s]+u[i+s])) / h².
@@ -31,6 +33,25 @@ _D2_COEFFS = {
         (8.0 / 5.0, -1.0 / 5.0, 8.0 / 315.0, -1.0 / 560.0),
     ),
 }
+
+# Central first-derivative coefficients, (c1, c2, ...): du/dx ≈
+# Σ_s c_s*(u[i+s]-u[i-s]) / h (the JAX package's ops/wave._D1_COEFFS).
+_D1_COEFFS = {
+    2: (0.5,),
+    4: (2.0 / 3.0, -1.0 / 12.0),
+    8: (4.0 / 5.0, -1.0 / 5.0, 4.0 / 105.0, -1.0 / 280.0),
+}
+
+
+def _shifts(x: torch.Tensor, ax: int, hw: int):
+    """``shifted(s)``: ``x`` moved by ``s`` along ``ax`` with zeros past the
+    boundary (a slice of a zero-padded copy)."""
+    nd = x.ndim
+    pad = [0] * (2 * nd)
+    pad[2 * (nd - 1 - ax)] = pad[2 * (nd - 1 - ax) + 1] = hw
+    xp = F.pad(x, pad)
+    n = x.shape[ax]
+    return lambda s: xp.narrow(ax, hw + s, n)
 
 
 def laplacian_nd(x: torch.Tensor, order: int = 2) -> torch.Tensor:
@@ -67,20 +88,25 @@ def d2_axis(x: torch.Tensor, ax: int, inv_dx2, order: int = 2) -> torch.Tensor:
     ``(c0·x + Σ_s c_s·(x[i+s] + x[i−s]))·inv_dx2`` of the JAX package's
     ``ops/wave._d2_axis``, bitwise equal to it when eager."""
     c0, cs = _D2_COEFFS[order]
-    hw = len(cs)
-    nd = x.ndim
-    pad = [0] * (2 * nd)
-    pad[2 * (nd - 1 - ax)] = pad[2 * (nd - 1 - ax) + 1] = hw
-    xp = F.pad(x, pad)
-    n = x.shape[ax]
-
-    def shifted(s):
-        return xp.narrow(ax, hw + s, n)
-
+    shifted = _shifts(x, ax, len(cs))
     out = c0 * x
     for s, c in enumerate(cs, start=1):
         out = out + c * (shifted(s) + shifted(-s))
     return out * inv_dx2
+
+
+def d1_axis(x: torch.Tensor, ax: int, inv_dx, order: int = 2) -> torch.Tensor:
+    """First derivative along ``ax`` with a zero boundary: the tree
+    ``(Σ_s c_s·(x[i+s] − x[i−s]))·inv_dx``, the first term alone and each
+    later one added, of the JAX package's ``ops/wave._d1_axis``, bitwise
+    equal to it when eager."""
+    cs = _D1_COEFFS[order]
+    shifted = _shifts(x, ax, len(cs))
+    out = None
+    for s, c in enumerate(cs, start=1):
+        term = c * (shifted(s) - shifted(-s))
+        out = term if out is None else out + term
+    return out * inv_dx
 
 
 def _laplacian_df(dm, m0, state):
@@ -96,12 +122,13 @@ def _laplacian_kernel_df(dm, m0, state):
 def laplacian_operator(
     shape: Sequence[int],
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
     *,
     impl: str = "torch",
     order: int = 2,
 ) -> LinearOperator:
-    """Self-adjoint n-D Laplacian operator with a zero boundary.
+    """Self-adjoint n-D Laplacian operator with a zero boundary, on
+    ``device`` (``None``: the CUDA card).
 
     ``impl="torch"`` (default): :func:`laplacian_nd` at ``order`` 2, 4 or 8.
     ``impl="kernel"``: the hand-written CUDA 7-point kernel

@@ -1,6 +1,6 @@
-"""Isotropic and VTI anisotropic acoustic wave operators (counterpart of
-the isotropic and VTI parts of ``jets_tpu/ops/wave.py``, with the same
-names).
+"""Isotropic, VTI and TTI anisotropic acoustic wave operators (counterpart
+of the isotropic, VTI and TTI parts of ``jets_tpu/ops/wave.py``, with the
+same names).
 
 Physics: constant-density acoustic wave equation, 2nd order in time,
 orders 2/4/8 in space, time-stepped by an explicit leapfrog with a sponge
@@ -21,15 +21,25 @@ taper at the boundaries::
   the pseudo-acoustic VTI system (two coupled fields p, q; model
   ``(c, ε, δ)`` on a ``BlockSpace([grid, grid, grid])``), with the same
   tangent, autodiff adjoint and stored two-field-history adjoint.
+* :func:`tti_wave_propagator` and :func:`multishot_tti_wave_operator` —
+  the tilted system: VTI's operators rotated onto the symmetry axis, model
+  ``(c, ε, δ, θ, φ)`` on five blocks in 3-D (``(c, ε, δ, θ)`` on four in
+  2-D), optionally with its five coefficient fields in bfloat16.
+
+Every constructor builds on the CUDA card unless ``device`` says otherwise
+(``device="cpu"``, as the tests ask).
 
 On a 3-D float32 grid on a CUDA card the isotropic forward step is the
 hand-written kernel K4 (:func:`cuda_wave.fused_leapfrog_step`) and the
 reverse step of its stored adjoint K5 (:func:`cuda_wave.fused_adjoint_step`);
 the VTI step is K8 (:func:`cuda_vti.fused_vti_step`), its stored adjoint's
 forward sweep K9 (:func:`cuda_vti.fused_vti_hist_step`, which also encodes
-the history) and reverse sweep K10 (:func:`cuda_vti.fused_vti_adjoint_step`).
-Elsewhere, and with ``fused=False``, the plain PyTorch step with the same
-floating-point tree runs. The JAX package pairs two steps per ``lax.scan``
+the history) and reverse sweep K10 (:func:`cuda_vti.fused_vti_adjoint_step`);
+the 3-D TTI step is K11 (:func:`cuda_tti.fused_tti_step`), its stored
+adjoint's forward sweep K12 (:func:`cuda_tti.fused_tti_hist_step`) and
+reverse sweep K13 (:func:`cuda_tti.fused_tti_adjoint_step`). Elsewhere, and
+with ``fused=False``, the plain PyTorch step with the same floating-point
+tree runs. The JAX package pairs two steps per ``lax.scan``
 iteration on the TPU to avoid carry copies; a Python loop rotates
 ``(u_prev, u) → (u, u_next)`` for free, so the port steps one at a time and
 writes ``u_next`` into ``u_prev``'s buffer on sweeps that no autodiff
@@ -42,6 +52,7 @@ static Q (``q=``) and ``mesh=``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -53,7 +64,8 @@ from ..core.jet import Jet, LinearOperator, Operator, with_state
 from ..core.spaces import Space
 from ..parallel.sharded import stacked_block_operator
 from ..utils.tree import tmap
-from . import cuda_vti, cuda_wave
+from . import cuda_tti, cuda_vti, cuda_wave
+from .stencil import d1_axis, d2_axis
 from .stencil import laplacian_nd as _laplacian
 
 __all__ = [
@@ -62,6 +74,8 @@ __all__ = [
     "multishot_wave_operator",
     "vti_wave_propagator",
     "multishot_vti_wave_operator",
+    "tti_wave_propagator",
+    "multishot_tti_wave_operator",
     "with_wave_arrays",
 ]
 
@@ -452,15 +466,15 @@ def wave_propagator(
     store_adjoint: Optional[str] = None,
     wavefield_sharding=None,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> Operator:
     """Nonlinear forward-modelling operator ``F: velocity c → traces d``.
 
-    Domain: the velocity grid on ``device``. Range: ``(ntrec, nrcv)``
-    receiver traces (``ntrec = nt`` unless the recording interval ``dtrec``
-    is given). ``space_order`` ∈ {2, 4, 8}. ``fused``: ``None`` rides the
-    kernels K4/K5 on a 3-D float32 grid on a CUDA card, ``True`` insists,
-    ``False`` takes the plain step. ``store_adjoint`` ∈ {None, "f32",
+    Domain: the velocity grid on ``device`` (``None``: the CUDA card).
+    Range: ``(ntrec, nrcv)`` receiver traces (``ntrec = nt`` unless the
+    recording interval ``dtrec`` is given). ``space_order`` ∈ {2, 4, 8}.
+    ``fused``: ``None`` rides the kernels K4/K5 on a 3-D float32 grid on a
+    CUDA card, ``True`` insists, ``False`` takes the plain step. ``store_adjoint`` ∈ {None, "f32",
     "bf16", "int8"} switches the adjoint from ``torch.func.vjp`` through the
     time loop to the stored-history sweep (:func:`_adjoint_stored`).
     """
@@ -634,7 +648,7 @@ def multishot_wave_operator(
     axis: str = "block",
     shot_map: str = "vmap",
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> Operator:
     """Nonlinear multi-shot modelling ``F: c → (nshots, ntrec, nrcv)``.
 
@@ -939,7 +953,7 @@ def vti_wave_propagator(
     store_adjoint: Optional[str] = None,
     wavefield_sharding=None,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> Operator:
     """Three-parameter VTI forward modelling ``F: (c, ε, δ) → traces``.
 
@@ -993,7 +1007,7 @@ def multishot_vti_wave_operator(
     axis: str = "block",
     shot_map: str = "vmap",
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> Operator:
     """Multi-shot VTI modelling ``F: (c, ε, δ) → (nshots, ntrec, nrcv)``
     through :func:`stacked_block_operator`, as :func:`multishot_wave_operator`
@@ -1017,10 +1031,460 @@ def multishot_vti_wave_operator(
         sponge=_make_sponge(grid_shape, sponge_width, dtype=dtype))
 
 
+# ---------------------------------------------------------------------------
+# TTI anisotropy: tilted transversely isotropic pseudo-acoustics, the VTI
+# coupled system with its derivative operators rotated onto the symmetry
+# axis. 3-D: n = (cosθ, sinθ·cosφ, sinθ·sinφ) in (z, y, x), model
+# (c, ε, δ, θ, φ) on five blocks, V(u) = Σᵢ nᵢ²∂ᵢᵢu + Σ_{i<j} 2nᵢnⱼ∂ᵢⱼu and
+# H = ∇² − V with explicit (1 − nᵢ²) and −2nᵢnⱼ coefficients
+# (cuda_tti.h_of/v_of); 2-D: the tilt θ in the x-z plane, model (c, ε, δ, θ)
+# on four blocks. θ = 0 reduces to the VTI system.
+# ---------------------------------------------------------------------------
+
+
+def _trig(fn, x):
+    """``fn(x)`` (cos or sin) of a float32 tensor as a float64 result rounded
+    to float32. Float32 cosines and sines are not correctly rounded on any
+    of PyTorch's CPU kernels, JAX's or CUDA's (they differ by an ulp here and
+    there); a float64 result rounded to float32 is the same on the CPU and
+    the card, but for a value within a float64 error of a float32 rounding
+    boundary."""
+    return fn(x.double()).to(x.dtype) if x.dtype == torch.float32 else fn(x)
+
+
+def _r16(x):
+    """``x`` rounded to bfloat16 and back (``lax.reduce_precision(x, 8, 7)``),
+    outside autodiff."""
+    return x.detach().to(torch.bfloat16).to(x.dtype)
+
+
+def _tti_coefficients(c, eps, delta, theta, phi, dt: float, dx: float,
+                      coeff16: bool = False):
+    """``(C, ah, av, nz, ny, nx, inv_dx2, inv_dx, av_raw, kc)`` of the 3-D
+    TTI system: ``C = (c·c)·(dt·dt)``, ``ah = 1 + 2ε``, ``av = √(1 + 2δ)``
+    (a float64 root rounded, as :func:`_vti_coefficients`), the axis
+    ``(cosθ, sinθ·cosφ, sinθ·sinφ)`` (:func:`_trig`), ``1/dx²`` and ``1/dx``
+    as 0-d tensors, the unrounded ``av_raw`` (the δ chain differentiates it)
+    and ``kc``, the five fields the kernels stream. With ``coeff16`` the five
+    fields are rounded to bfloat16 straight through: the primal is the
+    rounded value, the tangent flows in float32 (``x + (r16(x) − x)`` with the
+    difference detached), and ``kc`` holds the bfloat16 tensors themselves;
+    otherwise ``kc`` is the five float32 fields."""
+    C, ah, av_raw, inv_dx2 = _vti_coefficients(c, eps, delta, dt, dx)
+    inv_dx = torch.tensor(1.0 / dx, dtype=c.dtype, device=c.device)
+    st = _trig(torch.sin, theta)
+    f5 = (ah, av_raw, _trig(torch.cos, theta), st * _trig(torch.cos, phi),
+          st * _trig(torch.sin, phi))
+    if coeff16:
+        kc = tuple(x.detach().to(torch.bfloat16) for x in f5)
+        f5 = tuple(x + (_r16(x) - x).detach() for x in f5)
+    else:
+        kc = f5
+    return (C, *f5, inv_dx2, inv_dx, av_raw, kc)
+
+
+class _TtiStep(torch.autograd.Function):
+    """K11 under autodiff (the counterpart of the ``custom_jvp`` around the
+    Pallas TTI step in ``jets_tpu/ops/wave.py``): the forward is the kernel
+    on the streamed coefficient fields ``kc`` (float32 or bfloat16), writing
+    fresh tensors; the tangent and the backward are ``torch.func.jvp`` and
+    ``torch.func.vjp`` of the plain step with respect to ``(p_prev, p,
+    q_prev, q, C, ah, av, nz, ny, nx, s_t)``, the float32 fields equal to
+    ``kc`` (the JAX rule's ``jax.jvp(xla_step, ...)``)."""
+
+    @staticmethod
+    def forward(pp, p, qp, q, C, ah, av, nz, ny, nx, s_t, ka, kb, kz, ky, kx, spz, sy,
+                sx, inv_dx2, inv_dx, src, amp, order):
+        return cuda_tti.fused_tti_step(pp, p, qp, q, C, ka, kb, kz, ky, kx, spz, sy, sx,
+                                       inv_dx2, inv_dx, s_t, src, amp, order=order)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        primals = inputs[:11]
+        spz, sy, sx, inv_dx2, inv_dx, src, amp, order = inputs[16:]
+        ctx.save_for_backward(*primals, spz, sy, sx, inv_dx2, inv_dx, amp)
+        ctx.save_for_forward(*primals, spz, sy, sx, inv_dx2, inv_dx, amp)
+        ctx.src, ctx.order = src, order
+
+    @staticmethod
+    def _plain(ctx):
+        spz, sy, sx, inv_dx2, inv_dx, amp = ctx.saved_tensors[11:]
+        S = cuda_wave.sponge_product(spz, sy, sx)
+
+        def step(pp, p, qp, q, C, ah, av, nz, ny, nx, s_t):
+            mask = cuda_wave.source_mask(p.shape, ctx.src, amp)
+            return cuda_tti.tti_plain(pp, p, qp, q, C, ah, av, nz, ny, nx, S, inv_dx2,
+                                      inv_dx, s_t, mask, ctx.order)
+
+        return ctx.saved_tensors[:11], step
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        primals, step = _TtiStep._plain(ctx)
+        tans = tuple(torch.zeros_like(x) if t is None else t
+                     for x, t in zip(primals, tangents[:11]))
+        _, out = torch.func.jvp(step, primals, tans)
+        return out
+
+    @staticmethod
+    def backward(ctx, gpn, gqn):
+        primals, step = _TtiStep._plain(ctx)
+        _, vjp = torch.func.vjp(step, *primals)
+        return vjp((gpn, gqn)) + (None,) * 13
+
+
+def _propagate_tti3d(c, eps, delta, theta, phi, src_wavelet, src_idx, rcv_idx, *, dt,
+                     dx, sponge, order: int = 2, fused=None, inplace: bool = False,
+                     coeff16: bool = False):
+    """Coupled 3-D TTI leapfrog; returns the p-field receiver traces
+    ``(nt, nrcv)``. ``fused`` and ``inplace`` as for :func:`_propagate_vti`:
+    on the kernel route the step is K11 on the streamed fields ``kc``, in
+    place on sweeps no transform watches and inside :class:`_TtiStep`
+    otherwise; the plain route is the JAX package's XLA step, tree for tree."""
+    shape, dtype, dev = c.shape, c.dtype, c.device
+    nt = int(src_wavelet.shape[0])
+    C, ah, av, nz, ny, nx, inv_dx2, inv_dx, _, kc = _tti_coefficients(
+        c, eps, delta, theta, phi, dt, dx, coeff16)
+    amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
+    kernel = _kernel_route(fused, c, sponge, order)
+    inplace = inplace and not (torch.is_grad_enabled() and any(
+        t.requires_grad for t in (c, eps, delta, theta, phi)))
+    pp, p, qp, q = (torch.zeros(shape, dtype=dtype, device=dev) for _ in range(4))
+    nrcv = int(rcv_idx.shape[0])
+    traces = torch.empty((nt, nrcv), dtype=dtype, device=dev) if inplace else []
+
+    if kernel:
+        spz, sy, sx = _factors_1d(sponge)
+        src = int(src_idx)
+        if inplace:
+            def step(pp, p, qp, q, s_t):
+                return cuda_tti.fused_tti_step(pp, p, qp, q, C, *kc, spz, sy, sx,
+                                               inv_dx2, inv_dx, s_t, src, amp,
+                                               order=order, out=(pp, qp))
+        else:
+            def step(pp, p, qp, q, s_t):
+                return _TtiStep.apply(pp, p, qp, q, C, ah, av, nz, ny, nx, s_t, *kc,
+                                      spz, sy, sx, inv_dx2, inv_dx, src, amp, order)
+    else:
+        S = _sponge_full(sponge)
+        mask = cuda_wave.source_mask(shape, src_idx, amp)
+
+        def step(pp, p, qp, q, s_t):
+            return cuda_tti.tti_plain(pp, p, qp, q, C, ah, av, nz, ny, nx, S, inv_dx2,
+                                      inv_dx, s_t, mask, order)
+
+    for k in range(nt):
+        p_next, q_next = step(pp, p, qp, q, src_wavelet[k])
+        if inplace:
+            torch.index_select(p_next.reshape(-1), 0, rcv_idx, out=traces[k])
+        else:
+            traces.append(p_next.reshape(-1).index_select(0, rcv_idx))
+        pp, p, qp, q = p, p_next, q, q_next
+    return traces if inplace else torch.stack(traces)
+
+
+def _propagate_tti(c, eps, delta, theta, src_wavelet, src_idx, rcv_idx, *, dt, dx,
+                   sponge, order: int = 2, fused=None, inplace: bool = False):
+    """The 2-D tilt (θ in the x-z plane): ``H = cos²θ·∂xx + sin²θ·∂zz −
+    sin2θ·∂xz``, ``V = sin²θ·∂xx + cos²θ·∂zz + sin2θ·∂xz`` with ``∂xz =
+    d1_x(d1_z(u))``; plain only, as in the JAX package (``fused`` and
+    ``inplace`` are accepted and ignored). Returns the p-field traces."""
+    shape, dtype, dev = c.shape, c.dtype, c.device
+    C, ah, av, inv_dx2 = _vti_coefficients(c, eps, delta, dt, dx)
+    inv_dx = torch.tensor(1.0 / dx, dtype=dtype, device=dev)
+    ct, stt = _trig(torch.cos, theta), _trig(torch.sin, theta)
+    ct2, st2, s2t = ct * ct, stt * stt, _trig(torch.sin, 2.0 * theta)
+    amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
+    mask = cuda_wave.source_mask(shape, src_idx, amp)
+
+    def dxz(u):
+        return d1_axis(d1_axis(u, 0, inv_dx, order), 1, inv_dx, order)
+
+    pp, p, qp, q = (torch.zeros(shape, dtype=dtype, device=dev) for _ in range(4))
+    traces = []
+    for k in range(int(src_wavelet.shape[0])):
+        pxx, pzz = d2_axis(p, 1, inv_dx2, order), d2_axis(p, 0, inv_dx2, order)
+        qxx, qzz = d2_axis(q, 1, inv_dx2, order), d2_axis(q, 0, inv_dx2, order)
+        Hp = ct2 * pxx + st2 * pzz - s2t * dxz(p)
+        Vq = st2 * qxx + ct2 * qzz + s2t * dxz(q)
+        e_p = (2.0 * p - pp) + C * (ah * Hp + av * Vq)
+        e_q = (2.0 * q - qp) + C * (av * Hp + Vq)
+        s = src_wavelet[k] * mask
+        p_next, q_next = e_p * sponge + s, e_q * sponge + s
+        traces.append(p_next.reshape(-1).index_select(0, rcv_idx))
+        pp, p, qp, q = p, p_next, q, q_next
+    return torch.stack(traces)
+
+
+def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet, src_idx, rcv_idx,
+                          *, dt, dx, sponge, order: int = 2, store: str = "int8",
+                          fused=None, coeff16: bool = False):
+    """Adjoint-state gradient ``(∂F/∂(c, ε, δ, θ, φ))ᵀ dd`` of the 3-D TTI
+    system over a stored two-field forward history, encoded per snapshot
+    (``store``: f32, bf16, int8). Every rotated derivative is self-adjoint
+    under the zero boundary, so with ``ēp = S⊙ap₊``, ``ēq = S⊙aq₊``::
+
+        ap = Pᵀḡ + 2ēp + Hᵀ(C·ah·ēp + C·av·ēq) − ēp₊
+        aq =       2ēq + Vᵀ(C·av·ēp + C·ēq)     − ēq₊
+
+    and the six accumulators of :func:`cuda_tti.fused_tti_adjoint_step_torch`;
+    the outer chain gives ``gc = gC·(2c)·dt²``, ``gε = 2·gah``,
+    ``gδ = gav/av_raw`` (the unrounded root) and, through
+    ``n = (cosθ, sinθcosφ, sinθsinφ)``, ``gθ = −sinθ·gnz + cosθcosφ·gny +
+    cosθsinφ·gnx`` and ``gφ = −sinθsinφ·gny + sinθcosφ·gnx``. On the kernel
+    route the forward sweep is K12 (in place; it encodes each input snapshot
+    at the scale the previous step's partial maxima give) and the reverse
+    sweep K13 (``ap``/``aq`` into the ``ap₊₊``/``aq₊₊`` buffers, the
+    accumulators in place) followed by the receiver injection
+    ``index_add_``. The plain route is the JAX package's XLA sweeps
+    (``fstep``/``bstep``), tree for tree. ``coeff16`` applies the forward's
+    straight-through bfloat16 rounding. Returns ``(gc, gε, gδ, gθ, gφ)``."""
+    shape, dtype, dev = c.shape, c.dtype, c.device
+    size = math.prod(shape)
+    nt = int(src_wavelet.shape[0])
+    C, ah, av, nz, ny, nx, inv_dx2, inv_dx, av_raw, kc = _tti_coefficients(
+        c, eps, delta, theta, phi, dt, dx, coeff16)
+    amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
+    dd = dd.to(dtype)
+
+    def zeros():
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def inject(row):
+        return torch.zeros(size, dtype=dtype, device=dev).index_add(
+            0, rcv_idx, row).reshape(shape)
+
+    def outer(gC, gah, gav, gnz, gny, gnx):
+        cth, sth = _trig(torch.cos, theta), _trig(torch.sin, theta)
+        cph, sph = _trig(torch.cos, phi), _trig(torch.sin, phi)
+        return (gC * (2.0 * c) * torch.tensor(dt * dt, dtype=dtype, device=dev),
+                2.0 * gah, gav / av_raw,
+                -sth * gnz + (cth * cph) * gny + (cth * sph) * gnx,
+                (-sth * sph) * gny + (sth * cph) * gnx)
+
+    if _kernel_route(fused, c, sponge, order):
+        spz, sy, sx = _factors_1d(sponge)
+        src = int(src_idx)
+        pp, p, qp, q = (zeros() for _ in range(4))
+        scale = torch.full((2,), cuda_vti.SCALE_FLOOR, dtype=dtype, device=dev)
+        one = torch.ones(2, dtype=dtype, device=dev)
+        ph, qh, scales = [], [], []
+        for k in range(nt):
+            qf = torch.full_like(scale, 127.0) / scale if store == "int8" else one
+            p_next, q_next, p_enc, q_enc, nxt = cuda_tti.fused_tti_hist_step(
+                pp, p, qp, q, C, *kc, spz, sy, sx, inv_dx2, inv_dx, src_wavelet[k], src,
+                amp, qf[0], qf[1], store=store, order=order, out=(pp, qp))
+            ph.append(p_enc)
+            qh.append(q_enc)
+            scales.append(scale)
+            scale = nxt  # snapshot k+1's scales, from this step's partial maxima
+            pp, p, qp, q = p, p_next, q, q_next
+        del pp, p, qp, q, p_next, q_next  # the history holds what the sweep needs
+        decs = (_div(torch.stack(scales), 127.0) if store == "int8"
+                else torch.ones((nt, 2), dtype=dtype, device=dev))
+        ap1 = inject(dd[-1])
+        aq1, ap2, aq2 = (zeros() for _ in range(3))
+        accs = tuple(zeros() for _ in range(6))
+        for k in range(nt - 1, -1, -1):
+            ap, aq, *accs = cuda_tti.fused_tti_adjoint_step(
+                ap1, aq1, ap2, aq2, *accs, C, *kc, ph[k], qh[k], decs[k, 0], decs[k, 1],
+                inv_dx2, inv_dx, spz, sy, sx, order=order, inplace=True)
+            ph[k] = qh[k] = None  # release the snapshots as the sweep passes them
+            if k > 0:  # ḡ_{k-1}; the JAX sweep adds a zero row at k = 0
+                ap.reshape(-1).index_add_(0, rcv_idx, dd[k - 1])
+            ap1, aq1, ap2, aq2 = ap, aq, ap1, aq1
+        return outer(*accs)
+
+    S = _sponge_full(sponge)
+    mask = cuda_wave.source_mask(shape, src_idx, amp)
+    enc, dec = _store_codec(store, dtype)
+    cf = cuda_tti.directions(nz, ny, nx)
+    pp, p, qp, q = (zeros() for _ in range(4))
+    hist = []
+    for k in range(nt):
+        hist.append((enc(p), enc(q)))  # history entry k holds (p_k, q_k)
+        p_next, q_next = cuda_tti.tti_plain(pp, p, qp, q, C, ah, av, nz, ny, nx, S,
+                                            inv_dx2, inv_dx, src_wavelet[k], mask, order)
+        pp, p, qp, q = p, p_next, q, q_next
+    # ḡ_{k-1} aligned to reverse step k (rec_k samples p_{k+1})
+    dd_shift = torch.cat([torch.zeros_like(dd[:1]), dd[:-1]])
+    ap1 = inject(dd[-1])
+    aq1, ebp1, ebq1 = (zeros() for _ in range(3))
+    gC, gah, gav, gnz, gny, gnx = (zeros() for _ in range(6))
+    for k in range(nt - 1, -1, -1):
+        (pq, psv), (qq, qsv) = hist[k]
+        hist[k] = None
+        dp6 = cuda_tti.derivs(dec(pq, psv), inv_dx2, inv_dx, order)
+        dq6 = cuda_tti.derivs(dec(qq, qsv), inv_dx2, inv_dx, order)
+        ebp, ebq = ap1 * S, aq1 * S
+        Hp, Vq = cuda_tti.h_of(dp6, cf), cuda_tti.v_of(dq6, cf)
+        gC = gC + ((ah * Hp + av * Vq) * ebp + (av * Hp + Vq) * ebq)
+        gah = gah + (C * Hp) * ebp
+        gav = gav + C * (Vq * ebp + Hp * ebq)
+        dczz, dcyy, dcxx, dczy, dczx, dcyx = (
+            C * ((av * q_d - ah * p_d) * ebp + (q_d - av * p_d) * ebq)
+            for p_d, q_d in zip(dp6, dq6))
+        gnz = gnz + (2.0 * nz * dczz + 2.0 * ny * dczy + 2.0 * nx * dczx)
+        gny = gny + (2.0 * ny * dcyy + 2.0 * nz * dczy + 2.0 * nx * dcyx)
+        gnx = gnx + (2.0 * nx * dcxx + 2.0 * nz * dczx + 2.0 * ny * dcyx)
+        ap = (2.0 * ebp + cuda_tti.ht(C * ah * ebp + C * av * ebq, cf, inv_dx2, inv_dx,
+                                      order) - ebp1) + inject(dd_shift[k])
+        aq = (2.0 * ebq + cuda_tti.vt(C * av * ebp + C * ebq, cf, inv_dx2, inv_dx,
+                                      order)) - ebq1
+        ap1, aq1, ebp1, ebq1 = ap, aq, ebp, ebq
+    return outer(gC, gah, gav, gnz, gny, gnx)
+
+
+def _tti_domain(grid_shape, dtype, device):
+    gsp = Space(grid_shape, dtype, device)
+    return BlockSpace([gsp] * (5 if len(grid_shape) == 3 else 4))
+
+
+def _propagate_tti_m(m, *args, coeff16=False, **kw):
+    """The 3-D (five blocks) or 2-D (four blocks) TTI propagator on a model
+    :class:`BlockVector`."""
+    if m.nblocks == 5:
+        return _propagate_tti3d(*m.blocks, *args, coeff16=coeff16, **kw)
+    return _propagate_tti(*m.blocks, *args, **kw)
+
+
+def _adjoint_stored_tti3d_m(m, dd, *args, **kw):
+    """:func:`_adjoint_stored_tti3d` on a ``(c, ε, δ, θ, φ)`` BlockVector,
+    returning the gradient as one."""
+    return BlockVector(_adjoint_stored_tti3d(*m.blocks, dd, *args, **kw), m.space)
+
+
+def _check_tti(grid_shape, store_adjoint, what):
+    if len(grid_shape) not in (2, 3):
+        raise ValueError(f"{what} supports 2-D and 3-D grids")
+    _check_store(store_adjoint)
+    if store_adjoint is not None and len(grid_shape) != 3:
+        raise ValueError(f"store_adjoint on the {what} is 3-D only (the 2-D tilt path "
+                         "keeps the autodiff adjoint)")
+
+
+def tti_wave_propagator(
+    grid_shape: Sequence[int],
+    *,
+    nt: int = 256,
+    dt: float = 0.001,
+    dx: float = 10.0,
+    freq: float = 15.0,
+    src_idx: int = 0,
+    rcv_idx=None,
+    sponge_width: int = 12,
+    space_order: int = 2,
+    remat_blocks: int = 1,
+    fused=None,
+    dtrec: Optional[float] = None,
+    q=None,
+    f0: Optional[float] = None,
+    coeff_dtype=None,
+    store_adjoint: Optional[str] = None,
+    wavefield_sharding=None,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str | None = None,
+) -> Operator:
+    """TTI forward modelling. 3-D: ``F: (c, ε, δ, θ, φ) → traces`` on
+    ``BlockSpace([grid] * 5)`` (the symmetry axis ``n = (cosθ, sinθcosφ,
+    sinθsinφ)``, angles in radians); 2-D: ``F: (c, ε, δ, θ) → traces`` on
+    four blocks, the tilt θ in the x-z plane. The domain lives on ``device``
+    (``None``: the CUDA card). ``θ = 0`` reduces to
+    :func:`vti_wave_propagator`. Conditionally stable like every
+    pseudo-acoustic TTI scheme: keep ``ε ≥ δ`` and the angle fields smooth.
+
+    ``fused``: ``None`` rides the kernels K11 (forward, tangent) and, with a
+    stored adjoint, K12/K13 on a 3-D float32 grid on a CUDA card; ``True``
+    insists; ``False`` takes the plain step (2-D is plain only).
+    ``coeff_dtype=torch.bfloat16`` (3-D only) rounds the five coefficient
+    fields ``1+2ε, √(1+2δ), nz, ny, nx`` to bfloat16 for both routes, which
+    the kernels stream at half width; tangents and gradients flow through
+    the rounding in float32. ``store_adjoint`` ∈ {None, "f32", "bf16",
+    "int8"} (3-D only) switches the adjoint from ``torch.func.vjp`` through
+    the time loop to the stored two-field-history sweep
+    (:func:`_adjoint_stored_tti3d`), which returns ``(δc, δε, δδ, δθ, δφ)``
+    in one reverse pass. Static Q (``q=``/``f0``), ``remat_blocks > 1`` and
+    ``wavefield_sharding`` are not ported yet.
+    """
+    grid_shape = tuple(int(s) for s in grid_shape)
+    space_order = _check_space_order(space_order)
+    _check_tti(grid_shape, store_adjoint, "TTI propagator")
+    three_d = len(grid_shape) == 3
+    if coeff_dtype is not None and coeff_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("coeff_dtype must be float32 or bfloat16")
+    coeff16 = coeff_dtype == torch.bfloat16
+    if coeff16 and not three_d:
+        raise ValueError("bf16 coefficient mode is 3-D only")
+    if fused and wavefield_sharding is not None:
+        raise ValueError("wavefield_sharding rides the plain step; fused=True is "
+                         "incompatible")
+    if wavefield_sharding is not None and not three_d:
+        raise ValueError("wavefield_sharding on TTI is 3-D only")
+    if wavefield_sharding is not None:
+        raise _not_ported("tti_wave_propagator(wavefield_sharding=...)", "18")
+    if q is not None:
+        raise _not_ported("tti_wave_propagator(q=...) (static Q)", "14")
+    if remat_blocks > 1:
+        raise _not_ported("remat_blocks > 1", "12")
+    if fused and not (three_d and cuda_wave.fits_wave_kernel(grid_shape, dtype,
+                                                              space_order)):
+        raise ValueError("fused TTI step requires a 3-D float32 grid")
+    dom = _tti_domain(grid_shape, dtype, device)
+    return _single_shot_operator(
+        dom, dom.subspace(0), functools.partial(_propagate_tti_m, coeff16=coeff16),
+        functools.partial(_adjoint_stored_tti3d_m, coeff16=coeff16), nt=nt, dt=dt,
+        dx=dx, freq=freq, src_idx=src_idx, rcv_idx=rcv_idx, dtrec=dtrec,
+        store_adjoint=store_adjoint, fused=fused, order=space_order,
+        sponge=_make_sponge(grid_shape, sponge_width, dtype=dtype))
+
+
+def multishot_tti_wave_operator(
+    grid_shape: Sequence[int],
+    src_indices,
+    *,
+    nt: int = 128,
+    dt: float = 0.001,
+    dx: float = 10.0,
+    freq: float = 15.0,
+    rcv_idx=None,
+    sponge_width: int = 12,
+    space_order: int = 2,
+    remat_blocks: int = 1,
+    dtrec: Optional[float] = None,
+    store_adjoint: Optional[str] = None,
+    mesh=None,
+    axis: str = "block",
+    shot_map: str = "vmap",
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str | None = None,
+) -> Operator:
+    """Multi-shot TTI modelling ``F: (c, ε, δ, θ[, φ]) → (nshots, ntrec,
+    nrcv)`` through :func:`stacked_block_operator`, as
+    :func:`multishot_vti_wave_operator` does for VTI: ``shot_map="map"`` runs
+    the shots one after another, each on the kernels K11/K12/K13 where they
+    apply; ``"vmap"`` runs them as one batched plain program. The model is
+    one :class:`BlockVector` shared by every shot; the stored adjoint (3-D
+    only) returns the five-block gradient summed over shots."""
+    grid_shape = tuple(int(s) for s in grid_shape)
+    space_order = _check_space_order(space_order)
+    _check_tti(grid_shape, store_adjoint, "TTI multishot")
+    if mesh is not None:
+        raise _not_ported("multishot_tti_wave_operator(mesh=...)", "18")
+    if remat_blocks > 1:
+        raise _not_ported("remat_blocks > 1", "12")
+    dom = _tti_domain(grid_shape, dtype, device)
+    return _multishot_operator(
+        dom, dom.subspace(0), _propagate_tti_m, _adjoint_stored_tti3d_m, src_indices,
+        nt=nt, dt=dt, dx=dx, freq=freq, rcv_idx=rcv_idx, dtrec=dtrec,
+        store_adjoint=store_adjoint, shot_map=shot_map, order=space_order,
+        sponge=_make_sponge(grid_shape, sponge_width, dtype=dtype))
+
+
 def with_wave_arrays(op: Operator, *, wavelet, sponge, src_idx, rcv_idx) -> Operator:
     """``op`` (from :func:`wave_propagator`, :func:`multishot_wave_operator`,
-    or their VTI counterparts, whose state keys are the same) with its wavelet, sponge, source and receiver indices replaced by the
-    given arrays (numpy or tensors; ``sponge`` one array or a tuple of
+    or their VTI and TTI counterparts, whose state keys are the same) with
+    its wavelet, sponge, source and receiver indices replaced by the given
+    arrays (numpy or tensors; ``sponge`` one array or a tuple of
     per-axis factors), moved to the operator's device and dtype. This
     carries a JAX wave operator's state across, so both packages run on the
     same wavelet and sponge even where ``exp`` rounds differently."""

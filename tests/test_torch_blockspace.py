@@ -21,6 +21,8 @@ from jets_tpu_torch import BlockSpace, BlockVector
 from jets_tpu_torch.parallel.sharded import stacked_block_operator
 from jets_tpu_torch.utils.tree import axpy, tmap
 
+CPU = torch.device("cpu")  # the tests build on the CPU, as a caller asks
+
 SHAPES = [(3, 4), (5,), (2, 3, 2)]
 
 
@@ -31,7 +33,7 @@ def _blocks(seed, shapes=SHAPES):
 
 def _pair(blocks):
     js = JBlockSpace([JSpace(b.shape, jnp.float64) for b in blocks])
-    ts = BlockSpace([tt.Space(b.shape, torch.float64) for b in blocks])
+    ts = BlockSpace([tt.Space(b.shape, torch.float64, device=CPU) for b in blocks])
     return (JBlockVector([jnp.asarray(b) for b in blocks], js),
             BlockVector([torch.from_numpy(b) for b in blocks], ts))
 
@@ -60,7 +62,7 @@ def test_arithmetic_matches_jax():
     assert torch.equal(tx.getblock(2), tx[2]) and len(list(tx)) == 3
     with pytest.raises(ValueError, match="shape"):
         tx.setblock(0, torch.zeros(4, 3))
-    other = BlockSpace([tt.Space(s, torch.float64) for s in SHAPES[::-1]])
+    other = BlockSpace([tt.Space(s, torch.float64, device=CPU) for s in SHAPES[::-1]])
     with pytest.raises(ValueError, match="mismatch"):
         tx + BlockVector(other.zeros().blocks, other)
 
@@ -83,13 +85,13 @@ def test_reshape_ravel_and_identity_match_jax():
     sp = tx.space
     assert sp.nblocks == 3 and sp.size == 29 and sp.shape == (29,)
     assert [sp.indices(i) for i in range(3)] == [jx.space.indices(i) for i in range(3)]
-    assert sp.subspace(1) == tt.Space((5,), torch.float64)
+    assert sp.subspace(1) == tt.Space((5,), torch.float64, device=CPU)
     assert sp == BlockSpace(sp.spaces) and hash(sp) == hash(BlockSpace(sp.spaces))
     assert sp != BlockSpace(sp.spaces[:2])
     with pytest.raises(ValueError, match="reshape"):
         sp.reshape(torch.zeros(28))
     with pytest.raises(TypeError, match="dtype"):
-        BlockSpace([tt.Space(3, torch.float32), tt.Space(3, torch.float64)])
+        BlockSpace([tt.Space(3, torch.float32, device=CPU), tt.Space(3, torch.float64, device=CPU)])
     with pytest.raises(ValueError, match="device"):
         BlockSpace([tt.Space(3, torch.float64, "cpu"), tt.Space(3, torch.float64, "meta")])
     with pytest.raises(ValueError, match="at least one"):
@@ -99,7 +101,7 @@ def test_reshape_ravel_and_identity_match_jax():
 
 
 def test_random_members_draw_blocks_in_order():
-    sp = BlockSpace([tt.Space(s, torch.float32) for s in SHAPES])
+    sp = BlockSpace([tt.Space(s, torch.float32, device=CPU) for s in SHAPES])
     for draw in ("randn", "rand"):
         got = getattr(sp, draw)(torch.Generator().manual_seed(9))
         g = torch.Generator().manual_seed(9)
@@ -149,14 +151,14 @@ def test_blockvector_is_a_pytree_node():
     assert isinstance(y, BlockVector) and torch.equal(y[1], tx[1] + 1)
     z = axpy(2.0, tx, y)
     assert torch.equal(z[2], 2.0 * tx[2] + y[2])
-    other = BlockSpace([tt.Space(s, torch.float64) for s in SHAPES[::-1]])
+    other = BlockSpace([tt.Space(s, torch.float64, device=CPU) for s in SHAPES[::-1]])
     assert pytree.tree_structure(tx) != pytree.tree_structure(other.zeros())
 
 
 def _mixer(sp):
     """Nonlinear ``(a, b) -> a·b + a²`` on a two-block space, its tangent,
     and no adjoint (derived with ``torch.func.vjp``)."""
-    rng = tt.Space(sp.subspace(0).shape, sp.dtype)
+    rng = tt.Space(sp.subspace(0).shape, sp.dtype, device=CPU)
 
     def f(m, s):
         return m[0] * m[1] + m[0] ** 2
@@ -168,7 +170,7 @@ def _mixer(sp):
 
 
 def test_gates_and_derived_adjoint_on_a_blockspace_domain():
-    sp = BlockSpace([tt.Space((4, 5), torch.float64)] * 2)
+    sp = BlockSpace([tt.Space((4, 5), torch.float64, device=CPU)] * 2)
     g = torch.Generator().manual_seed(0)
     F = _mixer(sp)
     m0 = sp.randn(g)
@@ -200,7 +202,7 @@ def test_gates_and_derived_adjoint_on_a_blockspace_domain():
 def test_stacked_block_operator_with_a_blockvector_model(shot_map, given):
     """Two "shots" ``d_b = w_b·a + b`` of one two-block model; the adjoint
     (given per block, or derived) sums a BlockVector over the shots."""
-    sp = BlockSpace([tt.Space(6, torch.float64)] * 2)
+    sp = BlockSpace([tt.Space(6, torch.float64, device=CPU)] * 2)
     w = torch.from_numpy(np.random.default_rng(11).standard_normal((2, 6)))
 
     def df(dm, m0, bs):
@@ -209,7 +211,7 @@ def test_stacked_block_operator_with_a_blockvector_model(shot_map, given):
     def dft(d, m0, bs):
         return BlockVector((bs["w"] * d, d), sp)
 
-    A = stacked_block_operator(nblocks=2, dom=sp, rng_block=tt.Space(6, torch.float64),
+    A = stacked_block_operator(nblocks=2, dom=sp, rng_block=tt.Space(6, torch.float64, device=CPU),
                                bstate={"w": w}, df=df, dft=dft if given else None,
                                shot_map=shot_map)
     g = torch.Generator().manual_seed(2)

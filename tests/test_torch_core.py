@@ -17,6 +17,8 @@ from jets_tpu.ops.diagonal import diagonal_operator as jax_diagonal
 from jets_tpu.ops.stencil import laplacian_operator as jax_laplacian
 from jets_tpu_torch.ops.stencil import laplacian_operator
 
+CPU = torch.device("cpu")  # the tests build on the CPU, as a caller asks
+
 
 def _diag(w):
     """The port's counterpart of jets_tpu.ops.diagonal (not ported yet)."""
@@ -46,7 +48,7 @@ def test_space_dot_and_norms_match_jax(dtype, rtol):
         y = y + 1j * rng.standard_normal(shape)
     x, y = x.astype(dtype), y.astype(dtype)
     js = jt.Space(shape, dtype)
-    ts = tt.Space(shape, torch.from_numpy(x).dtype)
+    ts = tt.Space(shape, torch.from_numpy(x).dtype, device=CPU)
     tx, ty = torch.from_numpy(x), torch.from_numpy(y)
     np.testing.assert_allclose(ts.dot(tx, ty).numpy(),
                                np.asarray(js.dot(jnp.asarray(x), jnp.asarray(y))),
@@ -57,12 +59,12 @@ def test_space_dot_and_norms_match_jax(dtype, rtol):
 
 
 def test_space_allocators_and_identity():
-    sp = tt.Space((3, 4), torch.float64)
+    sp = tt.Space((3, 4), torch.float64, device=CPU)
     assert sp.shape == (3, 4) and sp.size == 12 and sp.ndim == 2 and len(sp) == 12
     assert sp.device == torch.device("cpu")
     assert sp == tt.Space([3, 4], torch.float64, "cpu")
-    assert sp != tt.Space((3, 4), torch.float32)
-    assert hash(sp) == hash(tt.Space((3, 4), torch.float64))
+    assert sp != tt.Space((3, 4), torch.float32, device=CPU)
+    assert hash(sp) == hash(tt.Space((3, 4), torch.float64, device=CPU))
     assert torch.equal(sp.zeros(), torch.zeros(3, 4, dtype=torch.float64))
     assert torch.equal(sp.ones(), torch.ones(3, 4, dtype=torch.float64))
     g1, g2 = torch.Generator().manual_seed(7), torch.Generator().manual_seed(7)
@@ -78,7 +80,7 @@ def test_space_allocators_and_identity():
 
 
 def test_jet_defaulting_rules():
-    sp = tt.Space((5,), torch.float64)
+    sp = tt.Space((5,), torch.float64, device=CPU)
     M = torch.from_numpy(np.random.default_rng(1).standard_normal((5, 5)))
     lin = lambda dm, m0, s: s["M"] @ dm  # noqa: E731
     # no f: linear, f is df
@@ -116,7 +118,7 @@ def test_derived_adjoint_matches_jax_and_passes_gate():
             df=lambda dm, m0, s: s["M"] @ dm, state={"M": jnp.asarray(M)}))
         tdt = torch.from_numpy(M).dtype
         ta = tt.LinearOperator(tt.Jet(
-            dom=tt.Space((6,), tdt), rng=tt.Space((4,), tdt),
+            dom=tt.Space((6,), tdt, device=CPU), rng=tt.Space((4,), tdt, device=CPU),
             df=lambda dm, m0, s: s["M"] @ dm, state={"M": torch.from_numpy(M)}))
         np.testing.assert_allclose(ta.H(torch.from_numpy(d)).numpy(),
                                    np.asarray(ja.H(jnp.asarray(d))), rtol=1e-12)
@@ -133,7 +135,7 @@ def _pair(expr):
     J = dict(D1=jax_diagonal(jnp.asarray(w1)), D2=jax_diagonal(jnp.asarray(w2)),
              D3=jax_diagonal(jnp.asarray(w3)), L=jax_laplacian(shape, jnp.float64))
     T = dict(D1=_diag(w1), D2=_diag(w2), D3=_diag(w3),
-             L=laplacian_operator(shape, torch.float64))
+             L=laplacian_operator(shape, torch.float64, device=CPU))
     return expr(**J), expr(**T)
 
 
@@ -167,7 +169,7 @@ def test_algebra_structure_bookkeeping():
         tt.compose(_diag(np.ones(3)), np.eye(3))
     with pytest.raises(TypeError, match="complex"):
         tt.scale(1j, _diag(np.ones(3)))
-    V = tt.vec(laplacian_operator((3, 4), torch.float64))
+    V = tt.vec(laplacian_operator((3, 4), torch.float64, device=CPU))
     assert V.dom.shape == (12,) and V.rng.shape == (12,)
     assert tt.vec(V) is V
 
@@ -176,7 +178,7 @@ def test_state_lookup_perfstat_close_and_linearize():
     D1, D2 = _diag(np.ones(3)), _diag(2 * np.ones(3))
     with pytest.raises(KeyError, match="ambiguous"):
         tt.state(D1 @ D2, "w")
-    L = laplacian_operator((3,), torch.float64)
+    L = laplacian_operator((3,), torch.float64, device=CPU)
     assert torch.equal(tt.state(L @ D1, "w"), torch.ones(3, dtype=torch.float64))
     with pytest.raises(KeyError):
         tt.state(L @ D1, "nope")
@@ -186,7 +188,7 @@ def test_state_lookup_perfstat_close_and_linearize():
     assert torch.equal(D1.state["w"], torch.ones(3, dtype=torch.float64))
 
     stats, closed = {"mflops": 1}, []
-    sp = tt.Space((3,), torch.float64)
+    sp = tt.Space((3,), torch.float64, device=CPU)
     I = tt.LinearOperator(tt.Jet(dom=sp, rng=sp, df=lambda dm, m0, s: dm,
                                  dft="self", perfstat=lambda j: stats,
                                  close=lambda j: closed.append("I")))
@@ -210,15 +212,15 @@ def test_gates_on_port_operators():
     g = torch.Generator().manual_seed(0)
     shape = (8, 16, 128)
     for impl in ("torch", "kernel"):
-        L = laplacian_operator(shape, torch.float32, impl=impl)
+        L = laplacian_operator(shape, torch.float32, impl=impl, device=CPU)
         lhs, rhs = tt.dot_product_test(L, L.dom.randn(g), L.rng.randn(g))
         np.testing.assert_allclose(float(lhs), float(rhs), rtol=1e-4)
-    C = laplacian_operator((5, 6), torch.float64) @ _diag(np.arange(30.0).reshape(5, 6))
+    C = laplacian_operator((5, 6), torch.float64, device=CPU) @ _diag(np.arange(30.0).reshape(5, 6))
     lhs, rhs = tt.dot_product_test(C, C.dom.randn(g), C.rng.randn(g))
     np.testing.assert_allclose(float(lhs), float(rhs), rtol=1e-12)
     a, b = tt.linearity_test(C, g)
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12, atol=1e-12)
-    sp = tt.Space((20,), torch.float64)
+    sp = tt.Space((20,), torch.float64, device=CPU)
     obs, exp = tt.linearization_test(_square(sp) @ _diag(np.linspace(1, 2, 20)),
                                      sp.randn(g), generator=g)
     np.testing.assert_allclose(obs.numpy(), exp.numpy(), rtol=1e-6)
@@ -227,21 +229,21 @@ def test_gates_on_port_operators():
 def test_laplacian_operator_impls_and_errors():
     z = torch.from_numpy(np.random.default_rng(6).standard_normal((4, 8, 32))
                          .astype(np.float32))
-    Lk = laplacian_operator(z.shape, torch.float32, impl="kernel")
-    Lt = laplacian_operator(z.shape, torch.float32)
+    Lk = laplacian_operator(z.shape, torch.float32, impl="kernel", device=CPU)
+    Lt = laplacian_operator(z.shape, torch.float32, device=CPU)
     assert torch.equal(Lk(z), Lt(z)) and torch.equal(Lk.H(z), Lt(z))
-    L2 = laplacian_operator((6, 7), torch.float32, impl="kernel")  # 2-D: torch
+    L2 = laplacian_operator((6, 7), torch.float32, impl="kernel", device=CPU)  # 2-D: torch
     assert L2.jet.df is Lt.jet.df
     with pytest.raises(ValueError, match="3-D float32"):
-        laplacian_operator((4, 8, 32), torch.float64, impl="kernel")
+        laplacian_operator((4, 8, 32), torch.float64, impl="kernel", device=CPU)
     with pytest.raises(ValueError, match="order=2"):
-        laplacian_operator((4, 8, 32), impl="kernel", order=4)
+        laplacian_operator((4, 8, 32), impl="kernel", order=4, device=CPU)
     with pytest.raises(ValueError, match="order"):
-        laplacian_operator((4, 8, 32), order=6)
+        laplacian_operator((4, 8, 32), order=6, device=CPU)
     with pytest.raises(ValueError, match="impl"):
-        laplacian_operator((4, 8, 32), impl="pallas")
+        laplacian_operator((4, 8, 32), impl="pallas", device=CPU)
     m = z.double()
     np.testing.assert_array_equal(
-        laplacian_operator(m.shape, torch.float64, order=8)(m).numpy(),
+        laplacian_operator(m.shape, torch.float64, order=8, device=CPU)(m).numpy(),
         np.asarray(jax_laplacian(m.shape, jnp.float64, order=8)(jnp.asarray(m.numpy()))),
     )

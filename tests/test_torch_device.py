@@ -1,0 +1,91 @@
+"""Every public constructor of the port builds on the CUDA card unless the
+caller asks for another device: ``device`` defaults to None, which
+:func:`jets_tpu_torch.core.spaces.resolve_device` turns into
+``torch.device("cuda")``. Where there is no card, leaving the device out
+raises; nothing falls back to the CPU.
+
+The tests decide nothing at import time: the card's presence is patched
+inside each test, so every worker collects the same tests.
+"""
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+import jets_tpu_torch as tt
+from jets_tpu_torch.core.spaces import resolve_device
+from jets_tpu_torch.models import seismic
+from jets_tpu_torch.ops import stencil, wave
+
+CONSTRUCTORS = {
+    "Space": tt.Space,
+    "laplacian_operator": stencil.laplacian_operator,
+    "seismic_operator_from_arrays": seismic.seismic_operator_from_arrays,
+    "make_seismic_operator": seismic.make_seismic_operator,
+    "make_seismic_problem": seismic.make_seismic_problem,
+    "wave_propagator": wave.wave_propagator,
+    "multishot_wave_operator": wave.multishot_wave_operator,
+    "vti_wave_propagator": wave.vti_wave_propagator,
+    "multishot_vti_wave_operator": wave.multishot_vti_wave_operator,
+    "tti_wave_propagator": wave.tti_wave_propagator,
+    "multishot_tti_wave_operator": wave.multishot_tti_wave_operator,
+}
+
+# the smallest call of each constructor, device left out
+CALLS = {
+    "Space": lambda **kw: tt.Space((3, 4), **kw),
+    "laplacian_operator": lambda **kw: stencil.laplacian_operator((4, 5), **kw),
+    "seismic_operator_from_arrays": lambda **kw: seismic.seismic_operator_from_arrays(
+        (16, 16), 2, 16, wr=np.ones((2, 16)), **kw),
+    "make_seismic_operator": lambda **kw: seismic.make_seismic_operator((16, 16), 2, 16,
+                                                                        **kw),
+    "make_seismic_problem": lambda **kw: seismic.make_seismic_problem((16, 16), 2, 16,
+                                                                      **kw),
+    "wave_propagator": lambda **kw: wave.wave_propagator((8, 8), nt=4, **kw),
+    "multishot_wave_operator": lambda **kw: wave.multishot_wave_operator(
+        (8, 8), [9, 20], nt=4, **kw),
+    "vti_wave_propagator": lambda **kw: wave.vti_wave_propagator((8, 8), nt=4, **kw),
+    "multishot_vti_wave_operator": lambda **kw: wave.multishot_vti_wave_operator(
+        (8, 8), [9, 20], nt=4, **kw),
+    "tti_wave_propagator": lambda **kw: wave.tti_wave_propagator((4, 8, 8), nt=4, **kw),
+    "multishot_tti_wave_operator": lambda **kw: wave.multishot_tti_wave_operator(
+        (8, 8), [9, 20], nt=4, **kw),
+}
+
+
+def _no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("name", sorted(CONSTRUCTORS))
+def test_device_defaults_to_none(name):
+    param = inspect.signature(CONSTRUCTORS[name]).parameters["device"]
+    assert param.default is None
+
+
+@pytest.mark.parametrize("name", sorted(CALLS))
+def test_leaving_the_device_out_without_a_card_raises(name, monkeypatch):
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CALLS[name]()
+
+
+@pytest.mark.parametrize("name", sorted(CALLS))
+def test_asking_for_the_cpu_builds_there(name):
+    op = CALLS[name](device="cpu")
+    if isinstance(op, tuple):  # make_seismic_problem: (A, m, d)
+        op = op[0]
+    sp = op if isinstance(op, tt.Space) else op.dom
+    assert sp.device == torch.device("cpu")
+
+
+def test_resolve_device_is_the_card_and_never_falls_back(monkeypatch):
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cuda", 1)) == torch.device("cuda", 1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda")
+    assert tt.Space((2,)).device == torch.device("cuda")
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)

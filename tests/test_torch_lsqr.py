@@ -18,6 +18,8 @@ from jets_tpu_torch.ops import cuda_solver as cs
 from jets_tpu_torch.solvers import LSQRState, lsqr
 from jets_tpu_torch.solvers.krylov import _sym_ortho
 
+CPU = torch.device("cpu")  # the tests build on the CPU, as a caller asks
+
 SHAPE, NSHOTS, NRECV = (16, 16, 128), 4, 64
 
 
@@ -29,7 +31,7 @@ def lifted_problem(dtype, epilogue_hook=False):
     wr = np.asarray(A_j.jet.state["bstate"]["wr"])
     tdtype = torch.float32 if dtype == np.float32 else torch.float64
     A_t = seismic_operator_from_arrays(SHAPE, NSHOTS, NRECV, wr=wr, dtype=tdtype,
-                                       epilogue_hook=epilogue_hook)
+                                       epilogue_hook=epilogue_hook, device=CPU)
     return A_j, d_j, A_t, torch.from_numpy(np.array(d_j))
 
 

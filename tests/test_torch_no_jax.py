@@ -1,6 +1,6 @@
 """The port stands alone: it never imports JAX, and importing it (and
-solving, or taking a stored-adjoint isotropic or VTI wave gradient, on the
-CPU) needs neither nvcc nor triton nor a built kernel library."""
+solving, or taking a stored-adjoint isotropic, VTI or TTI wave gradient, on
+the CPU) needs neither nvcc nor triton nor a built kernel library."""
 import os
 import pathlib
 import re
@@ -18,7 +18,7 @@ from jets_tpu_torch import kernels
 from jets_tpu_torch.models import make_seismic_problem
 from jets_tpu_torch.solvers import lsqr
 
-A, m, d = make_seismic_problem((8, 8, 16), 2, 8, seed=0, noise=0.05)
+A, m, d = make_seismic_problem((8, 8, 16), 2, 8, seed=0, noise=0.05, device="cpu")
 res = lsqr(A, d, maxiter=5, tol=0.0)
 assert res.iterations == 5 and bool(torch.isfinite(res.history).all())
 g = torch.Generator().manual_seed(0)
@@ -26,16 +26,25 @@ lhs, rhs = tt.dot_product_test(A, A.dom.randn(g), A.rng.randn(g))
 assert abs(float(lhs) - float(rhs)) <= 1e-4 * abs(float(rhs))
 from jets_tpu_torch.ops.wave import wave_propagator
 F = wave_propagator((6, 8, 16), nt=12, dt=6e-4, src_idx=3 * 128 + 4 * 16 + 8,
-                    sponge_width=2, store_adjoint="int8", fused=True)
+                    sponge_width=2, store_adjoint="int8", fused=True, device="cpu")
 c = torch.full((6, 8, 16), 1500.0)
 g = F.linearize(c).H(F(c * 1.02) - F(c))
 assert g.shape == (6, 8, 16) and bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)
 Fv = tt.vti_wave_propagator((6, 8, 16), nt=12, dt=6e-4, src_idx=3 * 128 + 4 * 16 + 8,
-                            sponge_width=2, store_adjoint="int8", fused=True)
+                            sponge_width=2, store_adjoint="int8", fused=True,
+                            device="cpu")
 m = tt.BlockVector((c, torch.full_like(c, 0.1), torch.full_like(c, 0.05)), Fv.dom)
 gv = Fv.linearize(m).H(Fv(m * 1.02) - Fv(m))
 assert isinstance(gv, tt.BlockVector) and gv.nblocks == 3
 assert all(bool(torch.isfinite(b).all()) and bool(b.abs().max() > 0) for b in gv)
+Ft = tt.tti_wave_propagator((6, 8, 16), nt=12, dt=6e-4, src_idx=3 * 128 + 4 * 16 + 8,
+                            sponge_width=2, store_adjoint="int8", fused=True,
+                            coeff_dtype=torch.bfloat16, device="cpu")
+mt = tt.BlockVector((c, torch.full_like(c, 0.1), torch.full_like(c, 0.05),
+                     torch.full_like(c, 0.3), torch.full_like(c, 0.7)), Ft.dom)
+gt = Ft.linearize(mt).H(Ft(mt * 1.02) - Ft(mt))
+assert isinstance(gt, tt.BlockVector) and gt.nblocks == 5
+assert all(bool(torch.isfinite(b).all()) and bool(b.abs().max() > 0) for b in gt)
 assert kernels._libs == {}, "the CPU path loaded a kernel library"
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "triton"))
 assert not bad, bad
@@ -65,7 +74,9 @@ def test_no_module_of_the_port_names_jax_and_the_kernels_ship():
                                    "jt_lap3d_axpy_norm2")),
             ("wave_kernels.cu", ("jt_leapfrog_step", "jt_adjoint_step")),
             ("vti_kernels.cu", ("jt_vti_step", "jt_vti_hist_step",
-                                "jt_vti_adjoint_step"))):
+                                "jt_vti_adjoint_step")),
+            ("tti_kernels.cu", ("jt_tti_step", "jt_tti_hist_step",
+                                "jt_tti_adjoint_step"))):
         src = PKG / "csrc" / name
         assert src.is_file()
         text = src.read_text()

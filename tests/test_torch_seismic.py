@@ -21,6 +21,8 @@ from jets_tpu_torch.models import seismic as ts
 from jets_tpu_torch.models.seismic import seismic_operator_from_arrays
 from jets_tpu_torch.parallel.sharded import stacked_block_operator
 
+CPU = torch.device("cpu")  # the tests build on the CPU, as a caller asks
+
 
 def lift(A_jax):
     """``(wr, rcv)`` of a jets_tpu seismic operator as numpy arrays (rcv is
@@ -41,7 +43,7 @@ def _pair(shape, nshots, nrecv, impl, dtype=np.float32):
     wr, rcv = lift(A_j)
     tdtype = torch.float32 if dtype == np.float32 else torch.float64
     A_t = seismic_operator_from_arrays(shape, nshots, nrecv, wr=wr, rcv=rcv,
-                                       impl=impl, dtype=tdtype)
+                                       impl=impl, dtype=tdtype, device=CPU)
     return A_j, A_t
 
 
@@ -105,8 +107,8 @@ def test_fused_equals_composed_and_hook_matches_generic_adjoint():
     shape, nrecv = (16, 16, 128), 64
     A_j, A_f = _pair(shape, 4, nrecv, "fused")
     wr, _ = lift(A_j)
-    A_c = seismic_operator_from_arrays(shape, 4, nrecv, wr=wr, impl="composed")
-    A_h = seismic_operator_from_arrays(shape, 4, nrecv, wr=wr, epilogue_hook=True)
+    A_c = seismic_operator_from_arrays(shape, 4, nrecv, wr=wr, impl="composed", device=CPU)
+    A_h = seismic_operator_from_arrays(shape, 4, nrecv, wr=wr, epilogue_hook=True, device=CPU)
     rng = np.random.default_rng(2)
     m = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     dd = torch.from_numpy(rng.standard_normal((4, nrecv)).astype(np.float32))
@@ -123,35 +125,35 @@ def test_fused_equals_composed_and_hook_matches_generic_adjoint():
     # the hook is 3-D only, and opt-in
     assert "adjoint_axpy_norm" not in A_f.jet.state
     A2 = seismic_operator_from_arrays((64, 64), 4, 64, wr=np.ones((4, 64)),
-                                      epilogue_hook=True)
+                                      epilogue_hook=True, device=CPU)
     assert "adjoint_axpy_norm" not in A2.jet.state
 
 
 def test_make_seismic_problem_is_seeded_and_validates():
-    A, m, d = ts.make_seismic_problem((16, 16, 128), 4, 64, seed=5, noise=0.1)
-    A2, m2, d2 = ts.make_seismic_problem((16, 16, 128), 4, 64, seed=5, noise=0.1)
+    A, m, d = ts.make_seismic_problem((16, 16, 128), 4, 64, seed=5, noise=0.1, device=CPU)
+    A2, m2, d2 = ts.make_seismic_problem((16, 16, 128), 4, 64, seed=5, noise=0.1, device=CPU)
     assert torch.equal(m, m2) and torch.equal(d, d2)
     assert d.shape == (4, 64) and m.shape == (16, 16, 128)
     assert int((m > 0.5).sum()) == (16 * 16 * 128) // 200  # the spikes
-    A3, _, _ = ts.make_seismic_problem((64, 64), 3, 67, seed=0, impl="composed")
+    A3, _, _ = ts.make_seismic_problem((64, 64), 3, 67, seed=0, impl="composed", device=CPU)
     assert A3.rng.shape == (3, 67)
     # explicit arrays are taken as given
     wr = np.random.default_rng(3).random((4, 67))
     rcv = np.arange(67) * 61
-    A4 = ts.make_seismic_operator((64, 64), 4, 67, wr=wr, rcv=rcv)
-    A5 = seismic_operator_from_arrays((64, 64), 4, 67, wr=wr, rcv=rcv)
+    A4 = ts.make_seismic_operator((64, 64), 4, 67, wr=wr, rcv=rcv, device=CPU)
+    A5 = seismic_operator_from_arrays((64, 64), 4, 67, wr=wr, rcv=rcv, device=CPU)
     x = torch.from_numpy(np.random.default_rng(4).standard_normal((64, 64))
                          .astype(np.float32))
     assert torch.equal(A4(x), A5(x))
     with pytest.raises(ValueError, match="impl"):
         seismic_operator_from_arrays((64, 64), 4, 64, wr=np.ones((4, 64)),
-                                     impl="bogus")
+                                     impl="bogus", device=CPU)
     with pytest.raises(ValueError, match="wr has shape"):
-        seismic_operator_from_arrays((64, 64), 4, 64, wr=np.ones((3, 64)))
+        seismic_operator_from_arrays((64, 64), 4, 64, wr=np.ones((3, 64)), device=CPU)
     with pytest.raises(ValueError, match="rcv"):
-        seismic_operator_from_arrays((64, 64), 4, 67, wr=np.ones((4, 67)))
+        seismic_operator_from_arrays((64, 64), 4, 67, wr=np.ones((4, 67)), device=CPU)
     with pytest.raises(NotImplementedError, match="queue 1 item 18"):
-        ts.make_seismic_operator((64, 64), 4, 64, mesh=object())
+        ts.make_seismic_operator((64, 64), 4, 64, mesh=object(), device=CPU)
 
 
 def _block_op(shot_map, derived):
@@ -168,8 +170,8 @@ def _block_op(shot_map, derived):
         return (s["w"] * dd) @ s["M"]  # (blocks, 7): per-block contributions
 
     return stacked_block_operator(
-        nblocks=3, dom=tt.Space((7,), torch.float64),
-        rng_block=tt.Space((5,), torch.float64), bstate={"w": w},
+        nblocks=3, dom=tt.Space((7,), torch.float64, device=CPU),
+        rng_block=tt.Space((5,), torch.float64, device=CPU), bstate={"w": w},
         sstate={"M": M}, df=df, dft=None if derived else dft, shot_map=shot_map)
 
 
@@ -189,7 +191,7 @@ def test_stacked_block_operator_modes_agree(shot_map, derived):
 
 
 def test_stacked_block_operator_validation():
-    kw = dict(nblocks=3, dom=tt.Space((7,)), rng_block=tt.Space((5,)),
+    kw = dict(nblocks=3, dom=tt.Space((7,), device=CPU), rng_block=tt.Space((5,), device=CPU),
               df=lambda dm, m0, s: dm)
     with pytest.raises(ValueError, match="shot_map"):
         stacked_block_operator(bstate={}, shot_map="scan", **kw)

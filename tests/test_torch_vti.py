@@ -29,6 +29,8 @@ from jets_tpu_torch.ops import cuda_vti as cv
 from jets_tpu_torch.ops import wave as tw
 from jets_tpu_torch.ops.stencil import d2_axis
 
+CPU = torch.device("cpu")  # the tests build on the CPU, as a caller asks
+
 SHAPE3 = (12, 8, 128)
 SRC3 = int(np.ravel_multi_index((6, 4, 64), SHAPE3))
 # receivers on the x-line through the source: the default strided set lies
@@ -77,7 +79,7 @@ def carried(Ft, Fj):
 
 def pair(shape, kw, **extra):
     Fj = jw.vti_wave_propagator(shape, fused=False, dtype=jnp.float32, **kw, **extra)
-    return Fj, carried(tw.vti_wave_propagator(shape, **kw, **extra), Fj)
+    return Fj, carried(tw.vti_wave_propagator(shape, **kw, **extra, device=CPU), Fj)
 
 
 def _model_np(shape, seed, dtype=np.float32):
@@ -160,7 +162,7 @@ def test_stored_adjoint_matches_jax_per_block(store, tol):
     gt = Ft.linearize(tm(Ft, m)).H(torch.from_numpy(d))
     _blocks_close(gt, gj, rtol=0.0, atol=tol)
     if store != "f32":  # the lossy history keeps the autodiff gradient's direction
-        Fa = carried(tw.vti_wave_propagator(SHAPE3, **KW3), Fj)
+        Fa = carried(tw.vti_wave_propagator(SHAPE3, **KW3, device=CPU), Fj)
         ga = Fa.linearize(tm(Fa, m)).H(torch.from_numpy(d))
         for a, b in zip(ga.blocks, gt.blocks):
             a, b = a.numpy().ravel(), b.numpy().ravel()
@@ -196,8 +198,8 @@ def test_kernel_route_on_cpu_equals_plain_route():
                          .astype(np.float32))
     cv.reset_launch_counts()
     for store in (None, "f32", "bf16", "int8"):
-        Fk = tw.vti_wave_propagator(SHAPE3, fused=True, store_adjoint=store, **KW3)
-        Fp = tw.vti_wave_propagator(SHAPE3, fused=False, store_adjoint=store, **KW3)
+        Fk = tw.vti_wave_propagator(SHAPE3, fused=True, store_adjoint=store, **KW3, device=CPU)
+        Fp = tw.vti_wave_propagator(SHAPE3, fused=False, store_adjoint=store, **KW3, device=CPU)
         mk, mp = tm(Fk, m), tm(Fp, m)
         yk, yp = Fk(mk), Fp(mp)
         _live(yp)
@@ -227,7 +229,7 @@ def _multishot_pair(shot_map, store):
     kw = dict(nt=24, dt=8e-4, dx=10.0, freq=18.0, sponge_width=3,
               store_adjoint=store, shot_map=shot_map)
     Fj = jw.multishot_vti_wave_operator(grid, jnp.asarray(srcs), dtype=jnp.float32, **kw)
-    return Fj, carried(tw.multishot_vti_wave_operator(grid, srcs, **kw), Fj)
+    return Fj, carried(tw.multishot_vti_wave_operator(grid, srcs, **kw, device=CPU), Fj)
 
 
 @pytest.mark.parametrize("shot_map", ["vmap", "map"])
@@ -253,12 +255,12 @@ def test_multishot_3d_map_on_the_kernel_route_equals_single_shots():
     srcs = np.array([SRC3, SRC3 + 40])
     kw = {k: v for k, v in KW3.items() if k != "src_idx"}
     F = tw.multishot_vti_wave_operator(SHAPE3, srcs, store_adjoint="int8", shot_map="map",
-                                       **kw)
+                                       **kw, device=CPU)
     m = tm(F, _model_np(SHAPE3, 16))
     d = torch.from_numpy(np.random.default_rng(17).standard_normal((2, 24, 128))
                          .astype(np.float32))
     singles = [tw.vti_wave_propagator(SHAPE3, src_idx=int(s), store_adjoint="int8",
-                                      fused=True, **kw) for s in srcs]
+                                      fused=True, **kw, device=CPU) for s in srcs]
     y = F(m)
     for b, Fs in enumerate(singles):
         ys = Fs(m)
@@ -274,7 +276,7 @@ def test_multishot_3d_map_on_the_kernel_route_equals_single_shots():
 def _f64_problem(**kw):
     return tw.vti_wave_propagator((20, 20), nt=40, dt=0.0008, dx=10.0, freq=18.0,
                                   src_idx=20 * 10 + 10, sponge_width=4,
-                                  dtype=torch.float64, **kw)
+                                  dtype=torch.float64, **kw, device=CPU)
 
 
 def _f64_point(F, eps=0.1, delta=0.05):
@@ -286,7 +288,7 @@ def test_vti_reduces_to_isotropic_and_anisotropy_moves_the_traces():
     F = _f64_problem()
     d_vti = F(_f64_point(F, 0.0, 0.0))
     Fi = tw.wave_propagator((20, 20), nt=40, dt=0.0008, dx=10.0, freq=18.0,
-                            src_idx=20 * 10 + 10, sponge_width=4, dtype=torch.float64)
+                            src_idx=20 * 10 + 10, sponge_width=4, dtype=torch.float64, device=CPU)
     d_iso = Fi(torch.full((20, 20), 2000.0, dtype=torch.float64))
     _live(d_iso)
     np.testing.assert_allclose(d_vti.numpy(), d_iso.numpy(), rtol=1e-10, atol=1e-22)
@@ -328,26 +330,26 @@ def test_with_wave_arrays_carries_the_jax_state():
 
 def test_validation_and_what_is_not_ported():
     with pytest.raises(ValueError, match="space_order"):
-        tw.vti_wave_propagator(SHAPE2, space_order=3)
+        tw.vti_wave_propagator(SHAPE2, space_order=3, device=CPU)
     with pytest.raises(ValueError, match="store_adjoint"):
-        tw.vti_wave_propagator(SHAPE2, store_adjoint="int4")
+        tw.vti_wave_propagator(SHAPE2, store_adjoint="int4", device=CPU)
     with pytest.raises(ValueError, match="fused VTI step"):
-        tw.vti_wave_propagator(SHAPE2, nt=4, fused=True)
+        tw.vti_wave_propagator(SHAPE2, nt=4, fused=True, device=CPU)
     with pytest.raises(ValueError, match="dtrec"):
-        tw.vti_wave_propagator(SHAPE2, nt=4, dt=1e-3, dtrec=5e-4)
+        tw.vti_wave_propagator(SHAPE2, nt=4, dt=1e-3, dtrec=5e-4, device=CPU)
     with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        tw.vti_wave_propagator(SHAPE2, q=50.0)
+        tw.vti_wave_propagator(SHAPE2, q=50.0, device=CPU)
     with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tw.vti_wave_propagator(SHAPE2, remat_blocks=4)
+        tw.vti_wave_propagator(SHAPE2, remat_blocks=4, device=CPU)
     with pytest.raises(NotImplementedError, match="queue 1 item 18"):
-        tw.vti_wave_propagator(SHAPE2, wavefield_sharding=object())
+        tw.vti_wave_propagator(SHAPE2, wavefield_sharding=object(), device=CPU)
     with pytest.raises(NotImplementedError, match="queue 1 item 18"):
-        tw.multishot_vti_wave_operator((20, 20), [5, 9], mesh=object())
+        tw.multishot_vti_wave_operator((20, 20), [5, 9], mesh=object(), device=CPU)
     with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tw.multishot_vti_wave_operator((20, 20), [5, 9], remat_blocks=2)
+        tw.multishot_vti_wave_operator((20, 20), [5, 9], remat_blocks=2, device=CPU)
     with pytest.raises(ValueError, match="shot_map"):
-        tw.multishot_vti_wave_operator((20, 20), [5, 9], shot_map="scan")
-    F = tw.vti_wave_propagator(SHAPE2, nt=4)
-    other = tt.BlockSpace([tt.Space(SHAPE2)] * 2)
+        tw.multishot_vti_wave_operator((20, 20), [5, 9], shot_map="scan", device=CPU)
+    F = tw.vti_wave_propagator(SHAPE2, nt=4, device=CPU)
+    other = tt.BlockSpace([tt.Space(SHAPE2, device=CPU)] * 2)
     with pytest.raises(ValueError, match="different BlockSpace"):
         F.dom.reshape(other.zeros())

@@ -25,6 +25,8 @@ from jets_tpu.ops import wave as jw
 from jets_tpu_torch.ops import cuda_wave as cw
 from jets_tpu_torch.ops import wave as tw
 
+CPU = torch.device("cpu")  # the tests build on the CPU, as a caller asks
+
 SHAPE3 = (12, 8, 128)
 SRC3 = int(np.ravel_multi_index((6, 4, 64), SHAPE3))
 # receivers on the x-line through the source: the default strided set lies
@@ -65,7 +67,7 @@ def carried(Ft, Fj):
 
 def pair(shape, kw, **extra):
     Fj = jw.wave_propagator(shape, fused=False, dtype=jnp.float32, **kw, **extra)
-    return Fj, carried(tw.wave_propagator(shape, **kw, **extra), Fj)
+    return Fj, carried(tw.wave_propagator(shape, **kw, **extra, device=CPU), Fj)
 
 
 def _velocity(shape, seed=0):
@@ -135,7 +137,7 @@ def test_stored_adjoint_matches_jax(store, tol):
     gt = Ft.linearize(_T(c)).H(_T(d)).numpy()
     _close(gt, gj, rtol=tol, atol=tol)
     if store != "f32":  # the lossy history keeps the autodiff gradient's direction
-        Fa = tw.wave_propagator(SHAPE3, **KW3)
+        Fa = tw.wave_propagator(SHAPE3, **KW3, device=CPU)
         ga = carried(Fa, Fj).linearize(_T(c)).H(_T(d)).numpy()
         cos = float(np.dot(ga.ravel(), gt.ravel())
                     / (np.linalg.norm(ga) * np.linalg.norm(gt)))
@@ -170,8 +172,8 @@ def test_kernel_route_on_cpu_equals_plain_route():
     dc = _T(np.random.default_rng(11).standard_normal(SHAPE3).astype(np.float32))
     cw.reset_launch_counts()
     for store in (None, "int8"):
-        Fk = tw.wave_propagator(SHAPE3, fused=True, store_adjoint=store, **KW3)
-        Fp = tw.wave_propagator(SHAPE3, fused=False, store_adjoint=store, **KW3)
+        Fk = tw.wave_propagator(SHAPE3, fused=True, store_adjoint=store, **KW3, device=CPU)
+        Fp = tw.wave_propagator(SHAPE3, fused=False, store_adjoint=store, **KW3, device=CPU)
         yk, yp = Fk(c), Fp(c)
         _live(yp)
         assert torch.equal(yk, yp)
@@ -196,7 +198,7 @@ def _multishot_pair(shot_map, store):
     kw = dict(nt=24, dt=8e-4, dx=10.0, freq=18.0, sponge_width=3,
               store_adjoint=store, shot_map=shot_map)
     Fj = jw.multishot_wave_operator(grid, jnp.asarray(srcs), dtype=jnp.float32, **kw)
-    return Fj, carried(tw.multishot_wave_operator(grid, srcs, **kw), Fj)
+    return Fj, carried(tw.multishot_wave_operator(grid, srcs, **kw, device=CPU), Fj)
 
 
 @pytest.mark.parametrize("shot_map", ["vmap", "map"])
@@ -218,7 +220,7 @@ def test_gates_in_float64():
     """The port's own dot-product gate on test_wave.py's 24² Born problem
     (f64, ``rtol=1e-9``) and the linearization gate (second-order decay)."""
     F = tw.wave_propagator((24, 24), nt=48, dt=8e-4, dx=10.0, freq=18.0,
-                           src_idx=24 * 12 + 12, sponge_width=4, dtype=torch.float64)
+                           src_idx=24 * 12 + 12, sponge_width=4, dtype=torch.float64, device=CPU)
     c0 = torch.full((24, 24), 2000.0, dtype=torch.float64)
     J = tw.born_operator(F, c0)
     g = torch.Generator().manual_seed(0)
@@ -227,7 +229,7 @@ def test_gates_in_float64():
     np.testing.assert_allclose(float(lhs), float(rhs), rtol=1e-9)
     Fs = tw.wave_propagator((24, 24), nt=48, dt=8e-4, dx=10.0, freq=18.0,
                             src_idx=24 * 12 + 12, sponge_width=4, dtype=torch.float64,
-                            store_adjoint="f32")
+                            store_adjoint="f32", device=CPU)
     Js = Fs.linearize(c0)
     lhs, rhs = tt.dot_product_test(Js, Js.dom.randn(g), Js.rng.randn(g))
     np.testing.assert_allclose(float(lhs), float(rhs), rtol=1e-9)
@@ -238,28 +240,28 @@ def test_gates_in_float64():
 
 def test_validation_and_what_is_not_ported():
     with pytest.raises(ValueError, match="space_order"):
-        tw.wave_propagator(SHAPE2, space_order=3)
+        tw.wave_propagator(SHAPE2, space_order=3, device=CPU)
     with pytest.raises(ValueError, match="store_adjoint"):
-        tw.wave_propagator(SHAPE2, store_adjoint="int4")
+        tw.wave_propagator(SHAPE2, store_adjoint="int4", device=CPU)
     with pytest.raises(ValueError, match="fused wave step"):
-        tw.wave_propagator(SHAPE2, nt=4, fused=True)
+        tw.wave_propagator(SHAPE2, nt=4, fused=True, device=CPU)
     with pytest.raises(ValueError, match="dtrec"):
-        tw.wave_propagator(SHAPE2, nt=4, dt=1e-3, dtrec=5e-4)
+        tw.wave_propagator(SHAPE2, nt=4, dt=1e-3, dtrec=5e-4, device=CPU)
     with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tw.wave_propagator(SHAPE2, remat_blocks=4)
+        tw.wave_propagator(SHAPE2, remat_blocks=4, device=CPU)
     with pytest.raises(NotImplementedError, match="queue 1 item 18"):
-        tw.wave_propagator(SHAPE2, wavefield_sharding=object())
+        tw.wave_propagator(SHAPE2, wavefield_sharding=object(), device=CPU)
     srcs = [5, 9]
     with pytest.raises(NotImplementedError, match="ginsu"):
         tw.multishot_wave_operator((20, 20), srcs, window_shape=(16, 16),
-                                   window_corners=[[0, 0], [4, 4]])
+                                   window_corners=[[0, 0], [4, 4]], device=CPU)
     with pytest.raises(ValueError, match="BOTH"):
-        tw.multishot_wave_operator((20, 20), srcs, window_shape=(16, 16))
+        tw.multishot_wave_operator((20, 20), srcs, window_shape=(16, 16), device=CPU)
     with pytest.raises(NotImplementedError, match="cpml"):
-        tw.multishot_wave_operator((20, 20), srcs, boundary="cpml")
+        tw.multishot_wave_operator((20, 20), srcs, boundary="cpml", device=CPU)
     with pytest.raises(ValueError, match="boundary"):
-        tw.multishot_wave_operator((20, 20), srcs, boundary="pml")
+        tw.multishot_wave_operator((20, 20), srcs, boundary="pml", device=CPU)
     with pytest.raises(NotImplementedError, match="queue 1 item 18"):
-        tw.multishot_wave_operator((20, 20), srcs, mesh=object())
+        tw.multishot_wave_operator((20, 20), srcs, mesh=object(), device=CPU)
     with pytest.raises(ValueError, match="shot_map"):
-        tw.multishot_wave_operator((20, 20), srcs, shot_map="scan")
+        tw.multishot_wave_operator((20, 20), srcs, shot_map="scan", device=CPU)
