@@ -26,8 +26,18 @@ mode at nt=120 — and the fourth, the 3-D TTI anisotropic FWI gradient
 bf16 coefficient fields, a forward and an int8-stored gradient (all five
 blocks) at nt=60, the card against the CPU on a (32, 64, 128) grid, the
 θ = φ = 0 reduction to VTI, a Jacobian dot-product gate with an f32
-history and the int8 gradient's cosine to it, and 2 shots in map mode.
-Each path runs with the kernels' launch counts set to 0 just before it
+history and the int8 gradient's cosine to it, and 2 shots in map mode —
+and the fifth, the Krylov solvers after LSQR on the flagship (``cg`` on
+``normal_operator(A, damp=0.1)``, preconditioned CG with a 32-probe
+``jacobi_preconditioner``, ``cgls``, ``lsmr`` plain and hooked; 50
+iterations at 3-D, 100 at 2-D, the card against the CPU at 10) — and the
+sixth, the constant-Q visco-acoustic path (``q_wave_propagator``) at the
+wave stages' geometry: model (c, Q) with Q = 50 and one seeded low-Q
+anomaly to 25, f0 15 Hz, forwards at nt=220 with f32 and bf16 friction
+fields, an int8-stored gradient at nt=120 (both blocks), the card against
+the CPU on (32, 64, 128) (forward, stored and autodiff adjoints), the Q = ∞
+reduction to ``wave_propagator``, a Jacobian gate with an f32 history and
+the int8 gradient's cosines to it. Each path runs with the kernels' launch counts set to 0 just before it
 and read just after. Every phase asserts; a failure raises and exits
 non-zero. Every entry point runs on the card by default; the CPU runs ask
 for ``device="cpu"``.
@@ -100,6 +110,7 @@ def nbytes(*tensors):
 # the bytes each call moves they give the bound below.
 FLOPS_PER_POINT = {
     "xw_update": 5, "lap3d_axpy_norm2": 11, "laplacian3d": 7,
+    "cg_update": 6, "p_update": 2, "lsmr_update": 7, "fused_q_step": 21,
     "fused_leapfrog_step": 16, "fused_adjoint_step": 25,
     "fused_vti_step": 36, "fused_vti_hist_step": 40, "fused_vti_adjoint_step": 85,
     "fused_tti_step": 110, "fused_tti_hist_step": 114, "fused_tti_adjoint_step": 300,
@@ -403,6 +414,61 @@ def main() -> int:
            "f32 and bf16 coefficients")
     del ref, got, o
 
+    # K6a, K6b and K7 at the Krylov paths' shapes, an odd length and its
+    # offset views, bitwise and in place (K6a's rho, an f64 sum rounded to
+    # f32, against an f64 sum of the plain r': rel <= 1e-6); K14 at the Q
+    # path's shape, every order and friction width, bitwise and in place
+    alpha, beta = torch.tensor(0.37, device=dev), torch.tensor(-0.61, device=dev)
+    lsc = [torch.tensor(v, device=dev) for v in (-0.31, 0.77, -0.52, 1.9)]
+    for k in ("cg_update", "p_update", "lsmr_update", "fused_q_step"):
+        err[k] = 0.0
+    rho_rel = 0.0
+    for shape, off in [((256, 256, 256), 0), ((2048, 2048), 0), ((1000003,), 0),
+                       ((1000003,), 1)]:
+        x, r, p, q, h, hb = (rnd(shape)[off:] for _ in range(6))
+        ref = cs.cg_update_torch(x.clone(), r.clone(), p, q, alpha)
+        o = (x.clone(), r.clone())
+        got = cs.cg_update(*o, p, q, alpha)
+        torch.cuda.synchronize()
+        assert got[0] is o[0] and got[1] is o[1], "K6a not in place"
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), \
+            f"K6a not bitwise at {shape}"
+        maxerr("cg_update", got[:2], ref[:2])
+        rho64 = float(torch.sum(ref[1].double() ** 2))
+        rho_rel = max(rho_rel, abs(float(got[2]) - rho64) / rho64)
+        assert rho_rel <= 1e-6, f"K6a rho rel err {rho_rel}"
+        ref = cs.p_update_torch(r, p.clone(), beta)
+        o = p.clone()
+        assert cs.p_update(r, o, beta) is o, "K6b not in place"
+        torch.cuda.synchronize()
+        assert torch.equal(o, ref), f"K6b not bitwise at {shape}"
+        maxerr("p_update", (o,), (ref,))
+        ref = cs.lsmr_update_torch(p, h.clone(), hb.clone(), x.clone(), *lsc)
+        o = (h.clone(), hb.clone(), x.clone())
+        got = cs.lsmr_update(p, *o, *lsc)
+        torch.cuda.synchronize()
+        assert all(a is b for a, b in zip(got, o)), "K7 not in place"
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), f"K7 not bitwise at {shape}"
+        maxerr("lsmr_update", got, ref)
+    del x, r, p, q, h, hb, ref, got, o
+    gq = {torch.float32: 0.01 + 0.05 * torch.rand(wshape, generator=gen, device=dev)}
+    gq[torch.bfloat16] = gq[torch.float32].to(torch.bfloat16)
+    for gdt, gg in gq.items():
+        for order in (2, 4, 8):
+            ref = cw.fused_q_step_torch(up, u, c2, gg, spz, spy, spx, vst, src_flat, amp,
+                                        order=order)
+            upk = up.clone()
+            out = cw.fused_q_step(upk, u, c2, gg, spz, spy, spx, vst, src_flat, amp,
+                                  order=order, out=upk)
+            torch.cuda.synchronize()
+            assert out is upk, "K14 not in place"
+            assert torch.equal(out, ref), f"K14 not bitwise ({gdt}, order {order})"
+            maxerr("fused_q_step", (out,), (ref,))
+    log(1, f"K6a (x, r), K6b and K7 bitwise and in place at 256^3, 2048^2 and 1000003 "
+           f"aligned/unaligned, K6a rho rel err {rho_rel:.3e} vs f64 (<= 1e-6); K14 "
+           "bitwise and in place at 256^3, orders 2/4/8, f32 and bf16 friction fields")
+    del ref, upk, out
+
     # ---- phase 2: the 3-D flagship at full width -----------------------------
     grid3, nshots3, nrecv = (256, 256, 256), 16, 4096
     t0 = time.perf_counter()
@@ -472,17 +538,20 @@ def main() -> int:
     check_history(r6, 100, d2norm, 6)
     log(6, f"lsqr 2-D (2048^2, 64 shots, {nrecv} rcv) 100 iterations in "
            f"{time.perf_counter() - t0:.2f} s incl. build: launches {c6}")
-    main_path = cs.launch_counts()
+    main_path = {k: cs.launch_counts()[k] for k in ("xw_update", "lap3d_axpy_norm2",
+                                                     "laplacian3d")}
     for name, n in main_path.items():
         assert n > 0, f"kernel {name} was not launched on the main path"
 
     # ---- phase 7: times -------------------------------------------------------
-    def lsqr_ms_per_iter(op, rhs, lo, hi, reps=3):
+    def ms_per_iter(solve, op, rhs, lo, hi, reps=3):
+        """Marginal ms per iteration of ``solve`` between budgets lo and hi
+        (median of reps, CUDA events)."""
         def run(n):
             s0 = torch.cuda.Event(enable_timing=True)
             s1 = torch.cuda.Event(enable_timing=True)
             s0.record()
-            res = lsqr(op, rhs, maxiter=n, tol=0.0)
+            res = solve(op, rhs, maxiter=n, tol=0.0)
             s1.record()
             torch.cuda.synchronize()
             assert res.iterations == n
@@ -493,9 +562,9 @@ def main() -> int:
         t_hi = sorted(run(hi) for _ in range(reps))[reps // 2]
         return (t_hi - t_lo) / (hi - lo)
 
-    ms3 = lsqr_ms_per_iter(A, d, 10, 60)
-    ms3h = lsqr_ms_per_iter(A_hook, d, 10, 60)
-    ms2 = lsqr_ms_per_iter(A2, d2, 20, 120)
+    ms3 = ms_per_iter(lsqr, A, d, 10, 60)
+    ms3h = ms_per_iter(lsqr, A_hook, d, 10, 60)
+    ms2 = ms_per_iter(lsqr, A2, d2, 20, 120)
 
     x, w, vh = rnd(grid3), rnd(grid3), rnd(grid3)
     kt = {
@@ -1155,9 +1224,316 @@ def main() -> int:
             + f"; peak device memory of the nt=40 int8 gradient {tpeak_gib:.2f} GiB, "
             f"of the whole run before it {peak_all:.2f} GiB [{smi}]")
 
+    del Ftprof
+
+    # ---- phases 27-30: CG, CGLS and LSMR on the flagship, launches counted -----
+    from jets_tpu_torch.solvers import cg, cgls, jacobi_preconditioner, lsmr, normal_operator
+
+    kry = ("xw_update", "cg_update", "p_update", "lsmr_update", "lap3d_axpy_norm2")
+
+    def sdelta(before):
+        now = cs.launch_counts()
+        return {k: now[k] - before[k] for k in kry if now[k] != before[k]}
+
+    def decreased(res, n, what):
+        h = res.history
+        assert res.iterations == n, f"{what}: ran {res.iterations} of {n} iterations"
+        assert bool(torch.isfinite(h).all()), f"{what}: history is not finite"
+        assert float(res.resnorm) < float(h[0]), f"{what}: resnorm did not decrease"
+        return (f"{what} history {float(h[0]):.6g} -> {float(h[-1]):.6g}, resnorm "
+                f"{float(res.resnorm):.6g}")
+
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    A, _, d = make_seismic_problem(grid3, nshots3, nrecv, seed=0, noise=0.05)
+    wr = A.jet.state["bstate"]["wr"]
+    N = normal_operator(A, damp=0.1)
+    b = A.H(d)
+    torch.cuda.synchronize()
+    build3 = time.perf_counter() - t0
+    c0 = cs.launch_counts()
+    rcg = cg(N, b, maxiter=50, tol=0.0)
+    assert sdelta(c0) == {"cg_update": 50, "p_update": 50}, sdelta(c0)
+    msg = decreased(rcg, 50, "CG")
+    A_cpu = seismic_operator_from_arrays(grid3, nshots3, nrecv, wr=wr.cpu(), device="cpu")
+    c0 = cs.launch_counts()
+    t0 = time.perf_counter()
+    r_cpu = cg(normal_operator(A_cpu, damp=0.1), b.cpu(), maxiter=10, tol=0.0)
+    t_cpu = time.perf_counter() - t0
+    assert cs.launch_counts() == c0, "a CPU run launched a kernel"
+    r_gpu = cg(N, b, maxiter=10, tol=0.0)
+    assert sdelta(c0) == {"cg_update": 10, "p_update": 10}, sdelta(c0)
+    dx_cg = rel(r_gpu.x.cpu(), r_cpu.x)
+    assert dx_cg <= 1e-4, f"CG card vs CPU x rel {dx_cg}"
+    gen_p = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    M = jacobi_preconditioner(A, generator=gen_p, nsamples=32)
+    torch.cuda.synchronize()
+    t_est = time.perf_counter() - t0
+    c0 = cs.launch_counts()
+    rpcg = cg(N, b, maxiter=50, tol=0.0, M=M)
+    assert sdelta(c0) == {}, f"PCG launched a solver kernel: {sdelta(c0)}"
+    msg_p = decreased(rpcg, 50, "PCG")
+    rcgls = cgls(A, d, maxiter=50, tol=0.0)
+    assert sdelta(c0) == {}, f"CGLS launched a solver kernel: {sdelta(c0)}"
+    msg_l = decreased(rcgls, 50, "CGLS")
+    log(27, f"3-D flagship {grid3} x {nshots3} shots x {nrecv} rcv (built in {build3:.2f} "
+            f"s), normal operator damp 0.1, 50 iterations at tol 0: {msg}; K6a 50 + K6b "
+            f"50 launches; card vs CPU at 10 iterations (CPU {t_cpu:.1f} s) ||dx||/||x|| "
+            f"{dx_cg:.3e} (<= 1e-4); Jacobi diagonal from 32 probes in {t_est:.2f} s, "
+            f"{msg_p}, no solver kernel launched; {msg_l}, no solver kernel launched")
+    del r_cpu, r_gpu, rpcg, rcgls, M
+
+    A_hook = seismic_operator_from_arrays(grid3, nshots3, nrecv, wr=wr, epilogue_hook=True)
+    c0 = cs.launch_counts()
+    rlp = lsmr(A, d, maxiter=50, tol=0.0)
+    assert sdelta(c0) == {"lsmr_update": 50}, sdelta(c0)
+    c1 = cs.launch_counts()
+    rlh = lsmr(A_hook, d, maxiter=50, tol=0.0)
+    assert sdelta(c1) == {"lsmr_update": 50, "lap3d_axpy_norm2": 50}, sdelta(c1)
+    msgs = []
+    for res, what in ((rlp, "LSMR"), (rlh, "LSMR hooked")):
+        msgs.append(decreased(res, 50, what))
+        # |zetabar_k| = |sbar_k|·|zetabar_{k-1}| with |sbar_k| <= 1 (hypot)
+        assert bool((res.history[1:] <= res.history[:-1]).all()), f"{what} increased"
+    hx = rel(rlh.x, rlp.x)
+    assert hx <= 1e-4, f"LSMR hooked vs plain x rel {hx}"
+    c0 = cs.launch_counts()
+    r_cpu = lsmr(A_cpu, d.cpu(), maxiter=10, tol=0.0)
+    assert cs.launch_counts() == c0, "a CPU run launched a kernel"
+    r_gpu = lsmr(A, d, maxiter=10, tol=0.0)
+    assert sdelta(c0) == {"lsmr_update": 10}, sdelta(c0)
+    dx_l = rel(r_gpu.x.cpu(), r_cpu.x)
+    assert dx_l <= 1e-4, f"LSMR card vs CPU x rel {dx_l}"
+    log(28, f"LSMR 3-D 50 iterations, plain and hooked: K7 50 + 50, K2 50 (hooked) "
+            f"launches; {'; '.join(msgs)}; |zetabar| finite and non-increasing; "
+            f"||x_hook - x||/||x|| "
+            f"{hx:.3e} (<= 1e-4); card vs CPU at 10 iterations ||dx||/||x|| {dx_l:.3e} "
+            "(<= 1e-4)")
+    del A_cpu, r_cpu, r_gpu, rlp, rlh, rcg
+
+    t0 = time.perf_counter()
+    A2, _, d2 = make_seismic_problem((2048, 2048), 64, nrecv, seed=0, noise=0.05)
+    N2, b2 = normal_operator(A2, damp=0.1), A2.H(d2)
+    c0 = cs.launch_counts()
+    msg = decreased(cg(N2, b2, maxiter=100, tol=0.0), 100, "CG")
+    assert sdelta(c0) == {"cg_update": 100, "p_update": 100}, sdelta(c0)
+    c1 = cs.launch_counts()
+    msg_l = decreased(lsmr(A2, d2, maxiter=100, tol=0.0), 100, "LSMR")
+    assert sdelta(c1) == {"lsmr_update": 100}, sdelta(c1)
+    log(29, f"2-D (2048^2, 64 shots, {nrecv} rcv) 100 iterations each in "
+            f"{time.perf_counter() - t0:.2f} s incl. build: {msg}; {msg_l}; K6a 100 + K6b "
+            "100, K7 100 launches")
+    krylov_path = {k: cs.launch_counts()[k] for k in ("cg_update", "p_update",
+                                                      "lsmr_update")}
+    for name, n in krylov_path.items():
+        assert n > 0, f"kernel {name} was not launched on the Krylov paths"
+
+    kms = {"cg_3d": ms_per_iter(cg, N, b, 10, 60),
+           "cgls_3d": ms_per_iter(cgls, A, d, 10, 60),
+           "lsmr_3d": ms_per_iter(lsmr, A, d, 10, 60),
+           "lsmr_3d_hooked": ms_per_iter(lsmr, A_hook, d, 10, 60),
+           "cg_2d": ms_per_iter(cg, N2, b2, 20, 120),
+           "cgls_2d": ms_per_iter(cgls, A2, d2, 20, 120),
+           "lsmr_2d": ms_per_iter(lsmr, A2, d2, 20, 120)}
+    del A, A_hook, A2, N, N2, b, b2, d, d2
+    x, r, p, q, h, hb = (rnd(grid3) for _ in range(6))
+    kt["cg_update"] = (cuda_ms(lambda: cs.cg_update(x, r, p, q, alpha), 20),
+                       cuda_ms(lambda: cs.cg_update_torch(x, r, p, q, alpha), 20))
+    kt["p_update"] = (cuda_ms(lambda: cs.p_update(r, p, beta), 20),
+                      cuda_ms(lambda: cs.p_update_torch(r, p, beta), 20))
+    kt["lsmr_update"] = (cuda_ms(lambda: cs.lsmr_update(q, h, hb, x, *lsc), 20),
+                         cuda_ms(lambda: cs.lsmr_update_torch(q, h, hb, x, *lsc), 20))
+    # the one PyTorch call that computes K6b's function (timed as a yardstick)
+    am = torch.addcmul(r, beta, p)
+    am_rel = rel(am, cs.p_update_torch(r, p.clone(), beta))
+    assert am_rel <= 1e-6, f"addcmul vs K6b rel {am_rel}"
+    lib_ms["p_update"] = cuda_ms(lambda: torch.addcmul(r, beta, p), 20)
+    kbytes["cg_update"] = nbytes(x, r, p, q, x, r)
+    kbytes["p_update"] = nbytes(r, p, p)
+    kbytes["lsmr_update"] = nbytes(q, h, hb, x, h, hb, x)
+    del x, r, p, q, h, hb, am
+    log(30, "Krylov ms/iter (marginal, CUDA events): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in kms.items())
+            + "; kernel vs plain at 256^3 "
+            + ", ".join(f"{k} {1e3 * kt[k][0]:.1f} vs {1e3 * kt[k][1]:.1f} us (bound "
+                        f"{1e3 * bound_ms(kbytes[k], 256 ** 3, k)[0]:.1f} us)"
+                        for k in ("cg_update", "p_update", "lsmr_update"))
+            + f"; addcmul (the library call for K6b, rel {am_rel:.1e}) "
+            f"{1e3 * lib_ms['p_update']:.1f} us [{smi}]")
+
+    # ---- phases 31-37: the constant-Q path, launches counted --------------------
+    from jets_tpu_torch.ops.wave import q_wave_propagator
+
+    def qdelta(before):
+        return cw.launch_counts()["fused_q_step"] - before["fused_q_step"]
+
+    # Q = 50 with one smooth seeded low-Q anomaly down to 25; f0 = 15 Hz
+    (qz, qy, qx), qsig = rs.uniform(64, 192, 3), 24.0
+    gz, gy, gx = (torch.exp(-0.5 * ((axis - float(o)) / qsig) ** 2) for o in (qz, qy, qx))
+    q_true = 50.0 - 25.0 * (gz[:, None, None] * gy[None, :, None] * gx[None, None, :])
+    qkw = dict(src_idx=src0, f0=15.0, **wkw)
+
+    def q_model(dom, c, qf):
+        return BlockVector((c, qf), dom)
+
+    cw.reset_launch_counts()
+    for cdt in cdts:
+        Fq = q_wave_propagator(wshape, nt=220, coeff_dtype=cdt, **qkw)
+        mq = q_model(Fq.dom, c_true, q_true)
+        b_ = cw.launch_counts()
+        dq_k = Fq(mq)
+        assert qdelta(b_) == 220, qdelta(b_)
+        dq_p = q_wave_propagator(wshape, nt=220, coeff_dtype=cdt, fused=False, **qkw)(mq)
+        assert qdelta(b_) == 220, "the plain route launched a kernel"
+        assert dq_k.shape == (220, 128)
+        log(31, f"Q forward 256^3, nt=220, {cdt or 'f32'} friction field, (c, Q) = (1500 + "
+                "anomalies, 50 with a low-Q anomaly to 25), f0 15 Hz: K14 launched 220 "
+                "times; kernel vs plain route " + same(dq_k, dq_p, "traces"))
+    del dq_k, dq_p
+
+    Fg = q_wave_propagator(wshape, nt=120, store_adjoint="int8", **qkw)
+    Fgp = q_wave_propagator(wshape, nt=120, store_adjoint="int8", fused=False, **qkw)
+    mq_true = q_model(Fg.dom, c_true, q_true)
+    mq_bg = q_model(Fg.dom, c_bg, torch.full(wshape, 50.0, device=dev))
+    qres = Fg(mq_true) - Fg(mq_bg)  # a physical residual
+    live(qres, "Q residual")
+    b_ = cw.launch_counts()
+    gq_k = Fg.linearize(mq_true).H(qres)
+    assert qdelta(b_) == 120, qdelta(b_)
+    gq_p = Fgp.linearize(mq_true).H(qres)
+    assert qdelta(b_) == 120, "the plain route launched a kernel"
+    log(32, "Q int8-stored gradient 256^3, nt=120: K14 120 launches (the forward sweep; "
+            "the reverse sweep is plain); kernel vs plain route "
+            + same(gq_k, gq_p, "(gc, gQ)"))
+    del gq_p, Fgp
+
+    Fq12 = q_wave_propagator(cshape, nt=12, store_adjoint="int8", f0=15.0, **ckw)
+    Fq12c = q_wave_propagator(cshape, nt=12, store_adjoint="int8", f0=15.0, device="cpu",
+                              **ckw)
+    Fa12 = q_wave_propagator(cshape, nt=12, f0=15.0, **ckw)
+    Fa12c = q_wave_propagator(cshape, nt=12, f0=15.0, device="cpu", **ckw)
+    m12 = q_model(Fq12.dom, c_true[:32, :64, :128].contiguous(),
+                  q_true[:32, :64, :128].contiguous())
+    m_cpu = BlockVector(tuple(t.cpu() for t in m12.blocks), Fq12c.dom)
+    b_ = cw.launch_counts()
+    t0 = time.perf_counter()
+    d12c, g12c, a12c = (Fq12c(m_cpu), Fq12c.linearize(m_cpu).H(r12),
+                        Fa12c.linearize(m_cpu).H(r12))
+    t_cpu = time.perf_counter() - t0
+    assert qdelta(b_) == 0, "a CPU run launched a kernel"
+    d12, g12, a12 = (Fq12(m12), Fq12.linearize(m12).H(r12.to(dev)),
+                     Fa12.linearize(m12).H(r12.to(dev)))
+    assert qdelta(b_) == 36, qdelta(b_)
+    log(33, f"Q card vs CPU at {cshape}, nt=12 (CPU {t_cpu:.1f} s): "
+            + agree(d12.cpu(), d12c, "traces", 1e-5) + "; "
+            + "; ".join(agree(x_.cpu(), y_, f"{nm}[{i}]", 1e-5)
+                        for nm, gg_, cc_ in (("int8 gradient", g12, g12c),
+                                             ("autodiff adjoint (_QStep.backward)", a12,
+                                              a12c))
+                        for i, (x_, y_) in enumerate(zip(gg_.blocks, cc_.blocks))))
+    del Fq12, Fq12c, Fa12, Fa12c, m12, m_cpu, d12c, g12c, a12c, d12, g12, a12
+
+    # at Q = inf (g = 0) K14 is K4 bit for bit
+    Fq0 = q_wave_propagator(wshape, nt=60, **qkw)
+    Fw0 = wave_propagator(wshape, nt=60, src_idx=src0, **wkw)
+    b_ = cw.launch_counts()
+    dq0 = Fq0(q_model(Fq0.dom, c_true, torch.full(wshape, float("inf"), device=dev)))
+    assert qdelta(b_) == 60, qdelta(b_)
+    log(34, "Q = inf vs the lossless wave_propagator on the card, 256^3, nt=60: "
+            + same(dq0, Fw0(c_true), "traces"))
+    del Fq0, Fw0, dq0
+
+    Fb = q_wave_propagator(wshape, nt=60, store_adjoint="f32", **qkw)
+    J = born_operator(Fb, mq_true)
+    gb = torch.Generator().manual_seed(6)
+    mb, db = J.dom.randn(gb), J.rng.randn(gb)
+    b_ = cw.launch_counts()
+    lhs, rhs = dot_product_test(J, mb, db)
+    assert qdelta(b_) == 120, qdelta(b_)
+    gate_q = abs(float(lhs) - float(rhs)) / abs(float(rhs))
+    assert gate_q <= 1e-4, f"Q Jacobian dot-product gate rel {gate_q}"
+    Jm, Jd = J(mb), J.H(db)
+    lhs64 = float(torch.vdot(db.double().reshape(-1), Jm.double().reshape(-1)))
+    rhs64 = sum(float(torch.vdot(x_.double().reshape(-1), y_.double().reshape(-1)))
+                for x_, y_ in zip(Jd.blocks, mb.blocks))
+    gate64 = abs(lhs64 - rhs64) / abs(rhs64)
+    assert gate64 <= 1e-4, f"Q Jacobian dot-product gate (f64 sums) rel {gate64}"
+    del Jm, Jd, J, mb
+    qres60 = Fb(mq_true) - Fb(mq_bg)
+    g32 = Fb.linearize(mq_true).H(qres60)
+    g8 = q_wave_propagator(wshape, nt=60, store_adjoint="int8", **qkw).linearize(
+        mq_true).H(qres60)
+    qcos = []
+    for i, (x_, y_) in enumerate(zip(g8.blocks, g32.blocks)):
+        live(y_, f"Q f32-history gradient[{i}]")
+        cos = float(torch.vdot(x_.double().reshape(-1), y_.double().reshape(-1))
+                    / (torch.linalg.vector_norm(x_.double())
+                       * torch.linalg.vector_norm(y_.double())))
+        qcos.append(cos)
+        assert cos > 1.0 - 5e-2, f"Q int8 vs f32 history gradient[{i}] cosine {cos}"
+    log(35, f"Q Jacobian 256^3, nt=60, f32 history: dot-product gate rel {gate_q:.3e} "
+            f"(<= 1e-4; <d, J m> = {float(lhs):.6g}), with f64 sums rel {gate64:.3e}; "
+            "launches K14 60 (tangent through _QStep) + 60 (the adjoint's forward sweep); "
+            "int8 vs f32 history gradient cosines (c, Q) "
+            + ", ".join(f"{c_:.6f}" for c_ in qcos) + " (> 0.95)")
+    del Fb, g32, g8, qres60
+    q_path = {"fused_q_step": cw.launch_counts()["fused_q_step"]}
+    assert q_path["fused_q_step"] > 0, "kernel fused_q_step was not launched on the Q path"
+
+    # ---- phase 36: Q times ----------------------------------------------------------
+    def qsingle(**kw):
+        return lambda n: q_wave_propagator(wshape, nt=n, **qkw, **kw)
+
+    def qfwd(op, n):
+        return op(mq_true)
+
+    def qgrad(op, n):
+        return op.linearize(mq_true).H(torch.ones(op.rng.shape, device=dev))
+
+    qus = {}
+    for cdt, tag in ((None, ""), (torch.bfloat16, "bf16_")):
+        qus[f"q3d_{tag}step_us"] = us_per_step(qsingle(coeff_dtype=cdt), qfwd, 20, 220)
+        qus[f"q3d_{tag}step_us_plain"] = us_per_step(qsingle(coeff_dtype=cdt, fused=False),
+                                                     qfwd, 20, 220)
+    qus["q3d_grad_step_us"] = us_per_step(qsingle(store_adjoint="int8"), qgrad, 20, 120)
+    qus["q3d_grad_step_us_plain"] = us_per_step(
+        qsingle(store_adjoint="int8", fused=False), qgrad, 20, 120, reps=1)
+    qkt, qbounds = {}, {}
+    for gdt, gg in gq.items():
+        tag = "" if gdt == torch.float32 else " bf16"
+        qkt["fused_q_step" + tag] = (
+            cuda_ms(lambda: cw.fused_q_step(up, u, c2, gg, spz, spy, spx, s_t, src_flat,
+                                            amp), 20),
+            cuda_ms(lambda: cw.fused_q_step_torch(up, u, c2, gg, spz, spy, spx, s_t,
+                                                  src_flat, amp), 20))
+        qbounds["fused_q_step" + tag] = bound_ms(
+            nbytes(up, u, c2, gg, spz, spy, spx, up), up.numel(), "fused_q_step")[0]
+    kt["fused_q_step"] = qkt["fused_q_step"]
+    kbytes["fused_q_step"] = nbytes(up, u, c2, gq[torch.float32], spz, spy, spx, up)
+    Fqprof = q_wave_propagator(wshape, nt=40, store_adjoint="int8", **qkw)
+    qshares = {"forward": busy_share(lambda: Fqprof(mq_true)),
+               "gradient": busy_share(lambda: qgrad(Fqprof, 40))}
+    log(36, "Q us/step (marginal, CUDA events): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in qus.items())
+            + "; kernel vs plain at 256^3 (bound by bytes) "
+            + ", ".join(f"{k} {1e3 * a:.1f} vs {1e3 * b_:.1f} us (bound "
+                        f"{1e3 * qbounds[k]:.1f} us)" for k, (a, b_) in qkt.items())
+            + "; device busy share under the profiler (nt=40): "
+            + ", ".join(f"{k} {'not measured' if sh is None else f'{sh:.3f}'} of "
+                        f"{wall:.2f} ms ({n} device events; top kernels, us total/"
+                        f"count: " + "; ".join(f"{nm} {t:.0f}/{c}" for nm, (t, c) in top)
+                        + ")"
+                        for k, (sh, wall, n, top) in qshares.items())
+            + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"[{smi}]")
+    del Fqprof
+
     main_path.update(wave_path)
     main_path.update(vti_path)
     main_path.update(tti_path)
+    main_path.update(krylov_path)
+    main_path.update(q_path)
     sources = {"solver": "jets_tpu_torch/csrc/solver_kernels.cu",
                "wave": "jets_tpu_torch/csrc/wave_kernels.cu",
                "vti": "jets_tpu_torch/csrc/vti_kernels.cu",
@@ -1174,8 +1550,13 @@ def main() -> int:
         "fused_tti_step": ("tti", "jets_tpu/ops/pallas_wave.py:869"),
         "fused_tti_hist_step": ("tti", "jets_tpu/ops/pallas_wave.py:922"),
         "fused_tti_adjoint_step": ("tti", "jets_tpu/ops/pallas_wave.py:2014"),
+        "cg_update": ("solver", "jets_tpu/ops/pallas_solver.py:241"),
+        "p_update": ("solver", "jets_tpu/ops/pallas_solver.py:273"),
+        "lsmr_update": ("solver", "jets_tpu/ops/pallas_solver.py:177"),
+        "fused_q_step": ("wave", "jets_tpu/ops/pallas_wave.py:1425"),
     }
-    log(27, f"chip_smoke total {time.perf_counter() - t_start:.1f} s, kernel build "
+    assert len(replaces) == 15 and all(main_path[k] > 0 for k in replaces), main_path
+    log(37, f"chip_smoke total {time.perf_counter() - t_start:.1f} s, kernel build "
             f"included")
     rows = []
     for k, (lib, where) in replaces.items():

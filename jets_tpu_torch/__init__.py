@@ -3,8 +3,11 @@
 The same matrix-free operator-and-solver framework, for one NVIDIA H100
 (Hopper, ``sm_90a``): spaces with an explicit device, immutable jets and
 operators, the operator algebra, the correctness gates, the seismic
-flagship and its LSQR solver, block spaces, and the isotropic, VTI and TTI
-anisotropic wave operators of FWI (:mod:`jets_tpu_torch.ops.wave`). Plain
+flagship and its CG, CGLS, LSQR and LSMR solvers with the normal operator
+and the Jacobi preconditioner (:mod:`jets_tpu_torch.solvers`), the diagonal
+operator, block spaces, and the isotropic, VTI and TTI anisotropic and
+constant-Q visco-acoustic wave operators of FWI
+(:mod:`jets_tpu_torch.ops.wave`). Plain
 tensor code is PyTorch; the Pallas kernels of the JAX package on these
 paths are hand-written CUDA C++ in ``csrc/`` (see
 :mod:`jets_tpu_torch.ops.cuda_solver`, :mod:`jets_tpu_torch.ops.cuda_wave`,
@@ -38,9 +41,11 @@ from .core.verify import (
     materialize,
 )
 from .kernels import has_cuda
+from .ops.diagonal import diagonal_operator
 from .ops.wave import (
     multishot_tti_wave_operator,
     multishot_vti_wave_operator,
+    q_wave_propagator,
     tti_wave_propagator,
     vti_wave_propagator,
 )

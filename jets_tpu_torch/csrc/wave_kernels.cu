@@ -1,5 +1,6 @@
 // Hopper (sm_90a) kernels of the isotropic acoustic wave path: the forward
-// leapfrog step (K4) and the stored-wavefield adjoint step (K5).
+// leapfrog step (K4), the stored-wavefield adjoint step (K5) and the
+// Kosloff constant-Q (visco-acoustic) step (K14).
 //
 // Built by jets_tpu_torch/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -210,6 +211,53 @@ adjoint_kernel(const float* __restrict__ a1, const float* a2, const float* gc2,
   core_out[i] = core;
 }
 
+// ---------------------------------------------------------------------------
+// K14  constant-Q step (Kosloff friction, g = gamma*dt = pi*f0*dt/Q):
+//   u_next = (((2u - (1-g)*u_prev) + c2dt2*L(u)) * (1/(1+g))) * ((sz*sy)*sx)
+//            + s_t*onehot(src)*amp
+//
+// Replaces jets_tpu/ops/pallas_wave.py:fused_q_step (_q_kernel). K4's
+// layout and stencil, plus the friction field g, templated on its stored
+// type (f32, or bf16 upcast on load as the TTI kernels upcast their
+// coefficients); om1g = 1-g and inv1pg = 1/(1+g) are recomputed per point
+// with __fsub_rn/__fdiv_rn, the ops the plain version applies to the same
+// upcast field, so the result is bitwise equal to it. Five touches of 4
+// bytes per point with an f32 g (u, u_prev, c2dt2, g, u_next), 4.5 with a
+// bf16 g. u_next may be u_prev's buffer: u_prev is read only at the output
+// point. With g = 0 (Q = inf) every factor is exactly 1 and the step is
+// K4's, bit for bit.
+// ---------------------------------------------------------------------------
+
+template <int ORDER, typename G>
+__global__ void __launch_bounds__(kBX * kBY)
+q_step_kernel(const float* u_prev, const float* __restrict__ u,
+              const float* __restrict__ c2, const G* __restrict__ gf,
+              const float* __restrict__ spz, const float* __restrict__ sy,
+              const float* __restrict__ sx, const float* __restrict__ s_tp,
+              const float* __restrict__ ampp, int64_t src, float* out, Grid g) {
+  const int64_t ix = (int64_t)blockIdx.x * kBX + threadIdx.x;
+  const int64_t iy = (int64_t)blockIdx.y * kBY + threadIdx.y;
+  const int64_t iz = blockIdx.z;
+  if (ix >= g.W || iy >= g.H) return;
+  const int64_t HW = g.H * g.W;
+  const int64_t i = (iz * g.H + iy) * g.W + ix;
+  auto at = [&](int dz, int dy, int dx) -> float {
+    if (!g.inside(iz + dz, iy + dy, ix + dx)) return 0.0f;
+    return __ldg(u + i + dz * HW + dy * g.W + dx);
+  };
+  const float lap = lap_tree<ORDER>(at);
+  const float gv = to_f32<G>(gf[i]);
+  const float om1g = __fsub_rn(1.0f, gv);
+  const float inv1pg = __fdiv_rn(1.0f, __fadd_rn(1.0f, gv));
+  const float e = __fmul_rn(
+      __fadd_rn(__fsub_rn(__fmul_rn(2.0f, u[i]), __fmul_rn(om1g, u_prev[i])),
+                __fmul_rn(c2[i], lap)),
+      inv1pg);
+  const float sponge = __fmul_rn(__fmul_rn(spz[iz], sy[iy]), sx[ix]);
+  const float mask = i == src ? *ampp : 0.0f;
+  out[i] = __fadd_rn(__fmul_rn(e, sponge), __fmul_rn(*s_tp, mask));
+}
+
 inline int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 inline dim3 grid_of(const Grid& g) {
@@ -238,6 +286,34 @@ int launch_adjoint(int order, const void* a1, const void* a2, const void* gc2,
     case 8:
       adjoint_kernel<8, Q><<<grid, block, 0, st>>>(f(a1), f(a2), f(gc2), f(c2), qq,
                                                    f(sc), f(spz), f(sy), f(sx), co, go, g);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename G>
+int launch_q(int order, const void* u_prev, const void* u, const void* c2,
+             const void* gf, const void* spz, const void* sy, const void* sx,
+             const void* s_t, const void* amp, int64_t src, void* out, Grid g,
+             cudaStream_t st) {
+  const dim3 grid = grid_of(g), block(kBX, kBY);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const G* gg = static_cast<const G*>(gf);
+  float* o = static_cast<float*>(out);
+  switch (order) {
+    case 2:
+      q_step_kernel<2, G><<<grid, block, 0, st>>>(f(u_prev), f(u), f(c2), gg, f(spz),
+                                                  f(sy), f(sx), f(s_t), f(amp), src, o, g);
+      break;
+    case 4:
+      q_step_kernel<4, G><<<grid, block, 0, st>>>(f(u_prev), f(u), f(c2), gg, f(spz),
+                                                  f(sy), f(sx), f(s_t), f(amp), src, o, g);
+      break;
+    case 8:
+      q_step_kernel<8, G><<<grid, block, 0, st>>>(f(u_prev), f(u), f(c2), gg, f(spz),
+                                                  f(sy), f(sx), f(s_t), f(amp), src, o, g);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -303,6 +379,27 @@ int jt_adjoint_step(const void* a1, const void* a2, const void* gc2,
     case 2:
       return launch_adjoint<int8_t>(order, a1, a2, gc2, c2, q, sc, spz, sy, sx,
                                     core_out, gc2_out, g, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K14. gtype: 0 = f32, 1 = bf16 friction field. out may equal u_prev (in
+// place); u, c2 and g must be other buffers.
+int jt_q_step(const void* u_prev, const void* u, const void* c2, const void* gf,
+              const void* spz, const void* sy, const void* sx, const void* s_t,
+              const void* amp, int64_t src, void* out, int64_t D, int64_t H,
+              int64_t W, int order, int gtype, void* stream) {
+  if (D <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Grid g{D, H, W};
+  switch (gtype) {
+    case 0:
+      return launch_q<float>(order, u_prev, u, c2, gf, spz, sy, sx, s_t, amp, src, out,
+                             g, st);
+    case 1:
+      return launch_q<__nv_bfloat16>(order, u_prev, u, c2, gf, spz, sy, sx, s_t, amp,
+                                     src, out, g, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -55,11 +55,16 @@ _SIGNATURES = {
         "jt_xw_update": ([_P] * 6 + [_I64, _P], _INT),
         "jt_laplacian3d": ([_P, _P] + [_I64] * 3 + [_P], _INT),
         "jt_lap3d_axpy_norm2": ([_P] * 6 + [_I64] * 3 + [_P], _INT),
+        "jt_cg_num_partials": ([_I64], _I64),
+        "jt_cg_update": ([_P] * 7 + [_I64, _P], _INT),
+        "jt_p_update": ([_P] * 3 + [_I64, _P], _INT),
+        "jt_lsmr_update": ([_P] * 8 + [_I64, _P], _INT),
     },
     "wave": {
         "jt_error_string": ([_INT], ctypes.c_char_p),
         "jt_leapfrog_step": ([_P] * 8 + [_I64, _P] + [_I64] * 3 + [_INT, _P], _INT),
         "jt_adjoint_step": ([_P] * 11 + [_I64] * 3 + [_INT, _INT, _P], _INT),
+        "jt_q_step": ([_P] * 9 + [_I64, _P] + [_I64] * 3 + [_INT, _INT, _P], _INT),
     },
     "vti": {
         "jt_error_string": ([_INT], ctypes.c_char_p),

@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels of the LSQR solver tail (counterpart of
+"""Hand-written CUDA kernels of the Krylov solver tails (counterpart of
 ``jets_tpu/ops/pallas_solver.py``), with their plain PyTorch versions.
 
 =====================  ==========================================  ========
@@ -7,6 +7,9 @@ wrapper                replaces (TPU kernel)                       plain
 :func:`xw_update`      ``pallas_solver.xw_update`` (K1)            :func:`xw_update_torch`
 :func:`lap3d_axpy_norm2` ``pallas_solver.lap3d_axpy_norm2`` (K2)   :func:`lap3d_axpy_norm2_torch`
 :func:`laplacian3d`    ``pallas_solver.laplacian3d`` (K3)          :func:`laplacian3d_torch`
+:func:`cg_update`      ``pallas_solver.cg_update`` (K6a)           :func:`cg_update_torch`
+:func:`p_update`       ``pallas_solver.p_update`` (K6b)            :func:`p_update_torch`
+:func:`lsmr_update`    ``pallas_solver.lsmr_update`` (K7)          :func:`lsmr_update_torch`
 =====================  ==========================================  ========
 
 The kernels live in ``csrc/solver_kernels.cu`` (design notes there) and
@@ -19,7 +22,9 @@ so a run can show that its main path went through the kernel.
 
 On the card the kernels are bitwise equal to their plain versions (no FMA
 contraction; the stencil keeps ``laplacian_nd``'s add order), except the
-norm of K2, which is summed in f64 in a fixed order.
+norm of K2 and the ``rho`` of K6a, which are summed in f64 in a fixed order.
+K1, K6a, K6b and K7 take float32 tensors of one shape at any size (the
+TPU's ``HBM_REGIME_BYTES`` and tile rules have no counterpart here).
 """
 from __future__ import annotations
 
@@ -32,9 +37,15 @@ __all__ = [
     "xw_update",
     "lap3d_axpy_norm2",
     "laplacian3d",
+    "cg_update",
+    "p_update",
+    "lsmr_update",
     "xw_update_torch",
     "lap3d_axpy_norm2_torch",
     "laplacian3d_torch",
+    "cg_update_torch",
+    "p_update_torch",
+    "lsmr_update_torch",
     "reset_launch_counts",
     "launch_counts",
 ]
@@ -66,6 +77,34 @@ def lap3d_axpy_norm2_torch(z, v, s):
     vh = laplacian_nd(z) + s * v
     f = vh.reshape(-1)
     return vh, torch.vdot(f, f)
+
+
+def cg_update_torch(x, r, p, q, alpha):
+    """``x ← x + α·p``, ``r ← r − α·q`` in place and ``rho = <r', r'>``;
+    returns ``(x, r, rho)``."""
+    xn = x + alpha * p
+    rn = r - alpha * q
+    x.copy_(xn)
+    r.copy_(rn)
+    f = r.reshape(-1)
+    return x, r, torch.vdot(f, f)
+
+
+def p_update_torch(r, p, beta):
+    """``p ← r + β·p`` in place; returns ``p``."""
+    return p.copy_(r + beta * p)
+
+
+def lsmr_update_torch(vh, h, hbar, x, c_hb, c_x, c_h, inv_a):
+    """``hbar ← h + c_hb·hbar``, ``x ← x + c_x·hbar'``, ``h ← inv_a·vh +
+    c_h·h`` (the old h) in place; returns ``(h, hbar, x)``."""
+    hbn = h + c_hb * hbar
+    xn = x + c_x * hbn
+    hn = inv_a * vh + c_h * h
+    hbar.copy_(hbn)
+    x.copy_(xn)
+    h.copy_(hn)
+    return h, hbar, x
 
 
 # -- argument checks -------------------------------------------------------------
@@ -108,6 +147,17 @@ def _scalar(x, device):
 
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _check_distinct(name, *tensors):
+    if tensors[0].numel() and len({t.data_ptr() for t in tensors}) < len(tensors):
+        raise ValueError(f"{name}: the vectors must be distinct buffers")
+
+
+def _device_of(name, t):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    return t.device
 
 
 # -- wrappers --------------------------------------------------------------------
@@ -174,7 +224,64 @@ def lap3d_axpy_norm2(z, v, s):
     return vh, n2
 
 
-_WRAPPERS = (xw_update, lap3d_axpy_norm2, laplacian3d)
+def cg_update(x, r, p, q, alpha):
+    """K6a: ``x ← x + α·p``, ``r ← r − α·q`` in one pass with x and r updated
+    in place, and ``rho = Σ r'²`` summed in the same pass (f64 partials,
+    then one fixed-order pass). Returns ``(x, r, rho)`` with ``rho`` a 0-d
+    float32 tensor. Any shape."""
+    name = "cg_update"
+    _check_f32(name, x, r, p, q)
+    dev = _device_of(name, x)
+    _check_distinct(name, x, r, p, q)
+    alpha = _scalar(alpha, dev)
+    if dev.type == "cpu":
+        return cg_update_torch(x, r, p, q, alpha)
+    lib = kernels.load_library()
+    rho = torch.empty((), dtype=torch.float32, device=dev)
+    partials = torch.empty(lib.jt_cg_num_partials(x.numel()), dtype=torch.float64,
+                           device=dev)
+    kernels.check(lib.jt_cg_update(
+        *(t.data_ptr() for t in (x, r, p, q, alpha, partials, rho)), x.numel(),
+        _stream(dev)), name)
+    cg_update.launches += 1
+    return x, r, rho
+
+
+def p_update(r, p, beta):
+    """K6b: ``p ← r + β·p`` in one pass, in place; returns ``p``. Any shape."""
+    name = "p_update"
+    _check_f32(name, r, p)
+    dev = _device_of(name, r)
+    _check_distinct(name, r, p)
+    beta = _scalar(beta, dev)
+    if dev.type == "cpu":
+        return p_update_torch(r, p, beta)
+    lib = kernels.load_library()
+    kernels.check(lib.jt_p_update(r.data_ptr(), p.data_ptr(), beta.data_ptr(), r.numel(),
+                                  _stream(dev)), name)
+    p_update.launches += 1
+    return p
+
+
+def lsmr_update(vh, h, hbar, x, c_hb, c_x, c_h, inv_a):
+    """K7: LSMR's model-space tail ``hbar ← h + c_hb·hbar``,
+    ``x ← x + c_x·hbar'``, ``h ← inv_a·vh + c_h·h`` in one pass with h, hbar
+    and x updated in place; returns ``(h, hbar, x)``. Any shape."""
+    name = "lsmr_update"
+    _check_f32(name, vh, h, hbar, x)
+    dev = _device_of(name, x)
+    _check_distinct(name, vh, h, hbar, x)
+    s = tuple(_scalar(a, dev) for a in (c_hb, c_x, c_h, inv_a))
+    if dev.type == "cpu":
+        return lsmr_update_torch(vh, h, hbar, x, *s)
+    lib = kernels.load_library()
+    kernels.check(lib.jt_lsmr_update(
+        *(t.data_ptr() for t in (vh, h, hbar, x) + s), x.numel(), _stream(dev)), name)
+    lsmr_update.launches += 1
+    return h, hbar, x
+
+
+_WRAPPERS = (xw_update, lap3d_axpy_norm2, laplacian3d, cg_update, p_update, lsmr_update)
 
 
 def reset_launch_counts() -> None:

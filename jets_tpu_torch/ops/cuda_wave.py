@@ -1,12 +1,13 @@
-"""Hand-written CUDA kernels of the isotropic wave path (counterpart of the
-isotropic half of ``jets_tpu/ops/pallas_wave.py``), with their plain
-PyTorch versions.
+"""Hand-written CUDA kernels of the isotropic and constant-Q wave paths
+(counterpart of the isotropic half of ``jets_tpu/ops/pallas_wave.py`` and
+its Q step), with their plain PyTorch versions.
 
 ==========================  =============================================  ========
 wrapper                     replaces (TPU kernel)                          plain
 ==========================  =============================================  ========
 :func:`fused_leapfrog_step` ``pallas_wave.fused_leapfrog_step`` (K4)       :func:`fused_leapfrog_step_torch`
 :func:`fused_adjoint_step`  ``pallas_wave.fused_adjoint_step`` (K5)        :func:`fused_adjoint_step_torch`
+:func:`fused_q_step`        ``pallas_wave.fused_q_step`` (K14)             :func:`fused_q_step_torch`
 ==========================  =============================================  ========
 
 The kernels live in ``csrc/wave_kernels.cu`` (design notes there) and are
@@ -20,8 +21,8 @@ The sponge enters as its per-axis factors ``spz (D,)``, ``sy (H,)``,
 ``sx (W,)``; the scalars ``s_t``, ``amp`` and ``sc`` are 0-d float32
 tensors on the grid's device, read by the kernel through a pointer, so a
 time loop makes no host sync. :func:`fits_wave_kernel` is the Hopper shape
-guard that replaces ``fits_wave_pallas``/``fits_adjoint_pallas`` and the
-``*_step_tile`` VMEM budgets of the TPU package.
+guard that replaces ``fits_wave_pallas``/``fits_adjoint_pallas``/
+``fits_q_pallas`` and the ``*_step_tile`` VMEM budgets of the TPU package.
 
 On the card the kernels are bitwise equal to their plain versions (no FMA
 contraction; the Laplacian keeps ``laplacian_nd``'s add order).
@@ -31,29 +32,33 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .cuda_solver import _check_f32, _scalar, _stream
+from .cuda_solver import _check_f32, _device_of, _scalar, _stream
 from .stencil import _D2_COEFFS, laplacian_nd
 
 __all__ = [
     "fused_leapfrog_step",
     "fused_adjoint_step",
+    "fused_q_step",
     "fused_leapfrog_step_torch",
     "fused_adjoint_step_torch",
+    "fused_q_step_torch",
     "fits_wave_kernel",
     "sponge_product",
     "source_mask",
     "leapfrog_plain",
+    "q_plain",
     "reset_launch_counts",
     "launch_counts",
 ]
 
 _MAX_GRID = 65535  # gridDim.y / gridDim.z limit of the launch
 _STORE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_G_CODE = {torch.float32: 0, torch.bfloat16: 1}  # K14's friction field
 
 
 def fits_wave_kernel(shape, dtype, order: int) -> bool:
-    """True when K4/K5 (and the VTI kernels K8–K10 of :mod:`.cuda_vti`,
-    which launch alike) take a grid: 3-D float32, order 2/4/8, and a grid
+    """True when K4/K5/K14 (and the VTI and TTI kernels of :mod:`.cuda_vti`
+    and :mod:`.cuda_tti`, which launch alike) take a grid: 3-D float32, order 2/4/8, and a grid
     the launch limits admit (one block row of 8 per y-block, one z-plane
     per gridDim.z)."""
     if len(shape) != 3 or dtype != torch.float32 or order not in _D2_COEFFS:
@@ -87,6 +92,25 @@ def leapfrog_plain(u_prev, u, c2dt2, sponge, s_t, mask, order):
     sponge: the tree of K4 and of ``ops/wave._propagate``'s XLA step."""
     e = (2.0 * u - u_prev) + c2dt2 * laplacian_nd(u, order=order)
     return e * sponge + s_t * mask
+
+
+def q_plain(u_prev, u, c2dt2, om1g, inv1pg, sponge, s_t, mask, order):
+    """``(((2u − om1g·u_prev) + c²dt²·L(u))·inv1pg)·S + s_t·mask`` with the
+    friction factors ``om1g = 1 − g``, ``inv1pg = 1/(1 + g)`` and ``S`` full
+    grids: the tree of K14 and of ``ops/wave._propagate_q``'s XLA step."""
+    e = ((2.0 * u - om1g * u_prev) + c2dt2 * laplacian_nd(u, order=order)) * inv1pg
+    return e * sponge + s_t * mask
+
+
+def fused_q_step_torch(u_prev, u, c2dt2, g, spz, sy, sx, s_t, src_idx, amp, *,
+                       order: int = 2):
+    """Plain K14: :func:`q_plain` with ``om1g = 1 − g`` and ``inv1pg =
+    1/(1 + g)`` from the friction field ``g`` (float32 or bfloat16, upcast),
+    a fresh tensor."""
+    g = g.to(torch.float32)
+    return q_plain(u_prev, u, c2dt2, 1.0 - g, 1.0 / (1.0 + g),
+                   sponge_product(spz, sy, sx), s_t, source_mask(u.shape, src_idx, amp),
+                   order)
 
 
 def fused_leapfrog_step_torch(u_prev, u, c2dt2, spz, sy, sx, s_t, src_idx, amp, *,
@@ -129,12 +153,6 @@ def _check_factors(name, u, spz, sy, sx):
             raise ValueError(f"{name}: {ax} on {f.device}, grid on {u.device}")
         if f.ndim != 1 or f.shape[0] != n:
             raise ValueError(f"{name}: {ax} must have shape ({n},), got {tuple(f.shape)}")
-
-
-def _device_of(name, u):
-    if u.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: no kernel for device {u.device}")
-    return u.device
 
 
 # -- wrappers --------------------------------------------------------------------
@@ -212,7 +230,45 @@ def fused_adjoint_step(a1, a2, gc2, c2dt2, u_enc, sc, spz, sy, sx, *,
     return core, gnew
 
 
-_WRAPPERS = (fused_leapfrog_step, fused_adjoint_step)
+def fused_q_step(u_prev, u, c2dt2, g, spz, sy, sx, s_t, src_idx, amp, *,
+                 order: int = 2, out=None):
+    """K14: one Kosloff constant-Q leapfrog step in one pass over the grid,
+    with the friction field ``g = π·f0·dt/Q`` stored as float32 or bfloat16
+    (``1 − g`` and ``1/(1 + g)`` recomputed per point). ``out`` is None (a
+    fresh tensor) or ``u_prev`` (written in place: ``u_prev`` is read only
+    at the output point)."""
+    name = "fused_q_step"
+    _check_f32(name, u_prev, u, c2dt2)
+    _check_grid(name, u, order)
+    _check_factors(name, u, spz, sy, sx)
+    if g.dtype not in _G_CODE:
+        raise TypeError(f"{name}: g must be float32 or bfloat16, got {g.dtype}")
+    if g.shape != u.shape or g.device != u.device:
+        raise ValueError(f"{name}: g {tuple(g.shape)} on {g.device}, grid "
+                         f"{tuple(u.shape)} on {u.device}")
+    if not g.is_contiguous():
+        raise ValueError(f"{name}: tensors must be contiguous")
+    if u.data_ptr() == u_prev.data_ptr():
+        raise ValueError(f"{name}: u and u_prev must be distinct buffers")
+    if out is not None and out is not u_prev:
+        raise ValueError(f"{name}: out must be None or u_prev")
+    dev = _device_of(name, u)
+    s_t, amp = _scalar(s_t, dev), _scalar(amp, dev)
+    src = int(src_idx)
+    if dev.type == "cpu":
+        res = fused_q_step_torch(u_prev, u, c2dt2, g, spz, sy, sx, s_t, src, amp,
+                                 order=order)
+        return res if out is None else out.copy_(res)
+    res = torch.empty_like(u) if out is None else out
+    lib = kernels.load_library("wave")
+    kernels.check(lib.jt_q_step(
+        *(t.data_ptr() for t in (u_prev, u, c2dt2, g, spz, sy, sx, s_t, amp)), src,
+        res.data_ptr(), *u.shape, order, _G_CODE[g.dtype], _stream(dev)), name, "wave")
+    fused_q_step.launches += 1
+    return res
+
+
+_WRAPPERS = (fused_leapfrog_step, fused_adjoint_step, fused_q_step)
 
 
 def reset_launch_counts() -> None:

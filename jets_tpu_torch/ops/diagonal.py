@@ -1,0 +1,28 @@
+"""Diagonal operator (counterpart of ``jets_tpu/ops/diagonal.py``):
+``d = w ⊙ m`` with adjoint ``m = conj(w) ⊙ d``, over the space of ``w``."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.jet import Jet, LinearOperator
+from ..core.spaces import Space
+
+__all__ = ["diagonal_operator"]
+
+
+def _diag_df(dm, m0, state):
+    return state["w"] * dm
+
+
+def _diag_dft(dd, m0, state):
+    return torch.conj(state["w"]) * dd
+
+
+def diagonal_operator(w, *, device: torch.device | str | None = None) -> LinearOperator:
+    """Diagonal (elementwise multiply) operator over the space of ``w`` (a
+    tensor or an array), built on ``device`` (``None``: the CUDA card)."""
+    w = w if isinstance(w, torch.Tensor) else torch.as_tensor(np.asarray(w))
+    sp = Space(w.shape, w.dtype, device)
+    j = Jet(dom=sp, rng=sp, df=_diag_df, dft=_diag_dft, state={"w": w.to(sp.device)})
+    return LinearOperator(j)

@@ -25,6 +25,10 @@ taper at the boundaries::
   the tilted system: VTI's operators rotated onto the symmetry axis, model
   ``(c, ε, δ, θ, φ)`` on five blocks in 3-D (``(c, ε, δ, θ)`` on four in
   2-D), optionally with its five coefficient fields in bfloat16.
+* :func:`q_wave_propagator` — visco-acoustic modelling with Kosloff
+  constant-Q friction, model ``(c, Q)`` on ``BlockSpace([grid, grid])``,
+  the friction field optionally in bfloat16, with the same tangent,
+  autodiff adjoint and stored-history adjoint.
 
 Every constructor builds on the CUDA card unless ``device`` says otherwise
 (``device="cpu"``, as the tests ask).
@@ -37,7 +41,9 @@ forward sweep K9 (:func:`cuda_vti.fused_vti_hist_step`, which also encodes
 the history) and reverse sweep K10 (:func:`cuda_vti.fused_vti_adjoint_step`);
 the 3-D TTI step is K11 (:func:`cuda_tti.fused_tti_step`), its stored
 adjoint's forward sweep K12 (:func:`cuda_tti.fused_tti_hist_step`) and
-reverse sweep K13 (:func:`cuda_tti.fused_tti_adjoint_step`). Elsewhere, and
+reverse sweep K13 (:func:`cuda_tti.fused_tti_adjoint_step`); the 3-D
+constant-Q step is K14 (:func:`cuda_wave.fused_q_step`), also in the forward
+sweep of its stored adjoint, whose reverse sweep is plain. Elsewhere, and
 with ``fused=False``, the plain PyTorch step with the same floating-point
 tree runs. The JAX package pairs two steps per ``lax.scan``
 iteration on the TPU to avoid carry copies; a Python loop rotates
@@ -48,7 +54,7 @@ transform watches.
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): ``remat_blocks > 1``, ``wavefield_sharding``, custom source masks
 and extractors (off-grid geometry), ginsu windows, CPML boundaries,
-static Q (``q=``) and ``mesh=``.
+VTI/TTI static Q (``q=``) and ``mesh=``.
 """
 from __future__ import annotations
 
@@ -76,6 +82,7 @@ __all__ = [
     "multishot_vti_wave_operator",
     "tti_wave_propagator",
     "multishot_tti_wave_operator",
+    "q_wave_propagator",
     "with_wave_arrays",
 ]
 
@@ -1083,14 +1090,41 @@ def _tti_coefficients(c, eps, delta, theta, phi, dt: float, dx: float,
     return (C, *f5, inv_dx2, inv_dx, av_raw, kc)
 
 
-class _TtiStep(torch.autograd.Function):
+class _PlainRuleStep(torch.autograd.Function):
+    """A kernel step under autodiff whose tangent and backward are
+    ``torch.func.jvp`` and ``torch.func.vjp`` of the plain step (the JAX
+    rule's ``jax.jvp(xla_step, ...)``). A subclass saves its ``NPRIMALS``
+    differentiable inputs first, in both ``save_for_backward`` and
+    ``save_for_forward``, and ``_step(ctx)`` rebuilds the plain step of
+    those primals from what it saved after them."""
+
+    NPRIMALS: int
+
+    @classmethod
+    def jvp(cls, ctx, *tangents):
+        primals = ctx.saved_tensors[:cls.NPRIMALS]
+        tans = tuple(torch.zeros_like(x) if t is None else t
+                     for x, t in zip(primals, tangents))
+        _, out = torch.func.jvp(cls._step(ctx), primals, tans)
+        return out
+
+    @classmethod
+    def backward(cls, ctx, *gouts):
+        primals = ctx.saved_tensors[:cls.NPRIMALS]
+        _, vjp = torch.func.vjp(cls._step(ctx), *primals)
+        grads = vjp(gouts if len(gouts) > 1 else gouts[0])
+        return grads + (None,) * (len(ctx.needs_input_grad) - cls.NPRIMALS)
+
+
+class _TtiStep(_PlainRuleStep):
     """K11 under autodiff (the counterpart of the ``custom_jvp`` around the
     Pallas TTI step in ``jets_tpu/ops/wave.py``): the forward is the kernel
     on the streamed coefficient fields ``kc`` (float32 or bfloat16), writing
-    fresh tensors; the tangent and the backward are ``torch.func.jvp`` and
-    ``torch.func.vjp`` of the plain step with respect to ``(p_prev, p,
-    q_prev, q, C, ah, av, nz, ny, nx, s_t)``, the float32 fields equal to
-    ``kc`` (the JAX rule's ``jax.jvp(xla_step, ...)``)."""
+    fresh tensors; the tangent and the backward come from the plain step
+    with respect to ``(p_prev, p, q_prev, q, C, ah, av, nz, ny, nx, s_t)``,
+    the float32 fields equal to ``kc``."""
+
+    NPRIMALS = 11
 
     @staticmethod
     def forward(pp, p, qp, q, C, ah, av, nz, ny, nx, s_t, ka, kb, kz, ky, kx, spz, sy,
@@ -1107,7 +1141,7 @@ class _TtiStep(torch.autograd.Function):
         ctx.src, ctx.order = src, order
 
     @staticmethod
-    def _plain(ctx):
+    def _step(ctx):
         spz, sy, sx, inv_dx2, inv_dx, amp = ctx.saved_tensors[11:]
         S = cuda_wave.sponge_product(spz, sy, sx)
 
@@ -1116,21 +1150,7 @@ class _TtiStep(torch.autograd.Function):
             return cuda_tti.tti_plain(pp, p, qp, q, C, ah, av, nz, ny, nx, S, inv_dx2,
                                       inv_dx, s_t, mask, ctx.order)
 
-        return ctx.saved_tensors[:11], step
-
-    @staticmethod
-    def jvp(ctx, *tangents):
-        primals, step = _TtiStep._plain(ctx)
-        tans = tuple(torch.zeros_like(x) if t is None else t
-                     for x, t in zip(primals, tangents[:11]))
-        _, out = torch.func.jvp(step, primals, tans)
-        return out
-
-    @staticmethod
-    def backward(ctx, gpn, gqn):
-        primals, step = _TtiStep._plain(ctx)
-        _, vjp = torch.func.vjp(step, *primals)
-        return vjp((gpn, gqn)) + (None,) * 13
+        return step
 
 
 def _propagate_tti3d(c, eps, delta, theta, phi, src_wavelet, src_idx, rcv_idx, *, dt,
@@ -1480,9 +1500,274 @@ def multishot_tti_wave_operator(
         sponge=_make_sponge(grid_shape, sponge_width, dtype=dtype))
 
 
+# ---------------------------------------------------------------------------
+# Visco-acoustic Q attenuation: Kosloff constant-Q friction with rate
+# gamma(x) = pi·f0/Q(x), u_tt + 2·gamma·u_t = c²·lap(u) + s, discretized with
+# the centred-in-time damping term (g = gamma·dt):
+#     u+ = (((2u − (1−g)·u−) + c²dt²·L(u))·(1/(1+g)))·S + s·mask
+# Model (c, Q) on a BlockSpace([grid, grid]). Q → ∞ (g = 0) is the lossless
+# leapfrog, bit for bit.
+# ---------------------------------------------------------------------------
+
+
+def _q_friction(q, dt: float, f0: float):
+    """``g = (π·f0·dt)/Q`` as a true division (the dividend a 0-d tensor:
+    PyTorch turns ``float / tensor`` into a multiply by the reciprocal,
+    which rounds differently from JAX's division)."""
+    return torch.tensor(math.pi * f0 * dt, dtype=q.dtype, device=q.device) / q
+
+
+class _QStep(_PlainRuleStep):
+    """K14 under autodiff (the counterpart of the ``custom_jvp`` around the
+    Pallas Q step in ``jets_tpu/ops/wave.py``): the forward is the kernel on
+    the friction field ``kg`` (float32 or bfloat16), writing a fresh tensor;
+    the tangent and the backward come from the plain step with respect to
+    ``(u_prev, u, c²dt², g, s_t)``, ``g`` the float32 field equal to
+    ``kg``."""
+
+    NPRIMALS = 5
+
+    @staticmethod
+    def forward(up, u, c2, g, s_t, kg, spz, sy, sx, src, amp, order):
+        return cuda_wave.fused_q_step(up, u, c2, kg, spz, sy, sx, s_t, src, amp,
+                                      order=order)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        primals = inputs[:5]
+        spz, sy, sx, src, amp, order = inputs[6:]
+        ctx.save_for_backward(*primals, spz, sy, sx, amp)
+        ctx.save_for_forward(*primals, spz, sy, sx, amp)
+        ctx.src, ctx.order = src, order
+
+    @staticmethod
+    def _step(ctx):
+        spz, sy, sx, amp = ctx.saved_tensors[5:]
+        S = cuda_wave.sponge_product(spz, sy, sx)
+
+        def step(up, u, c2, g, s_t):
+            mask = cuda_wave.source_mask(u.shape, ctx.src, amp)
+            return cuda_wave.q_plain(up, u, c2, 1.0 - g, 1.0 / (1.0 + g), S, s_t, mask,
+                                     ctx.order)
+
+        return step
+
+
+def _propagate_q(c, q, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0, sponge,
+                 order: int = 2, fused=None, inplace: bool = False,
+                 coeff16: bool = False):
+    """Leapfrog with Kosloff constant-Q friction; returns the receiver
+    traces ``(nt, nrcv)``. ``fused`` and ``inplace`` as for
+    :func:`_propagate`: on the kernel route (a 3-D float32 grid on a CUDA
+    card, with either g width) the step is K14, in place on sweeps no
+    transform watches and inside :class:`_QStep` otherwise; 2-D grids and
+    ``fused=False`` take the plain step (the JAX package's XLA step, tree for
+    tree, with its full-grid ``1 − g`` and ``1/(1 + g)``). With ``coeff16``
+    the friction field is rounded to bfloat16 straight through (the primal
+    is the rounded value, the tangent flows in float32) and K14 streams the
+    bfloat16 field itself."""
+    shape, dtype, dev = c.shape, c.dtype, c.device
+    nt = int(src_wavelet.shape[0])
+    c2dt2 = _c2dt2(c, dt, dx)
+    g = _q_friction(q, dt, f0)
+    kg = g
+    if coeff16:
+        kg = g.detach().to(torch.bfloat16)
+        g = g + (_r16(g) - g).detach()
+    amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
+    kernel = _kernel_route(fused, c, sponge, order)
+    inplace = inplace and not (torch.is_grad_enabled()
+                               and (c.requires_grad or q.requires_grad))
+    u_prev = torch.zeros(shape, dtype=dtype, device=dev)
+    u = torch.zeros(shape, dtype=dtype, device=dev)
+    nrcv = int(rcv_idx.shape[0])
+    traces = torch.empty((nt, nrcv), dtype=dtype, device=dev) if inplace else []
+
+    if kernel:
+        spz, sy, sx = _factors_1d(sponge)
+        src = int(src_idx)
+        if inplace:
+            def step(up, uu, s_t):
+                return cuda_wave.fused_q_step(up, uu, c2dt2, kg, spz, sy, sx, s_t, src,
+                                              amp, order=order, out=up)
+        else:
+            def step(up, uu, s_t):
+                return _QStep.apply(up, uu, c2dt2, g, s_t, kg, spz, sy, sx, src, amp,
+                                    order)
+    else:
+        S = _sponge_full(sponge)
+        mask = cuda_wave.source_mask(shape, src_idx, amp)
+        om1g, inv1pg = 1.0 - g, 1.0 / (1.0 + g)
+
+        def step(up, uu, s_t):
+            return cuda_wave.q_plain(up, uu, c2dt2, om1g, inv1pg, S, s_t, mask, order)
+
+    for k in range(nt):
+        u_next = step(u_prev, u, src_wavelet[k])
+        if inplace:
+            torch.index_select(u_next.reshape(-1), 0, rcv_idx, out=traces[k])
+        else:
+            traces.append(u_next.reshape(-1).index_select(0, rcv_idx))
+        u_prev, u = u, u_next
+    return traces if inplace else torch.stack(traces)
+
+
+def _adjoint_stored_q(c, qf, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0, sponge,
+                      order: int = 2, store: str = "int8", fused=None,
+                      coeff16: bool = False):
+    """Adjoint-state gradient ``(∂F/∂(c, Q))ᵀ dd`` of the constant-Q physics
+    over a stored, encoded forward history (``store``: f32, bf16, int8): the
+    transpose of :func:`_propagate_q`'s friction recurrence, hand-derived in
+    the JAX package. The friction is diagonal, so with ``og = 1 − g``,
+    ``ig = 1/(1 + g)``, ``C = c²dt²/dx²``, ``sē_k = S⊙a_{k+1}``, ``ē_k =
+    ig⊙sē_k``::
+
+        a_k  = Pᵀḡ + 2ē_k + L(C·ē_k) − og·ē_{k+1}
+        gC  += L(u_k)⊙ē_k
+        gig += sē_k·(2u_k + C·L(u_k)) − og·u_k·sē_{k+1}
+        gog += −u_k·ē_{k+1}
+
+    then ``gc = gC·2c·dt²/dx²``, ``gg = −gog − ig²·gig`` and ``gQ =
+    −gg·g/Q`` with the unrounded ``g``. With ``coeff16`` the sweeps use the
+    bfloat16-rounded ``g``, as the forward does. The forward sweep that
+    writes the history is K14 on the kernel route (in place, except for an
+    f32 history, which keeps the fields themselves) and the plain step
+    otherwise, the same tree (so the two routes agree bit for bit); the
+    reverse sweep is plain PyTorch on both (there is no reverse-Q kernel in
+    the JAX package either), the receiver injection an ``index_add_``.
+    Returns ``(gc, gQ)``."""
+    shape, dtype, dev = c.shape, c.dtype, c.device
+    nt = int(src_wavelet.shape[0])
+    C = _c2dt2(c, dt, dx)
+    g_raw = _q_friction(qf, dt, f0)
+    g = _r16(g_raw) if coeff16 else g_raw
+    ig, og = 1.0 / (1.0 + g), 1.0 - g
+    amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
+    enc, dec = _store_codec(store, dtype)
+    dd = dd.to(dtype)
+    S = _sponge_full(sponge)
+
+    def zeros():
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if _kernel_route(fused, c, sponge, order):
+        spz, sy, sx = _factors_1d(sponge)
+        src = int(src_idx)
+        kg = g.to(torch.bfloat16) if coeff16 else g
+
+        def step(up, uu, s_t):
+            return cuda_wave.fused_q_step(up, uu, C, kg, spz, sy, sx, s_t, src, amp,
+                                          order=order, out=None if store == "f32" else up)
+    else:
+        mask = cuda_wave.source_mask(shape, src_idx, amp)
+
+        def step(up, uu, s_t):
+            return cuda_wave.q_plain(up, uu, C, og, ig, S, s_t, mask, order)
+
+    hist = []
+    u_prev, u = zeros(), zeros()
+    for k in range(nt):
+        hist.append(enc(u))  # history entry k holds u_k
+        u_next = step(u_prev, u, src_wavelet[k])
+        u_prev, u = u, u_next
+    del u_prev, u, u_next  # the history holds what the reverse sweep needs
+    a_nxt = zeros().reshape(-1).index_add_(0, rcv_idx, dd[-1]).reshape(shape)
+    ebar_nxt, sbar_nxt, gC, gig, gog = (zeros() for _ in range(5))
+    for k in range(nt - 1, -1, -1):
+        qh, sc = hist[k]
+        hist[k] = None  # release the snapshot as the sweep passes it
+        u_k = dec(qh, sc)
+        sbar = a_nxt * S
+        ebar = ig * sbar
+        lap_k = _laplacian(u_k, order=order)
+        gC = gC + lap_k * ebar
+        gig = gig + (sbar * (2.0 * u_k + C * lap_k) - og * (u_k * sbar_nxt))
+        gog = gog - u_k * ebar_nxt
+        a_nxt = (2.0 * ebar + _laplacian(C * ebar, order=order)) - og * ebar_nxt
+        if k > 0:  # ḡ_{k-1}; the JAX sweep adds a zero row at k = 0
+            a_nxt.reshape(-1).index_add_(0, rcv_idx, dd[k - 1])
+        ebar_nxt, sbar_nxt = ebar, sbar
+    gc = gC * (2.0 * c) * torch.tensor((dt * dt) / (dx * dx), dtype=dtype, device=dev)
+    gg = -gog - (ig * ig) * gig
+    return gc, -gg * (g_raw / qf)
+
+
+def _propagate_q_m(m, *args, **kw):
+    """:func:`_propagate_q` on a ``(c, Q)`` :class:`BlockVector`."""
+    return _propagate_q(*m.blocks, *args, **kw)
+
+
+def _adjoint_stored_q_m(m, dd, *args, **kw):
+    """:func:`_adjoint_stored_q` on a ``(c, Q)`` :class:`BlockVector`,
+    returning the gradient as one."""
+    return BlockVector(_adjoint_stored_q(*m.blocks, dd, *args, **kw), m.space)
+
+
+def q_wave_propagator(
+    grid_shape: Sequence[int],
+    *,
+    nt: int = 256,
+    dt: float = 0.001,
+    dx: float = 10.0,
+    freq: float = 15.0,
+    f0: Optional[float] = None,
+    src_idx: int = 0,
+    rcv_idx=None,
+    sponge_width: int = 12,
+    space_order: int = 2,
+    remat_blocks: int = 1,
+    fused=None,
+    dtrec: Optional[float] = None,
+    coeff_dtype=None,
+    store_adjoint: Optional[str] = None,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str | None = None,
+) -> Operator:
+    """Two-parameter visco-acoustic forward modelling ``F: (c, Q) → traces``
+    (the attenuation physics of JetPackWaveFD's DenQ propagators).
+
+    Domain: ``BlockSpace([grid, grid])`` on ``device`` (``None``: the CUDA
+    card) holding the velocity ``c`` and the quality factor ``Q``
+    (dimensionless; smaller Q absorbs more); members are
+    :class:`BlockVector`. ``f0`` is the reference frequency of Q (default:
+    the source ``freq``). Range: ``(ntrec, nrcv)`` traces. ``Q → ∞`` is
+    :func:`wave_propagator`'s physics, bit for bit.
+
+    ``fused``: ``None`` rides the kernel K14 (forward, tangent, and the
+    forward sweep of the stored adjoint) on a 3-D float32 grid on a CUDA
+    card, with either friction width; ``True`` insists; ``False`` takes the
+    plain step (2-D is plain only). ``coeff_dtype=torch.bfloat16`` rounds
+    the friction field ``g = π·f0·dt/Q`` to bfloat16 for both routes, which
+    K14 streams at half width; tangents and gradients flow through the
+    rounding in float32. ``store_adjoint`` ∈ {None, "f32", "bf16", "int8"}
+    switches the adjoint from ``torch.func.vjp`` through the time loop to
+    the stored-history sweep (:func:`_adjoint_stored_q`), which returns the
+    ``(δc, δQ)`` pair. ``remat_blocks > 1`` is not ported yet."""
+    grid_shape = tuple(int(s) for s in grid_shape)
+    space_order = _check_space_order(space_order)
+    _check_store(store_adjoint)
+    if coeff_dtype is not None and coeff_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("coeff_dtype must be float32 or bfloat16")
+    coeff16 = coeff_dtype == torch.bfloat16
+    if remat_blocks > 1:
+        raise _not_ported("remat_blocks > 1", "12")
+    if fused and not cuda_wave.fits_wave_kernel(grid_shape, dtype, space_order):
+        raise ValueError("fused Q step requires a 3-D float32 grid")
+    gsp = Space(grid_shape, dtype, device)
+    f0 = float(freq if f0 is None else f0)
+    return _single_shot_operator(
+        BlockSpace([gsp, gsp]), gsp,
+        functools.partial(_propagate_q_m, f0=f0, coeff16=coeff16),
+        functools.partial(_adjoint_stored_q_m, f0=f0, coeff16=coeff16), nt=nt, dt=dt,
+        dx=dx, freq=freq, src_idx=src_idx, rcv_idx=rcv_idx, dtrec=dtrec,
+        store_adjoint=store_adjoint, fused=fused, order=space_order,
+        sponge=_make_sponge(grid_shape, sponge_width, dtype=dtype))
+
+
 def with_wave_arrays(op: Operator, *, wavelet, sponge, src_idx, rcv_idx) -> Operator:
     """``op`` (from :func:`wave_propagator`, :func:`multishot_wave_operator`,
-    or their VTI and TTI counterparts, whose state keys are the same) with
+    their VTI and TTI counterparts or :func:`q_wave_propagator`, whose state
+    keys are the same) with
     its wavelet, sponge, source and receiver indices replaced by the given
     arrays (numpy or tensors; ``sponge`` one array or a tuple of
     per-axis factors), moved to the operator's device and dtype. This

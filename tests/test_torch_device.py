@@ -16,7 +16,7 @@ import torch
 import jets_tpu_torch as tt
 from jets_tpu_torch.core.spaces import resolve_device
 from jets_tpu_torch.models import seismic
-from jets_tpu_torch.ops import stencil, wave
+from jets_tpu_torch.ops import diagonal, stencil, wave
 
 CONSTRUCTORS = {
     "Space": tt.Space,
@@ -30,6 +30,8 @@ CONSTRUCTORS = {
     "multishot_vti_wave_operator": wave.multishot_vti_wave_operator,
     "tti_wave_propagator": wave.tti_wave_propagator,
     "multishot_tti_wave_operator": wave.multishot_tti_wave_operator,
+    "q_wave_propagator": wave.q_wave_propagator,
+    "diagonal_operator": diagonal.diagonal_operator,
 }
 
 # the smallest call of each constructor, device left out
@@ -51,6 +53,8 @@ CALLS = {
     "tti_wave_propagator": lambda **kw: wave.tti_wave_propagator((4, 8, 8), nt=4, **kw),
     "multishot_tti_wave_operator": lambda **kw: wave.multishot_tti_wave_operator(
         (8, 8), [9, 20], nt=4, **kw),
+    "q_wave_propagator": lambda **kw: wave.q_wave_propagator((4, 8, 8), nt=4, **kw),
+    "diagonal_operator": lambda **kw: diagonal.diagonal_operator(np.ones((3, 4)), **kw),
 }
 
 

@@ -102,7 +102,8 @@ def test_wrappers_take_plain_versions_on_cpu():
     assert torch.equal(x, xp) and torch.equal(w, wp)
 
     assert cs.launch_counts() == {
-        "xw_update": 0, "lap3d_axpy_norm2": 0, "laplacian3d": 0}
+        "xw_update": 0, "lap3d_axpy_norm2": 0, "laplacian3d": 0, "cg_update": 0,
+        "p_update": 0, "lsmr_update": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -120,4 +121,5 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="scalar"):
         cs.xw_update(z, z.clone(), z.clone(), torch.ones(2), 1.0, 1.0)
     assert cs.launch_counts() == {
-        "xw_update": 0, "lap3d_axpy_norm2": 0, "laplacian3d": 0}
+        "xw_update": 0, "lap3d_axpy_norm2": 0, "laplacian3d": 0, "cg_update": 0,
+        "p_update": 0, "lsmr_update": 0}

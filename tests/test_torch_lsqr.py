@@ -64,7 +64,8 @@ def test_lsqr_matches_jax_f32():
                                rtol=1e-4)
     # the CPU run took the plain versions: nothing was launched
     assert cs.launch_counts() == {
-        "xw_update": 0, "lap3d_axpy_norm2": 0, "laplacian3d": 0}
+        "xw_update": 0, "lap3d_axpy_norm2": 0, "laplacian3d": 0, "cg_update": 0,
+        "p_update": 0, "lsmr_update": 0}
 
 
 def test_lsqr_tol_stops_where_jax_stops():

@@ -1,6 +1,7 @@
 """The port stands alone: it never imports JAX, and importing it (and
-solving, or taking a stored-adjoint isotropic, VTI or TTI wave gradient, on
-the CPU) needs neither nvcc nor triton nor a built kernel library."""
+solving with LSQR, CG or LSMR, or taking a stored-adjoint isotropic, VTI,
+TTI or constant-Q wave gradient, on the CPU) needs neither nvcc nor triton
+nor a built kernel library."""
 import os
 import pathlib
 import re
@@ -45,6 +46,18 @@ mt = tt.BlockVector((c, torch.full_like(c, 0.1), torch.full_like(c, 0.05),
 gt = Ft.linearize(mt).H(Ft(mt * 1.02) - Ft(mt))
 assert isinstance(gt, tt.BlockVector) and gt.nblocks == 5
 assert all(bool(torch.isfinite(b).all()) and bool(b.abs().max() > 0) for b in gt)
+from jets_tpu_torch.solvers import cg, lsmr, normal_operator
+rc = cg(normal_operator(A, 0.1), A.H(d), maxiter=5, tol=0.0)
+rl = lsmr(A, d, maxiter=5, tol=0.0)
+assert rc.iterations == rl.iterations == 5
+assert bool(torch.isfinite(rc.history).all()) and bool(torch.isfinite(rl.history).all())
+Fq = tt.q_wave_propagator((6, 8, 16), nt=12, dt=6e-4, src_idx=3 * 128 + 4 * 16 + 8,
+                          sponge_width=2, store_adjoint="int8", fused=True,
+                          coeff_dtype=torch.bfloat16, device="cpu")
+mq = tt.BlockVector((c, torch.full_like(c, 40.0)), Fq.dom)
+gq = Fq.linearize(mq).H(Fq(mq * 1.02) - Fq(mq))
+assert isinstance(gq, tt.BlockVector) and gq.nblocks == 2
+assert all(bool(torch.isfinite(b).all()) and bool(b.abs().max() > 0) for b in gq)
 assert kernels._libs == {}, "the CPU path loaded a kernel library"
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "triton"))
 assert not bad, bad
@@ -71,8 +84,9 @@ def test_no_module_of_the_port_names_jax_and_the_kernels_ship():
     assert not offenders, offenders
     for name, entries in (
             ("solver_kernels.cu", ("jt_xw_update", "jt_laplacian3d",
-                                   "jt_lap3d_axpy_norm2")),
-            ("wave_kernels.cu", ("jt_leapfrog_step", "jt_adjoint_step")),
+                                   "jt_lap3d_axpy_norm2", "jt_cg_update", "jt_p_update",
+                                   "jt_lsmr_update")),
+            ("wave_kernels.cu", ("jt_leapfrog_step", "jt_adjoint_step", "jt_q_step")),
             ("vti_kernels.cu", ("jt_vti_step", "jt_vti_hist_step",
                                 "jt_vti_adjoint_step")),
             ("tti_kernels.cu", ("jt_tti_step", "jt_tti_hist_step",

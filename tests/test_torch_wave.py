@@ -190,7 +190,8 @@ def test_kernel_route_on_cpu_equals_plain_route():
     cp = c.clone().requires_grad_()
     torch.sum(Fp(cp) ** 2).backward()
     _close(ck.grad, cp.grad)
-    assert cw.launch_counts() == {"fused_leapfrog_step": 0, "fused_adjoint_step": 0}
+    assert cw.launch_counts() == {"fused_leapfrog_step": 0, "fused_adjoint_step": 0,
+                                 "fused_q_step": 0}
 
 
 def _multishot_pair(shot_map, store):

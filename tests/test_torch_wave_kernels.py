@@ -130,7 +130,8 @@ def test_wrappers_take_plain_versions_on_cpu_in_place():
     core, g = cw.fused_adjoint_step(a1, a2, gc2, c2, q, 0.01, tz, ty, tx, inplace=True)
     assert core is a2 and g is gc2
     assert torch.equal(a2, core_r) and torch.equal(gc2, g_r)
-    assert cw.launch_counts() == {"fused_leapfrog_step": 0, "fused_adjoint_step": 0}
+    assert cw.launch_counts() == {"fused_leapfrog_step": 0, "fused_adjoint_step": 0,
+                                 "fused_q_step": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -162,7 +163,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         cw.fused_adjoint_step(a1, a2, g, c2, u[:2].clone(), 1.0, *f)
     with pytest.raises(ValueError, match="distinct"):
         cw.fused_adjoint_step(a1, a1, g, c2, u, 1.0, *f)
-    assert cw.launch_counts() == {"fused_leapfrog_step": 0, "fused_adjoint_step": 0}
+    assert cw.launch_counts() == {"fused_leapfrog_step": 0, "fused_adjoint_step": 0,
+                                 "fused_q_step": 0}
 
 
 def test_fits_wave_kernel_is_the_hopper_shape_guard():
