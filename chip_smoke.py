@@ -173,12 +173,14 @@ def main() -> int:
            f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
            f"count {torch.cuda.device_count()} | nvidia-smi: {smi} | "
            f"kernel build+load {build_s:.2f} s (nvcc {kernels.build_seconds})")
-    for name, text in kernels.build_log.items():
+    ptx = {}  # (kernel template, order) -> (max registers, spill bytes, static smem)
+    for name in kernels.SOURCES:
+        text = kernels.nvcc_log(name)
         # ptxas -v: each "Compiling entry function" line is followed by its
         # stack/spill line and its register line; one line per kernel
         # template and order: the registers over its instantiations (store
         # and coefficient types) and their spill bytes
-        fn, regs, spills = None, {}, {}
+        fn, regs, spills, smem = None, {}, {}, {}
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
@@ -186,10 +188,13 @@ def main() -> int:
             m = re.search(r"Used (\d+) registers", line)
             if m and fn:
                 regs.setdefault(fn, []).append(int(m.group(1)))
+                m = re.search(r"(\d+) bytes smem", line)
+                smem[fn] = max(smem.get(fn, 0), int(m.group(1)) if m else 0)
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m and fn:
                 spills[fn] = spills.get(fn, 0) + int(m.group(1)) + int(m.group(2))
         for (base, order), r in sorted(regs.items()):
+            ptx[base, order] = (max(r), spills.get((base, order), 0), smem[base, order])
             log(0, f"{name}: {base}" + (f" order {order}" if order else "")
                    + f": {len(r)} instantiation(s), registers {min(r)}-{max(r)}, "
                    f"spill bytes {spills.get((base, order), 0)}")
@@ -352,67 +357,104 @@ def main() -> int:
            "with f32/bf16/int8 histories, orders 2/4/8")
     del ref, got, o
 
-    # K11, K12 and K13 at the TTI path's shape, every order, coefficient width
-    # and history type, bitwise against the plain versions, in place; the axis
-    # (cosθ, sinθcosφ, sinθsinφ) of random tilt and azimuth angles
-    th = npf(lambda n: rk.uniform(-0.6, 0.6, n)).double()
-    az = npf(lambda n: rk.uniform(-3.0, 3.0, n)).double()
-    tnz = torch.cos(th).float()
-    tny = torch.sin(th).float() * torch.cos(az).float()
-    tnx = torch.sin(th).float() * torch.sin(az).float()
-    del th, az
+    # K11, K12 and K13 at the TTI path's shape and at two ragged ones (a last
+    # z-chunk, tile rows and columns cut by the grid's edge; D below one
+    # z-chunk), every order, coefficient width and history type, bitwise
+    # against the plain versions, in place; the axis (cosθ, sinθcosφ,
+    # sinθsinφ) of random tilt and azimuth angles
+    def tti_axis(shape):
+        th = torch.from_numpy(rk.uniform(-0.6, 0.6, shape)).to(dev)
+        az = torch.from_numpy(rk.uniform(-3.0, 3.0, shape)).to(dev)
+        return (torch.cos(th).float(), torch.sin(th).float() * torch.cos(az).float(),
+                torch.sin(th).float() * torch.sin(az).float())
+
+    def tti_kernels_check(f, tco, tkw, qfs, decs):
+        """K11-K13 against their plain versions on fields ``f``; returns the
+        history codes of K12 per store type."""
+        hist = {}
+        accs = (f["gC"], f["gah"], f["gav"], f["gnz"], f["gny"], f["gnx"])
+        fields = (f["pp"], f["p"], f["qp"], f["q"], f["C"])
+        for cdt, co in tco.items():
+            for order in (2, 4, 8):
+                ref = ct.fused_tti_step_torch(*fields, *co, order=order, **tkw)
+                o = (f["pp"].clone(), f["qp"].clone())
+                got = ct.fused_tti_step(o[0], f["p"], o[1], f["q"], f["C"], *co, order=order,
+                                        out=o, **tkw)
+                torch.cuda.synchronize()
+                assert got[0] is o[0] and got[1] is o[1], "K11 not in place"
+                assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
+                    f"K11 not bitwise ({cdt}, order {order}, {tuple(f['p'].shape)})"
+                maxerr("fused_tti_step", got, ref)
+                for store in ("f32", "bf16", "int8"):
+                    qf = qfs[store]
+                    ref = ct.fused_tti_hist_step_torch(*fields, *co, qfp=qf[0], qfq=qf[1],
+                                                       store=store, order=order, **tkw)
+                    o = (f["pp"].clone(), f["qp"].clone())
+                    got = ct.fused_tti_hist_step(o[0], f["p"], o[1], f["q"], f["C"], *co,
+                                                 qfp=qf[0], qfq=qf[1], store=store,
+                                                 order=order, out=o, **tkw)
+                    torch.cuda.synchronize()
+                    assert got[0] is o[0] and got[1] is o[1], "K12 not in place"
+                    assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
+                        (f"K12 not bitwise (fields, codes, maxima; {cdt}, {store}, order "
+                         f"{order}, {tuple(f['p'].shape)})")
+                    maxerr("fused_tti_hist_step", got, ref)
+                    hist[store] = (ref[2], ref[3])
+                    dsc = decs[store]
+                    targs = (f["C"], *co, *hist[store], dsc[0], dsc[1], tkw["inv_dx2"],
+                             tkw["inv_dx"], tkw["spz"], tkw["sy"], tkw["sx"])
+                    ref = ct.fused_tti_adjoint_step_torch(f["ap1"], f["aq1"], f["ap2"],
+                                                          f["aq2"], *accs, *targs,
+                                                          order=order)
+                    o = tuple(t.clone() for t in (f["ap2"], f["aq2"], *accs))
+                    got = ct.fused_tti_adjoint_step(f["ap1"], f["aq1"], *o, *targs,
+                                                    order=order, inplace=True)
+                    torch.cuda.synchronize()
+                    assert all(a is b for a, b in zip(got, o)), "K13 not in place"
+                    assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
+                        f"K13 not bitwise ({cdt}, {store}, order {order}, {tuple(f['p'].shape)})"
+                    maxerr("fused_tti_adjoint_step", got, ref)
+        return hist
+
+    tnz, tny, tnx = tti_axis(wshape)
     tco = {torch.float32: (vah, vav, tnz, tny, tnx)}
     tco[torch.bfloat16] = tuple(t.to(torch.bfloat16) for t in tco[torch.float32])
     tacc = [npf(rk.standard_normal) for _ in range(3)]  # gnz, gny, gnx
     idx1 = torch.tensor(1.0 / 10.0, device=dev)
     tkw = dict(spz=spz, sy=spy, sx=spx, inv_dx2=idx2, inv_dx=idx1, s_t=vst,
                src_idx=src_flat, amp=amp)
-    thist = {}
     for k in ("fused_tti_step", "fused_tti_hist_step", "fused_tti_adjoint_step"):
         err[k] = 0.0
-    for cdt, co in tco.items():
-        for order in (2, 4, 8):
-            ref = ct.fused_tti_step_torch(vpp, vp, vqp, vq, vC, *co, order=order, **tkw)
-            o = (vpp.clone(), vqp.clone())
-            got = ct.fused_tti_step(o[0], vp, o[1], vq, vC, *co, order=order, out=o, **tkw)
-            torch.cuda.synchronize()
-            assert got[0] is o[0] and got[1] is o[1], "K11 not in place"
-            assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
-                f"K11 not bitwise ({cdt}, order {order})"
-            maxerr("fused_tti_step", got, ref)
-            for store in ("f32", "bf16", "int8"):
-                qf = vqf[store]
-                ref = ct.fused_tti_hist_step_torch(vpp, vp, vqp, vq, vC, *co, qfp=qf[0],
-                                                   qfq=qf[1], store=store, order=order,
-                                                   **tkw)
-                o = (vpp.clone(), vqp.clone())
-                got = ct.fused_tti_hist_step(o[0], vp, o[1], vq, vC, *co, qfp=qf[0],
-                                             qfq=qf[1], store=store, order=order, out=o,
-                                             **tkw)
-                torch.cuda.synchronize()
-                assert got[0] is o[0] and got[1] is o[1], "K12 not in place"
-                assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
-                    f"K12 not bitwise (fields, codes, maxima; {cdt}, {store}, order {order})"
-                maxerr("fused_tti_hist_step", got, ref)
-                thist[store] = (ref[2], ref[3])
-                dsc = vdec[store]
-                targs = (vC, *co, *thist[store], dsc[0], dsc[1], idx2, idx1, spz, spy, spx)
-                accs = (vgC, vgah, vgav, *tacc)
-                ref = ct.fused_tti_adjoint_step_torch(ap1, aq1, ap2, aq2, *accs, *targs,
-                                                      order=order)
-                o = tuple(t.clone() for t in (ap2, aq2, *accs))
-                got = ct.fused_tti_adjoint_step(ap1, aq1, *o, *targs, order=order,
-                                                inplace=True)
-                torch.cuda.synchronize()
-                assert all(a is b for a, b in zip(got, o)), "K13 not in place"
-                assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
-                    f"K13 not bitwise ({cdt}, {store}, order {order})"
-                maxerr("fused_tti_adjoint_step", got, ref)
-    log(1, "K11 bitwise and in place at 256^3, orders 2/4/8, f32 and bf16 coefficients; "
-           "K12 (fields, f32/bf16/int8 codes, reduced maxima) and K13 (eight outputs) "
-           "bitwise and in place at 256^3 with f32/bf16/int8 histories, orders 2/4/8, "
-           "f32 and bf16 coefficients")
-    del ref, got, o
+    tf = dict(pp=vpp, p=vp, qp=vqp, q=vq, C=vC, ap1=ap1, aq1=aq1, ap2=ap2, aq2=aq2, gC=vgC,
+              gah=vgah, gav=vgav, gnz=tacc[0], gny=tacc[1], gnx=tacc[2])
+    thist = tti_kernels_check(tf, tco, tkw, vqf, vdec)
+    ragged = ((37, 45, 70), (5, 19, 33))
+    for rshape in ragged:
+        rD, rH, rW = rshape
+        rf = {k: torch.from_numpy(rk.standard_normal(rshape).astype(np.float32)).to(dev)
+              for k in tf}
+        rc = torch.from_numpy(rk.uniform(1400.0, 4500.0, rshape).astype(np.float32)).to(dev)
+        rf["C"] = (rc * rc) * (5e-4 * 5e-4)
+        rco = {torch.float32: (1.0 + 2.0 * torch.from_numpy(
+            rk.uniform(0.0, 0.3, rshape).astype(np.float32)).to(dev), torch.sqrt(
+            1.0 + 2.0 * torch.from_numpy(rk.uniform(-0.1, 0.2, rshape).astype(np.float32))
+            .to(dev)), *tti_axis(rshape))}
+        rco[torch.bfloat16] = tuple(t.to(torch.bfloat16) for t in rco[torch.float32])
+        rsc = torch.stack([rf["p"].abs().amax(), rf["q"].abs().amax()])
+        rone = torch.ones(2, device=dev)
+        rkw = dict(tkw, spz=torch.linspace(0.9, 1.0, rD, device=dev),
+                   sy=torch.linspace(0.8, 1.0, rH, device=dev),
+                   sx=torch.linspace(0.7, 1.0, rW, device=dev),
+                   src_idx=((rD // 2) * rH + rH // 3) * rW + rW - 2)
+        tti_kernels_check(rf, rco, rkw,
+                          {"f32": rone, "bf16": rone, "int8": torch.full_like(rsc, 127.0) / rsc},
+                          {"f32": rone, "bf16": rone, "int8": rsc / torch.full_like(rsc, 127.0)})
+    log(1, "K11 bitwise and in place at 256^3 and the ragged "
+           + " and ".join(str(r) for r in ragged) + ", orders 2/4/8, f32 and bf16 "
+           "coefficients; K12 (fields, f32/bf16/int8 codes, reduced maxima) and K13 (eight "
+           "outputs) bitwise and in place at the same shapes with f32/bf16/int8 histories, "
+           "orders 2/4/8, f32 and bf16 coefficients")
+    del rf, rco
 
     # K6a, K6b and K7 at the Krylov paths' shapes, an odd length and its
     # offset views, bitwise and in place (K6a's rho, an f64 sum rounded to
@@ -1210,6 +1252,18 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     tgrad(Ftprof, 40)
     tpeak_gib = torch.cuda.max_memory_allocated() / 2**30
+    tlib = kernels.load_library("tti")
+    for k, (a, _) in tkt.items():  # the kernel's card-side numbers, order 2
+        kern, width = k.split(" ")[0], "bf16" if k.endswith("bf16") else "f32"
+        tmpl = "tti_adjoint_kernel" if kern == "fused_tti_adjoint_step" else "tti_step_kernel"
+        nreg, nspill, sstat = ptx.get((tmpl, 2), (None, None, 0))
+        sdyn = int(tlib.jt_tti_smem_bytes(int(tmpl == "tti_adjoint_kernel"), 2))
+        moved = 1e-3 * tbounds[k] * HBM_BYTES_PER_S
+        log(26, f"{kern}, {width} coefficients, 256^3 order 2: {1e3 * a:.1f} us, bound "
+                f"{1e3 * tbounds[k]:.1f} us (bytes), bound/time {tbounds[k] / a:.3f}, "
+                f"{moved / (1e-3 * a) / 1e12:.3f} TB/s achieved; ptxas over the "
+                f"template's instantiations: {nreg} registers, {nspill} spill bytes, "
+                f"shared memory per block {sstat} B static + {sdyn} B dynamic [{smi}]")
     log(26, "TTI us/step (marginal nt 60 vs 10, CUDA events; bench.py's keys): "
             + ", ".join(f"{k} {v:.2f}" for k, v in tus.items())
             + "; kernel vs plain at 256^3 (int8 history; bound by bytes) "

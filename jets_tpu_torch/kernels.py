@@ -28,7 +28,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["has_cuda", "load_library", "build_all", "check", "SOURCES", "BUILD_DIR"]
+__all__ = ["has_cuda", "load_library", "build_all", "nvcc_log", "check", "SOURCES", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent
 SOURCES = {
@@ -77,6 +77,7 @@ _SIGNATURES = {
     "tti": {
         "jt_error_string": ([_INT], ctypes.c_char_p),
         "jt_tti_num_partials": ([_I64] * 3, _I64),
+        "jt_tti_smem_bytes": ([_INT, _INT], _I64),
         "jt_tti_step": ([_P] * 17 + [_I64] + [_P] * 2 + [_I64] * 3 + [_INT, _INT, _P],
                         _INT),
         "jt_tti_hist_step": ([_P] * 19 + [_I64] + [_P] * 5 + [_I64] * 3
@@ -132,9 +133,20 @@ def build_all(names=None) -> None:
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
         else:
+            so.with_suffix(".log").write_text(out)
             os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def nvcc_log(name: str) -> str:
+    """nvcc's output of the build of the current ``SOURCES[name]`` library
+    (ptxas registers, spills, shared memory), whichever process built it;
+    empty if it was built without one."""
+    if name in build_log:
+        return build_log[name]
+    log = _so_path(name).with_suffix(".log")
+    return log.read_text() if log.is_file() else ""
 
 
 def load_library(name: str = "solver") -> ctypes.CDLL:

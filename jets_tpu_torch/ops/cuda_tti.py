@@ -34,10 +34,13 @@ zero boundary). The five coefficient fields ``ah, av, nz, ny, nx`` are
 float32, or bfloat16 in the reduced-precision coefficient mode (upcast on
 load); ``C`` is always float32. The sponge enters as its per-axis factors;
 the scalars are 0-d float32 tensors on the grid's device. The kernels
-launch as K4–K10 do (one thread per point, one z-plane per
-``gridDim.z``), so :func:`.cuda_wave.fits_wave_kernel` is their Hopper
-shape guard, in place of ``fits_tti_pallas``, ``fits_tti_adjoint_pallas``
-and the ``tti_*_tile`` VMEM budgets.
+march along z (one thread per point of a 32 × 8 tile, 32 z-planes per
+block, a shared-memory ring of the staged planes; design notes in the
+source) and take every grid K4–K10 take, so
+:func:`.cuda_wave.fits_wave_kernel` is their Hopper shape guard, in place
+of ``fits_tti_pallas``, ``fits_tti_adjoint_pallas`` and the ``tti_*_tile``
+VMEM budgets. K12's per-block partial maxima are one per tile and
+z-chunk (``jt_tti_num_partials``).
 
 On the card the kernels are bitwise equal to their plain versions (no FMA
 contraction; every stencil keeps ``d2_axis``'s and ``d1_axis``'s trees).

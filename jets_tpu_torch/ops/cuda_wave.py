@@ -58,7 +58,7 @@ _G_CODE = {torch.float32: 0, torch.bfloat16: 1}  # K14's friction field
 
 def fits_wave_kernel(shape, dtype, order: int) -> bool:
     """True when K4/K5/K14 (and the VTI and TTI kernels of :mod:`.cuda_vti`
-    and :mod:`.cuda_tti`, which launch alike) take a grid: 3-D float32, order 2/4/8, and a grid
+    and :mod:`.cuda_tti`, whose launch grids are no larger) take a grid: 3-D float32, order 2/4/8, and a grid
     the launch limits admit (one block row of 8 per y-block, one z-plane
     per gridDim.z)."""
     if len(shape) != 3 or dtype != torch.float32 or order not in _D2_COEFFS:

@@ -1,6 +1,6 @@
-"""Isotropic, VTI and TTI anisotropic acoustic wave operators (counterpart
-of the isotropic, VTI and TTI parts of ``jets_tpu/ops/wave.py``, with the
-same names).
+"""Isotropic, VTI and TTI anisotropic and constant-Q visco-acoustic wave
+operators (counterpart of the isotropic, VTI, TTI and constant-Q parts of
+``jets_tpu/ops/wave.py``, with the same names).
 
 Physics: constant-density acoustic wave equation, 2nd order in time,
 orders 2/4/8 in space, time-stepped by an explicit leapfrog with a sponge

@@ -27,6 +27,7 @@ from jets_tpu_torch.ops import cuda_tti as ct
 
 SHAPE = (16, 8, 128)
 ASHAPE = (16, 32, 128)  # int8 histories tile at (32, 128) on the TPU
+RAGGED = (5, 11, 37)  # no edge a multiple of the card kernels' tiles or z-chunks
 INV2 = np.float32(0.01)  # 1/dx² at dx = 10
 INV1 = np.float32(0.1)  # 1/dx
 ZERO = {k: 0 for k in ("fused_tti_step", "fused_tti_hist_step",
@@ -65,7 +66,7 @@ def _inputs(shape, seed, coeff="f32"):
 
 def _src(shape):
     D, H, W = shape
-    return 5 * H * W + 3 * W + 17
+    return min(5, D - 1) * H * W + 3 * W + 17
 
 
 def _T(f, *keys):
@@ -174,13 +175,15 @@ def test_step_plain_is_bitwise_the_eager_jax_tree(coeff):
     _equal(qn, qn_j)
 
 
-@pytest.mark.parametrize("store,coeff", [("f32", "f32"), ("bf16", "f32"), ("int8", "f32"),
-                                         ("int8", "bf16")])
-def test_hist_step_plain_is_bitwise_the_eager_jax_tree(store, coeff):
-    f = _inputs(ASHAPE, 1, coeff)
+@pytest.mark.parametrize("store,coeff,shape", [
+    ("f32", "f32", ASHAPE), ("bf16", "f32", ASHAPE), ("int8", "f32", ASHAPE),
+    ("int8", "bf16", ASHAPE), ("int8", "bf16", RAGGED)], ids=[
+    "f32-f32", "bf16-f32", "int8-f32", "int8-bf16", "int8-bf16-ragged"])
+def test_hist_step_plain_is_bitwise_the_eager_jax_tree(store, coeff, shape):
+    f = _inputs(shape, 1, coeff)
     s_t, amp = 0.61, 2.5e-3
     qf = _qf(f)[0] if store == "int8" else np.ones(2, np.float32)
-    pn_j, qn_j = _step_j(f, s_t, amp, ASHAPE)
+    pn_j, qn_j = _step_j(f, s_t, amp, shape)
     p_j, q_j = _J(f, "p", "q")
     if store == "int8":
         codes_j = [jnp.round(u * jnp.float32(s)).astype(jnp.int8)
@@ -191,7 +194,7 @@ def test_hist_step_plain_is_bitwise_the_eager_jax_tree(store, coeff):
         codes_j = [p_j, q_j]
     scales_j = [jnp.maximum(jnp.max(jnp.abs(u)), jnp.float32(1e-30)) for u in (pn_j, qn_j)]
     pn, qn, pe, qe, scales = ct.fused_tti_hist_step_torch(
-        *_step_args(f, coeff), torch.tensor(s_t), _src(ASHAPE), torch.tensor(amp),
+        *_step_args(f, coeff), torch.tensor(s_t), _src(shape), torch.tensor(amp),
         torch.tensor(qf[0]), torch.tensor(qf[1]), store=store, order=2)
     _equal(pn, pn_j)
     _equal(qn, qn_j)
@@ -222,10 +225,12 @@ def _adjoint_t(f, codes, sc, coeff="f32"):
             torch.tensor(sc[1]), torch.tensor(INV2), torch.tensor(INV1), sz, sy, sx)
 
 
-@pytest.mark.parametrize("store,coeff", [("f32", "f32"), ("bf16", "f32"), ("int8", "f32"),
-                                         ("int8", "bf16")])
-def test_adjoint_plain_is_bitwise_the_eager_jax_tree(store, coeff):
-    f = _inputs(ASHAPE, 2, coeff)
+@pytest.mark.parametrize("store,coeff,shape", [
+    ("f32", "f32", ASHAPE), ("bf16", "f32", ASHAPE), ("int8", "f32", ASHAPE),
+    ("int8", "bf16", ASHAPE), ("int8", "bf16", RAGGED)], ids=[
+    "f32-f32", "bf16-f32", "int8-f32", "int8-bf16", "int8-bf16-ragged"])
+def test_adjoint_plain_is_bitwise_the_eager_jax_tree(store, coeff, shape):
+    f = _inputs(shape, 2, coeff)
     codes, sc = _codes(f, store)
     ap1, aq1, ap2, aq2, gC, gah, gav, gnz, gny, gnx, C, ah, av, nz, ny, nx = _J(
         f, "ap1", "aq1", "ap2", "aq2", *ACCS, "C", *COEFFS)
