@@ -37,10 +37,18 @@ anomaly to 25, f0 15 Hz, forwards at nt=220 with f32 and bf16 friction
 fields, an int8-stored gradient at nt=120 (both blocks), the card against
 the CPU on (32, 64, 128) (forward, stored and autodiff adjoints), the Q = ∞
 reduction to ``wave_propagator``, a Jacobian gate with an f32 history and
-the int8 gradient's cosines to it. Each path runs with the kernels' launch counts set to 0 just before it
-and read just after. Every phase asserts; a failure raises and exits
-non-zero. Every entry point runs on the card by default; the CPU runs ask
-for ``device="cpu"``.
+the int8 gradient's cosines to it — and the seventh, the five BASELINE
+configurations (``jets_tpu_torch.models.configs``) at their full sizes
+through ``run_config``: CG on the 1000 × 1000 SPD composite (float64, and
+float32 through K6a/K6b), LSQR deconvolution on 10⁴ samples, CGLS
+deblurring on 512², LSQR on the 64-shot 128² and the 256-shot
+128 × 128 × 64 seismic operators (K1, and K3 in 3-D), each with its
+dot-product gate, its residual threshold, the card against the CPU and
+its ms per iteration, then MINRES, BiCGStab, GMRES(20) and Chebyshev on
+config 1's operator. Each path runs with the kernels' launch counts set to
+0 just before it and read just after. Every phase asserts; a failure
+raises and exits non-zero. Every entry point runs on the card by default;
+the CPU runs ask for ``device="cpu"``.
 The last lines are a JSON object of the kernels (route, source, launches
 on the main path, error against the plain version, times, the bound from
 the bytes each call moves and its operations, and the time of the one
@@ -127,6 +135,64 @@ def bound_ms(nbytes_moved, npoints, name):
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
+def ms_per_iter(solve, op, rhs, lo, hi, reps=3):
+    """Marginal ms per iteration of ``solve`` between budgets lo and hi
+    (median of reps, CUDA events)."""
+    def run(n):
+        s0 = torch.cuda.Event(enable_timing=True)
+        s1 = torch.cuda.Event(enable_timing=True)
+        s0.record()
+        res = solve(op, rhs, maxiter=n, tol=0.0)
+        s1.record()
+        torch.cuda.synchronize()
+        assert res.iterations == n
+        return s0.elapsed_time(s1)
+
+    run(lo)  # warm-up
+    t_lo = sorted(run(lo) for _ in range(reps))[reps // 2]
+    t_hi = sorted(run(hi) for _ in range(reps))[reps // 2]
+    return (t_hi - t_lo) / (hi - lo)
+
+
+def event_ms(fn):
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1)
+
+
+def busy_share(fn):
+    """Under ``torch.profiler``: the share of ``fn``'s CUDA-event time in
+    which some kernel ran (None with no device events), that time in ms,
+    the number of device events, and the six kernels with the most device
+    time (µs total, count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = event_ms(fn)
+    ivs = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a0, a1_ in ivs:  # union of the kernel intervals, in µs
+        if end is None or a0 > end:
+            busy += a1_ - a0
+            end = a1_
+        elif a1_ > end:
+            busy += a1_ - end
+            end = a1_
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = by_name.setdefault(e.name[:48], [0.0, 0])
+            t[0] += e.time_range.end - e.time_range.start
+            t[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return (busy / (1e3 * wall) if ivs else None), wall, len(ivs), top
+
+
 def check_history(res, maxiter, dnorm, phase):
     h = res.history
     assert res.iterations == maxiter, f"ran {res.iterations} of {maxiter} iterations"
@@ -137,6 +203,127 @@ def check_history(res, maxiter, dnorm, phase):
     assert float(res.resnorm) < dnorm, f"resnorm {float(res.resnorm)} >= ||d|| {dnorm}"
     log(phase, f"history {float(h[0]):.6g} -> {float(h[-1]):.6g}, "
                f"resnorm {float(res.resnorm):.9g} < ||d|| {dnorm:.9g}")
+
+
+# The BASELINE configurations at their full sizes (``BASELINE.json``): phase,
+# builder, solver budget, the relative-residual threshold of
+# tests/test_configs.py (float32 config 1: 1e-4, its roundoff floor), dtype
+# (None: the builder's default), the budgets of the marginal ms/iter (config 1
+# stops short of 40: in float32 CG's recursive residual underflows to 0 soon
+# after, which ends the loop), and the solver-kernel launches the solve must
+# make after ``it`` iterations.
+CONFIGS = (
+    (38, "config1_spd_cg", 400, 1e-8, None, (10, 30), lambda it: {}),
+    (39, "config1_spd_cg", 400, 1e-4, torch.float32, (10, 30),
+     lambda it: {"cg_update": it, "p_update": it}),
+    (40, "config2_deconv_lsqr", 150, 0.05, None, (10, 60), lambda it: {}),
+    (41, "config3_deblur_cgls", 60, 0.05, None, (10, 60), lambda it: {}),
+    (42, "config4_distributed_lsqr", 40, 0.2, None, (10, 40),
+     lambda it: {"xw_update": it}),
+    (43, "config5_seismic3d_pod", 30, 0.3, None, (10, 30),
+     lambda it: {"xw_update": it, "laplacian3d": it + 1}),
+)
+
+
+def baseline_configs(smi):
+    """Phases 38-44: each BASELINE configuration built by its builder's
+    defaults and solved through ``run_config`` on the card, launch counts set
+    to 0 just before the solve and read just after; its dot-product gate
+    (float64 rtol 1e-8, float32 1e-4), its residual threshold, the card
+    against the CPU at 10 iterations (x rel 1e-8 in float64, 1e-4 in
+    float32), its marginal ms per iteration and a profile of 10 iterations
+    (device busy share, the kernels with the most device time). Then
+    MINRES, BiCGStab, GMRES(20) and Chebyshev with estimated bounds on
+    config 1's operator, the card against the CPU. Returns the solver
+    kernels' launches of the counted solves."""
+    from jets_tpu_torch import dot_product_test
+    from jets_tpu_torch.models import configs
+    from jets_tpu_torch.ops import cuda_solver as cs
+    from jets_tpu_torch.solvers import (bicgstab, chebyshev, estimate_spectral_bounds,
+                                        gmres, minres)
+
+    launched = {}
+    for phase, name, maxiter, threshold, dtype, (lo, hi), expect in CONFIGS:
+        builder = getattr(configs, name)
+        kw = {} if dtype is None else {"dtype": dtype}
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        res, relres, A = configs.run_config(builder, maxiter=maxiter, tol=1e-10, **kw)
+        wall = time.perf_counter() - t0
+        counts = {k: n for k, n in cs.launch_counts().items() if n}
+        it = res.iterations
+        assert counts == expect(it), f"{name}: launches {counts} after {it} iterations"
+        for k, n in counts.items():
+            launched[k] = launched.get(k, 0) + n
+        assert A.dom.device.type == A.rng.device.type == res.x.device.type == "cuda", \
+            f"{name} was not built on the card"
+        assert bool(torch.isfinite(res.history[:it]).all()), f"{name}: history not finite"
+        assert relres < threshold, f"{name}: relative residual {relres} >= {threshold}"
+        single = A.dom.dtype == torch.float32
+        g = torch.Generator().manual_seed(0)
+        lhs, rhs = dot_product_test(A, A.dom.randn(g), A.rng.randn(g))
+        gate = abs(float(lhs) - float(rhs)) / abs(float(rhs))
+        gate_tol = 1e-4 if single else 1e-8
+        assert gate <= gate_tol, f"{name}: dot-product gate rel {gate}"
+        del res, A
+        Ac, solve, dc, _ = builder(device="cpu", **kw)
+        Ag, _, dg, _ = builder(**kw)
+        c0 = cs.launch_counts()
+        t1 = time.perf_counter()
+        rc = solve(Ac, dc, maxiter=10, tol=0.0)
+        t_cpu = time.perf_counter() - t1
+        assert cs.launch_counts() == c0, "a CPU run launched a kernel"
+        rg = solve(Ag, dg, maxiter=10, tol=0.0)
+        dx = rel(rg.x.cpu(), rc.x)
+        cpu_tol = 1e-4 if single else 1e-8
+        assert dx <= cpu_tol, f"{name}: card vs CPU x rel {dx}"
+        ms = ms_per_iter(solve, Ag, dg, lo, hi)
+        sh, wall10, nev, top = busy_share(lambda: solve(Ag, dg, maxiter=10, tol=0.0))
+        log(phase, f"{name} ({Ag.dom.shape} {Ag.dom.dtype} -> {Ag.rng.shape}): "
+                   f"run_config {it} iterations in {wall:.2f} s incl. build, relative "
+                   f"residual {relres:.6e} (< {threshold:g}); launches {counts}; "
+                   f"dot-product gate rel {gate:.3e} (<= {gate_tol:g}); card vs CPU at "
+                   f"10 iterations (CPU {t_cpu:.2f} s) ||dx||/||x|| {dx:.3e} (<= "
+                   f"{cpu_tol:g}); {ms:.4f} ms/iter (marginal {lo}->{hi}, CUDA events); "
+                   "under the profiler, 10 iterations from the start: "
+                   + ("device busy not measured" if sh is None else
+                      f"device busy {sh:.3f} of {wall10:.2f} ms")
+                   + f" ({nev} device events; top kernels, us total/count: "
+                   + "; ".join(f"{nm} {t:.0f}/{c}" for nm, (t, c) in top) + f") [{smi}]")
+        del Ac, dc, Ag, dg, rc, rg
+
+    A, _, d, _ = configs.config1_spd_cg()
+    Ac, _, dc, _ = configs.config1_spd_cg(device="cpu")
+    bounds = [estimate_spectral_bounds(op, torch.Generator().manual_seed(0))
+              for op in (A, Ac)]
+    runs = {
+        "minres": lambda op, b, lo, hi: minres(op, b, maxiter=60, tol=1e-10),
+        "bicgstab": lambda op, b, lo, hi: bicgstab(op, b, maxiter=60, tol=1e-10),
+        "gmres(20)": lambda op, b, lo, hi: gmres(op, b, maxiter=60, restart=20, tol=1e-10),
+        "chebyshev": lambda op, b, lo, hi: chebyshev(op, b, lo, hi, maxiter=200, tol=1e-10),
+    }
+    c0 = cs.launch_counts()
+    msgs = []
+    for nm, run in runs.items():
+        t0 = time.perf_counter()
+        rg = run(A, d, *bounds[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rc = run(Ac, dc, *bounds[1])
+        relres = float(torch.linalg.vector_norm(A(rg.x) - d) / torch.linalg.vector_norm(d))
+        assert relres < 1e-8, f"{nm}: relative residual {relres}"
+        dx = rel(rg.x.cpu(), rc.x)
+        assert dx <= 1e-8, f"{nm}: card vs CPU x rel {dx}"
+        msgs.append(f"{nm} {rg.iterations} iterations ({rc.iterations} on the CPU) in "
+                    f"{1e3 * wall:.1f} ms, relative residual {relres:.3e}, card vs CPU "
+                    f"||dx||/||x|| {dx:.3e}")
+    assert cs.launch_counts() == c0, "a plain solver launched a solver kernel"
+    log(44, f"config 1 ({A.dom.shape} {A.dom.dtype}) on the card against the CPU: "
+            "spectral bounds "
+            f"({float(bounds[0][0]):.6g}, {float(bounds[0][1]):.6g}) (CPU "
+            f"{float(bounds[1][0]):.6g}, {float(bounds[1][1]):.6g}); " + "; ".join(msgs)
+            + f" (< 1e-8, <= 1e-8); no solver kernel launched [{smi}]")
+    return launched
 
 
 def main() -> int:
@@ -586,24 +773,6 @@ def main() -> int:
         assert n > 0, f"kernel {name} was not launched on the main path"
 
     # ---- phase 7: times -------------------------------------------------------
-    def ms_per_iter(solve, op, rhs, lo, hi, reps=3):
-        """Marginal ms per iteration of ``solve`` between budgets lo and hi
-        (median of reps, CUDA events)."""
-        def run(n):
-            s0 = torch.cuda.Event(enable_timing=True)
-            s1 = torch.cuda.Event(enable_timing=True)
-            s0.record()
-            res = solve(op, rhs, maxiter=n, tol=0.0)
-            s1.record()
-            torch.cuda.synchronize()
-            assert res.iterations == n
-            return s0.elapsed_time(s1)
-
-        run(lo)  # warm-up
-        t_lo = sorted(run(lo) for _ in range(reps))[reps // 2]
-        t_hi = sorted(run(hi) for _ in range(reps))[reps // 2]
-        return (t_hi - t_lo) / (hi - lo)
-
     ms3 = ms_per_iter(lsqr, A, d, 10, 60)
     ms3h = ms_per_iter(lsqr, A_hook, d, 10, 60)
     ms2 = ms_per_iter(lsqr, A2, d2, 20, 120)
@@ -770,15 +939,6 @@ def main() -> int:
     del dm, gm, Fm, Fm2, gm2, gm2s, d0
 
     # ---- phase 13: wave times ---------------------------------------------------
-    def event_ms(fn):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1)
-
     def us_per_step(make, run, lo, hi, reps=3, per=1):
         """Marginal µs per step between nt budgets lo and hi (median of reps)."""
         ops = {n: make(n) for n in (lo, hi)}
@@ -822,30 +982,6 @@ def main() -> int:
                                                     spx), 20))
 
     # device busy share of the wave steps from one profiler trace each
-    from torch.profiler import ProfilerActivity, profile
-
-    def busy_share(fn):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            wall = event_ms(fn)
-        ivs = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
-        busy, end = 0.0, None
-        for a0, a1_ in ivs:  # union of the kernel intervals, in µs
-            if end is None or a0 > end:
-                busy += a1_ - a0
-                end = a1_
-            elif a1_ > end:
-                busy += a1_ - end
-                end = a1_
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                t = by_name.setdefault(e.name[:48], [0.0, 0])
-                t[0] += e.time_range.end - e.time_range.start
-                t[1] += 1
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-        return (busy / (1e3 * wall) if ivs else None), wall, len(ivs), top
-
     Fprof = wave_propagator(wshape, nt=40, src_idx=src0, store_adjoint="int8", **wkw)
     shares = {"forward": busy_share(lambda: Fprof(c_true)),
               "gradient": busy_share(lambda: grad(Fprof, 40))}
@@ -1588,6 +1724,10 @@ def main() -> int:
     main_path.update(tti_path)
     main_path.update(krylov_path)
     main_path.update(q_path)
+    log(37, f"paths 1-6 done in {time.perf_counter() - t_start:.1f} s, kernel build "
+            "included")
+    for k, n in baseline_configs(smi).items():
+        main_path[k] += n
     sources = {"solver": "jets_tpu_torch/csrc/solver_kernels.cu",
                "wave": "jets_tpu_torch/csrc/wave_kernels.cu",
                "vti": "jets_tpu_torch/csrc/vti_kernels.cu",
@@ -1610,7 +1750,7 @@ def main() -> int:
         "fused_q_step": ("wave", "jets_tpu/ops/pallas_wave.py:1425"),
     }
     assert len(replaces) == 15 and all(main_path[k] > 0 for k in replaces), main_path
-    log(37, f"chip_smoke total {time.perf_counter() - t_start:.1f} s, kernel build "
+    log(45, f"chip_smoke total {time.perf_counter() - t_start:.1f} s, kernel build "
             f"included")
     rows = []
     for k, (lib, where) in replaces.items():

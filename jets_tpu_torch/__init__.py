@@ -2,19 +2,22 @@
 
 The same matrix-free operator-and-solver framework, for one NVIDIA H100
 (Hopper, ``sm_90a``): spaces with an explicit device, immutable jets and
-operators, the operator algebra, the correctness gates, the seismic
-flagship and its CG, CGLS, LSQR and LSMR solvers with the normal operator
-and the Jacobi preconditioner (:mod:`jets_tpu_torch.solvers`), the diagonal
-operator, block spaces, and the isotropic, VTI and TTI anisotropic and
-constant-Q visco-acoustic wave operators of FWI
-(:mod:`jets_tpu_torch.ops.wave`). Plain
-tensor code is PyTorch; the Pallas kernels of the JAX package on these
-paths are hand-written CUDA C++ in ``csrc/`` (see
-:mod:`jets_tpu_torch.ops.cuda_solver`, :mod:`jets_tpu_torch.ops.cuda_wave`,
-:mod:`jets_tpu_torch.ops.cuda_vti` and :mod:`jets_tpu_torch.ops.cuda_tti`),
-built with ``nvcc`` at first use on a machine that has a card. Every
-constructor builds on the card unless the caller passes ``device="cpu"``
-(or another device). This package never imports JAX.
+operators, the operator algebra (raw matrices auto-wrapped), block
+operators, the correctness gates, the operator packs of the five BASELINE
+configurations (matrix, convolution, derivative, gradient, stencil and blur
+operators; :mod:`jets_tpu_torch.models.configs`), the seismic flagship, the
+Krylov solvers (CG, CGLS, LSQR, LSMR, MINRES, BiCGStab, GMRES, Chebyshev)
+with the normal operator and the Jacobi preconditioner
+(:mod:`jets_tpu_torch.solvers`), the diagonal operator, block spaces, and
+the isotropic, VTI and TTI anisotropic and constant-Q visco-acoustic wave
+operators of FWI (:mod:`jets_tpu_torch.ops.wave`). Plain tensor code is
+PyTorch; the Pallas kernels of the JAX package are hand-written CUDA C++ in
+``csrc/`` (see :mod:`jets_tpu_torch.ops.cuda_solver`,
+:mod:`jets_tpu_torch.ops.cuda_wave`, :mod:`jets_tpu_torch.ops.cuda_vti` and
+:mod:`jets_tpu_torch.ops.cuda_tti`), built with ``nvcc`` at first use on a
+machine that has a card. Every constructor builds on the card unless the
+caller passes ``device="cpu"`` (or another device). This package never
+imports JAX.
 """
 from .core.spaces import Space, space_of, zeros, ones, rand, randn
 from .core.blockspace import BlockSpace, BlockVector
@@ -34,6 +37,14 @@ from .core.jet import (
     close,
 )
 from .core.algebra import compose, add, subtract, scale, vec, is_composite, is_sum
+from .core.block import (
+    block_operator,
+    zero_block,
+    is_zero_block,
+    is_block_op,
+    nblocks,
+    getblock,
+)
 from .core.verify import (
     dot_product_test,
     linearity_test,

@@ -6,8 +6,11 @@ whose kernels are module-level functions and whose child operators live in
 the jet's ``state``; "which combinator is this?" is answered by kernel
 identity (``op.jet.f is _composite_f``).
 
-Raw matrices are not auto-wrapped into operators: ``ops/matrix.py`` is not
-ported yet.
+A raw 2-D tensor or array in an operator expression is wrapped into a
+:func:`~jets_tpu_torch.ops.matrix.matrix_operator`, as in the JAX package.
+The wrapped matrix lives on a device: a tensor keeps its own, an array
+goes to the device of the operators beside it, and with none beside it to
+the CUDA card (:func:`~jets_tpu_torch.core.spaces.resolve_device`).
 """
 from __future__ import annotations
 
@@ -19,10 +22,27 @@ from .spaces import Space
 __all__ = ["compose", "add", "subtract", "scale", "vec", "is_composite", "is_sum"]
 
 
-def _wrap(x) -> Operator:
+def _wrap(x, device=None) -> Operator:
+    """``x`` as an operator: operators pass through and a raw 2-D tensor or
+    array becomes a matrix operator (a tensor on its own device, an array
+    on ``device``)."""
     if isinstance(x, Operator):
         return x
+    if getattr(x, "ndim", None) == 2:
+        from ..ops.matrix import matrix_operator
+
+        return matrix_operator(
+            x, device=x.device if isinstance(x, torch.Tensor) else device)
     raise TypeError(f"cannot interpret {type(x).__name__} as an operator")
+
+
+def _device_of(xs):
+    """The device of the first operator among ``xs``; None when there is
+    none (a lone raw matrix then goes to the card)."""
+    for x in xs:
+        if isinstance(x, Operator):
+            return x.dom.device
+    return None
 
 
 def _is_linear(op: Operator) -> bool:
@@ -74,8 +94,9 @@ def compose(*operators) -> Operator:
     """``compose(A, B, ...)`` = A ∘ B ∘ … (rightmost applied first). Chains
     flatten; the result is linear iff every child is."""
     ops = []
+    dev = _device_of(operators)
     for op in operators:
-        op = _wrap(op)
+        op = _wrap(op, dev)
         if is_composite(op) and not isinstance(op, AdjointOperator):
             ops.extend(op.jet.state["ops"])
         else:
@@ -140,10 +161,10 @@ def is_sum(op: Operator) -> bool:
     return op.jet.f is _sum_f
 
 
-def _terms(op: Operator, sgn: int):
+def _terms(op: Operator, sgn: int, device):
     """Flatten nested sums with sign bookkeeping: ``A - (B - C)`` becomes
     ``A - B + C``."""
-    op = _wrap(op)
+    op = _wrap(op, device)
     if is_sum(op) and not isinstance(op, AdjointOperator):
         s = op.jet.state
         return [(sgn * cs, c) for cs, c in zip(s["sgns"], s["ops"])]
@@ -174,11 +195,13 @@ def _make_sum(terms) -> Operator:
 
 
 def add(A, B) -> Operator:
-    return _make_sum(_terms(A, +1) + _terms(B, +1))
+    dev = _device_of((A, B))
+    return _make_sum(_terms(A, +1, dev) + _terms(B, +1, dev))
 
 
 def subtract(A, B) -> Operator:
-    return _make_sum(_terms(A, +1) + _terms(B, -1))
+    dev = _device_of((A, B))
+    return _make_sum(_terms(A, +1, dev) + _terms(B, -1, dev))
 
 
 # -- scalar scaling ------------------------------------------------------------
@@ -232,9 +255,14 @@ def _vec_upstate(m0, state):
 
 
 def vec(A) -> Operator:
-    """The operator over flattened 1-D spaces; a no-op if it is 1-D→1-D."""
+    """The operator over flattened 1-D spaces; a no-op if it is 1-D→1-D
+    over dense spaces. Block spaces are always adapted: a ``BlockVector``
+    is a tuple of blocks, which ``vec`` flattens into one tensor."""
+    from .blockspace import BlockSpace
+
     A = _wrap(A)
-    if A.dom.ndim == 1 and A.rng.ndim == 1:
+    if (A.dom.ndim == 1 and A.rng.ndim == 1
+            and not isinstance(A.dom, BlockSpace) and not isinstance(A.rng, BlockSpace)):
         return A
     j = Jet(
         dom=Space((A.dom.size,), A.dom.dtype, A.dom.device),

@@ -159,7 +159,7 @@ class Operator:
     """A (possibly nonlinear) operator wrapping a jet.
 
     Apply with ``A(m)`` or ``A @ m``; ``A @ B`` composes when ``B`` is an
-    operator. ``linearize(A, m0)`` returns a new pinned
+    operator or a raw 2-D matrix that is not shaped like a domain member. ``linearize(A, m0)`` returns a new pinned
     :class:`LinearOperator`.
     """
 
@@ -202,19 +202,29 @@ class Operator:
     def __call__(self, m):
         return self.jet.apply_f(m)
 
-    def __matmul__(self, other):
+    def _compose_or_apply(self, other):
+        """``A @ B`` composes when ``B`` is an operator; a raw 2-D tensor or
+        array that is NOT shaped like a domain member is wrapped into a
+        matrix operator (on this operator's device, unless it is a tensor,
+        which keeps its own) and composed; anything else is applied."""
         from . import algebra
 
         if isinstance(other, Operator):
             return algebra.compose(self, other)
+        shp = getattr(other, "shape", None)
+        if shp is not None and tuple(shp) != self.dom.shape and len(shp) == 2:
+            return algebra.compose(self, algebra._wrap(other, self.dom.device))
         return self(other)
+
+    def __matmul__(self, other):
+        return self._compose_or_apply(other)
 
     def __mul__(self, other):
         from . import algebra
 
         if isinstance(other, (int, float, complex)):
             return algebra.scale(other, self)
-        return self @ other
+        return self._compose_or_apply(other)
 
     def __rmul__(self, a):
         from . import algebra

@@ -22,6 +22,7 @@ from __future__ import annotations
 import math
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 __all__ = ["Space", "space_of", "zeros", "ones", "rand", "randn", "resolve_device"]
@@ -38,6 +39,12 @@ def resolve_device(device=None) -> torch.device:
                            "unless asked otherwise; pass device='cpu' to build "
                            "on the CPU")
     return torch.device("cuda")
+
+
+def as_tensor(x) -> torch.Tensor:
+    """``x`` as a tensor: a tensor as it is, an array (or a nested list)
+    copied into a new CPU tensor of its dtype."""
+    return x if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x))
 
 
 def _canon_shape(shape: Sequence[int] | int) -> Tuple[int, ...]:

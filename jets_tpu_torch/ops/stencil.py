@@ -8,8 +8,11 @@ the same inputs it is bitwise equal to the eager (non-jitted)
 one-axis second derivative of the anisotropic wave physics (the JAX
 package's ``ops/wave._d2_axis``), with its own tree, and :func:`d1_axis` the
 one-axis first derivative of the TTI physics (``ops/wave._d1_axis``).
-``stencil_operator``
-and ``blur2d_operator`` are not ported yet.
+:func:`stencil_operator` applies a constant-coefficient stencil with a zero
+boundary as one ``torch.nn.functional.conv{1,2,3}d`` (the JAX package's
+``lax.conv_general_dilated``), its adjoint derived with
+:func:`torch.func.vjp`; :func:`blur2d_operator` is the Gaussian blur of
+BASELINE config 3 built on it.
 """
 from __future__ import annotations
 
@@ -19,9 +22,10 @@ import torch
 import torch.nn.functional as F
 
 from ..core.jet import Jet, LinearOperator
-from ..core.spaces import Space
+from ..core.spaces import Space, as_tensor
 
-__all__ = ["laplacian_nd", "d2_axis", "d1_axis", "laplacian_operator"]
+__all__ = ["laplacian_nd", "d2_axis", "d1_axis", "laplacian_operator",
+           "stencil_operator", "blur2d_operator"]
 
 # Central finite-difference coefficients of the second derivative,
 # (c0, (c1, c2, ...)): d²u/dx² ≈ (c0*u[i] + Σ_s c_s*(u[i-s]+u[i+s])) / h².
@@ -154,3 +158,50 @@ def laplacian_operator(
         j = Jet(dom=sp, rng=sp, df=_laplacian_df, dft="self",
                 state={"order": order})
     return LinearOperator(j)
+
+
+# -- constant-coefficient stencils -------------------------------------------------
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def _correlate(m, k, pads):
+    """Correlation of the n-D (n ≤ 3) ``m`` with the kernel ``k`` after
+    zero-padding each axis by its ``(lo, hi)`` pair in ``pads`` (asymmetric
+    for even kernel lengths, which ``F.conv*``'s own padding cannot say)."""
+    flat = [p for lo_hi in reversed(pads) for p in lo_hi]  # F.pad: last axis first
+    return _CONV[m.ndim](F.pad(m[None, None], flat), k[None, None])[0, 0]
+
+
+def _stencil_df(dm, m0, state):
+    # a convolution, not a correlation: flip the stencil on every axis
+    k = state["stencil"]
+    pads = [((s - 1) // 2, s - 1 - (s - 1) // 2) for s in k.shape]
+    return _correlate(dm, k.flip(tuple(range(k.ndim))), pads)
+
+
+def stencil_operator(space: Space, stencil) -> LinearOperator:
+    """Constant-coefficient stencil (a tensor or an array) applied with SAME
+    (zero) padding on an n-D grid (n ≤ 3), on the space's device. The
+    adjoint (the flipped stencil) is derived with ``torch.func.vjp``."""
+    k = as_tensor(stencil).to(dtype=space.dtype, device=space.device)
+    if k.ndim != space.ndim:
+        raise ValueError(f"stencil ndim {k.ndim} != space ndim {space.ndim}")
+    if k.ndim not in _CONV:
+        raise ValueError("stencil_operator supports 1-3 spatial dims")
+    return LinearOperator(Jet(dom=space, rng=space, df=_stencil_df,
+                              state={"stencil": k}))
+
+
+def blur2d_operator(shape: Sequence[int], radius: int = 2,
+                    dtype: torch.dtype = torch.float32,
+                    device: torch.device | str | None = None) -> LinearOperator:
+    """Gaussian-ish blur on a 2-D grid — the CGLS deblurring operator of
+    BASELINE config 3 — built on ``device`` (``None``: the CUDA card). The
+    kernel is computed on the CPU and moved, so it is the same on every
+    device."""
+    n = 2 * radius + 1
+    x = torch.arange(n, dtype=dtype) - radius
+    g = torch.exp(-0.5 * (x / max(radius, 1)) ** 2)
+    k = torch.outer(g, g)
+    return stencil_operator(Space(shape, dtype, device), k / torch.sum(k))

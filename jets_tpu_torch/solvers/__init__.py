@@ -1,16 +1,27 @@
 from .krylov import (
+    BiCGStabState,
     CGLSState,
     CGState,
+    ChebyshevState,
+    GMRESState,
     LSMRState,
     LSQRState,
+    MINRESState,
     SolveResult,
+    bicgstab,
     cg,
     cgls,
+    chebyshev,
+    estimate_spectral_bounds,
+    gmres,
     lsmr,
     lsqr,
+    minres,
 )
 from .precond import estimate_diagonal, jacobi_preconditioner, normal_operator
 
-__all__ = ["cg", "cgls", "lsqr", "lsmr", "CGState", "CGLSState", "LSQRState",
-           "LSMRState", "SolveResult", "normal_operator", "estimate_diagonal",
-           "jacobi_preconditioner"]
+__all__ = ["cg", "cgls", "lsqr", "lsmr", "minres", "gmres", "bicgstab",
+           "chebyshev", "estimate_spectral_bounds",
+           "CGState", "CGLSState", "LSQRState", "LSMRState", "MINRESState",
+           "GMRESState", "BiCGStabState", "ChebyshevState", "SolveResult",
+           "normal_operator", "estimate_diagonal", "jacobi_preconditioner"]

@@ -1,5 +1,5 @@
 """Krylov solvers (counterpart of ``jets_tpu/solvers/krylov.py``): CG,
-CGLS, LSQR and LSMR.
+CGLS, LSQR, LSMR, MINRES, BiCGStab, GMRES and Chebyshev.
 
 The JAX package runs each solver as one ``lax.while_loop`` program; here
 the loop is a Python loop that reads one residual estimate on the host per
@@ -21,21 +21,29 @@ buffers, so a caller's tensors are never mutated and a saved state can be
 resumed from more than once; buffers a kernel writes never alias one
 another (CG's start ``p = r`` is a copy).
 
-MINRES, GMRES, BiCGStab, Chebyshev and ``estimate_spectral_bounds`` are not
-ported yet.
+MINRES, BiCGStab, GMRES (with complex Givens rotations), Chebyshev and
+``estimate_spectral_bounds`` are plain PyTorch (the JAX package has no
+Pallas kernel on them) with the same conventions: one host read per
+iteration (GMRES: per restart cycle; Chebyshev: per ``check_every``
+iterations), 0-d device scalars, states cloned on entry, and the history
+written on the device.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
 import torch
+from torch.utils import _pytree as pytree
 
 from ..core.jet import AdjointOperator, LinearOperator
 from ..ops.cuda_solver import cg_update, lsmr_update, p_update, xw_update
+from ..ops.wave import _div
 from ..utils import tree as tr
 
-__all__ = ["cg", "cgls", "lsqr", "lsmr", "CGState", "CGLSState", "LSQRState",
-           "LSMRState", "SolveResult"]
+__all__ = ["cg", "cgls", "lsqr", "lsmr", "minres", "bicgstab", "gmres", "chebyshev",
+           "estimate_spectral_bounds", "CGState", "CGLSState", "LSQRState",
+           "LSMRState", "MINRESState", "BiCGStabState", "GMRESState",
+           "ChebyshevState", "SolveResult"]
 
 
 def _normalize(space, vct):
@@ -474,3 +482,408 @@ def lsmr(
                        rhobar=rhobar, cbar=cbar, sbar=sbar, i=st.i + 1)
 
     return SolveResult(st.x, st.i, torch.abs(st.zetabar), hist, st)
+
+
+def _pos_safe(x):
+    return torch.where(x > 0, x, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# MINRES — self-adjoint, possibly INDEFINITE systems A x = b (Paige &
+# Saunders 1975)
+# ---------------------------------------------------------------------------
+
+
+class MINRESState(NamedTuple):
+    x: Any
+    v: Any  # current Lanczos vector (normalized)
+    v_old: Any
+    w1: Any  # previous two update directions
+    w0: Any
+    beta: torch.Tensor
+    eta: torch.Tensor  # |eta| = current residual norm
+    gamma1: torch.Tensor
+    gamma0: torch.Tensor
+    sigma1: torch.Tensor
+    sigma0: torch.Tensor
+    i: int
+
+
+def minres(
+    A: LinearOperator,
+    b,
+    x0=None,
+    *,
+    maxiter: int = 100,
+    tol: float = 1e-6,
+    state: Optional[MINRESState] = None,
+) -> SolveResult:
+    """MINRES on a self-adjoint operator (definite or indefinite): minimizes
+    ``||A x - b||`` over the Krylov space with a monotone residual — one
+    operator application, one Lanczos three-term recurrence and one Givens
+    rotation per iteration (the rotation's ``rho1`` is a ``hypot``, as in
+    :func:`_sym_ortho`).
+
+    Stops at ``maxiter`` or once ``|eta| <= tol * ||b||``; ``history``
+    holds ``|eta|``, the residual norm, per iteration."""
+    dom = A.dom
+    bnorm = dom.norm(b)
+    if state is None:
+        if x0 is None:
+            x, r = dom.zeros(), b
+        else:
+            x = _clone(x0)
+            r = tr.sub(b, A(x))
+        beta1 = dom.norm(r)
+        v = tr.scale(1.0 / _pos_safe(beta1), r)
+        zero = tr.zeros_like(v)
+        one, nul = torch.ones_like(beta1), torch.zeros_like(beta1)
+        st = MINRESState(x, v, zero, zero, zero, nul, beta1, one, one, nul, nul, 0)
+    else:
+        st = MINRESState(*(_clone(f) for f in state))
+    threshold = tol * bnorm
+    hist = _history(maxiter, st.eta)
+
+    while st.i < maxiter and bool(torch.abs(st.eta) > threshold):
+        Av = A(st.v)
+        alpha = torch.real(dom.dot(st.v, Av))
+        v_next = tr.tmap(lambda av, vv, vo: av - alpha * vv - st.beta * vo,
+                         Av, st.v, st.v_old)
+        beta_next = dom.norm(v_next)
+        v_next = tr.scale(1.0 / _pos_safe(beta_next), v_next)
+        # apply the two previous rotations to the new tridiagonal column
+        delta = st.gamma1 * alpha - st.gamma0 * st.sigma1 * st.beta
+        rho2 = st.sigma1 * alpha + st.gamma0 * st.gamma1 * st.beta
+        rho3 = st.sigma0 * st.beta
+        rho1 = torch.hypot(delta, beta_next)
+        r1s = _pos_safe(rho1)
+        gamma = torch.where(rho1 > 0, delta / r1s, 1.0)
+        sigma = torch.where(rho1 > 0, beta_next / r1s, 0.0)
+        w_next = tr.tmap(lambda vv, w0, w1: (vv - rho3 * w0 - rho2 * w1) / r1s,
+                         st.v, st.w0, st.w1)
+        x = tr.xpay(st.x, gamma * st.eta, w_next)
+        eta = -sigma * st.eta
+        hist[st.i] = torch.abs(eta)
+        st = MINRESState(x, v_next, st.v, w_next, st.w1, beta_next, eta, gamma,
+                         st.gamma1, sigma, st.sigma1, st.i + 1)
+
+    return SolveResult(st.x, st.i, torch.abs(st.eta), hist, st)
+
+
+# ---------------------------------------------------------------------------
+# BiCGStab — square nonsymmetric systems, two applications per iteration
+# ---------------------------------------------------------------------------
+
+
+class BiCGStabState(NamedTuple):
+    x: Any
+    r: Any
+    rhat: Any  # fixed shadow residual
+    p: Any
+    v: Any
+    rho: torch.Tensor
+    alpha: torch.Tensor
+    omega: torch.Tensor
+    rnorm: torch.Tensor
+    i: int
+
+
+def _sdiv(num, den):
+    """``num/den`` where ``den != 0``, else 0 (real or complex)."""
+    ok = torch.abs(den) > 0
+    return torch.where(ok, num / torch.where(ok, den, 1.0), 0.0)
+
+
+def bicgstab(
+    A: LinearOperator,
+    b,
+    x0=None,
+    *,
+    maxiter: int = 100,
+    tol: float = 1e-6,
+    state: Optional[BiCGStabState] = None,
+) -> SolveResult:
+    """BiCGStab (van der Vorst) for a square, possibly nonsymmetric operator:
+    two forward applications per iteration and no adjoint. Every division
+    is guarded, so the recurrence parks instead of producing NaNs, and the
+    fatal breakdown (``rho = <rhat, r> = 0`` with a nonzero residual) ends
+    the loop: ``result.iterations < maxiter`` with the residual above
+    tolerance shows it. Recurrence scalars live in the operator's field.
+
+    Stops at ``maxiter`` or once ``||r|| <= tol * ||b||``; ``history``
+    holds ``||r||`` per iteration."""
+    dom = A.dom
+    if state is None:
+        if x0 is None:
+            x, r = dom.zeros(), b
+        else:
+            x = _clone(x0)
+            r = tr.sub(b, A(x))
+        zero = tr.zeros_like(r)
+        one = torch.ones((), dtype=dom.dtype, device=dom.device)
+        st = BiCGStabState(x, r, r, zero, zero, one, one, one, dom.norm(r), 0)
+    else:
+        st = BiCGStabState(*(_clone(f) for f in state))
+    bnorm = dom.norm(b)
+    threshold = tol * bnorm
+    hist = _history(maxiter, bnorm)
+
+    # |rho| = 0 after the first iteration is the fatal breakdown: every later
+    # step would be a no-op, so it ends the loop
+    while st.i < maxiter and bool((st.rnorm > threshold) & (torch.abs(st.rho) > 0)):
+        rho_new = dom.dot(st.rhat, st.r)
+        beta = _sdiv(rho_new * st.alpha, st.rho * st.omega)
+        p = tr.tmap(lambda r_, p_, v_: r_ + beta * (p_ - st.omega * v_), st.r, st.p, st.v)
+        v = A(p)
+        alpha = _sdiv(rho_new, dom.dot(st.rhat, v))
+        s = tr.xpay(st.r, -alpha, v)
+        t = A(s)
+        omega = _sdiv(dom.dot(t, s), dom.dot(t, t))
+        x = tr.tmap(lambda x_, p_, s_: x_ + alpha * p_ + omega * s_, st.x, p, s)
+        r = tr.xpay(s, -omega, t)
+        rnorm = dom.norm(r)
+        hist[st.i] = rnorm
+        st = BiCGStabState(x, r, st.rhat, p, v, rho_new, alpha, omega, rnorm, st.i + 1)
+
+    return SolveResult(st.x, st.i, st.rnorm, hist, st)
+
+
+# ---------------------------------------------------------------------------
+# GMRES(restart) — square nonsymmetric systems, minimal residual
+# ---------------------------------------------------------------------------
+
+
+class GMRESState(NamedTuple):
+    x: Any
+    rnorm: torch.Tensor
+    i: int  # total inner iterations so far (resume at a restart boundary)
+
+
+def _dot_all(stack, leaves):
+    """``<V_k, w>`` for every basis row ``k`` at once: one batched reduction
+    per leaf (classical Gram-Schmidt), conjugate-linear in the basis."""
+    return sum(torch.tensordot(torch.conj(s), w, dims=(list(range(1, s.ndim)),
+                                                       list(range(w.ndim))))
+               for s, w in zip(stack, leaves))
+
+
+def _combine(stack, coeff):
+    """``Σ_k coeff[k]·V_k`` per leaf of the stacked basis."""
+    return [torch.tensordot(coeff, s, dims=1) for s in stack]
+
+
+def _cgivens(f, g):
+    """LAPACK ``lartg``-style Givens rotation for possibly complex ``f`` and
+    ``g``: ``(c, s, r)`` with ``c`` real and ``[c s; -conj(s) c] @ [f; g] =
+    [r; 0]`` — the complex form of :func:`_sym_ortho`, with its ``(0, 0) ->
+    (1, 0, 0)`` convention and its ``hypot``."""
+    af, ag = torch.abs(f), torch.abs(g)
+    d = torch.hypot(af, ag)
+    dsafe = _pos_safe(d)
+    phase = torch.where(af > 0, f / _pos_safe(af), torch.ones_like(f))
+    c = torch.where(d > 0, af / dsafe, 1.0)
+    s = torch.where(d > 0, phase * torch.conj(g) / dsafe, torch.zeros_like(f))
+    return c, s, phase * d
+
+
+def gmres(
+    A: LinearOperator,
+    b,
+    x0=None,
+    *,
+    maxiter: int = 100,
+    restart: int = 20,
+    tol: float = 1e-6,
+    state: Optional[GMRESState] = None,
+) -> SolveResult:
+    """Restarted GMRES for a square, nonsymmetric operator (real or complex):
+    minimizes ``||A x - b||`` over each restart cycle's Krylov space.
+
+    The Arnoldi basis is a stack of ``restart + 1`` rows per leaf, so the
+    orthogonalization is classical Gram-Schmidt run twice, two batched
+    reductions per step (unfilled rows are zero, so no masking). Complex
+    Givens rotations (:func:`_cgivens`) condense each Hessenberg column; the
+    Hessenberg scalars live in the operator's field, the cosines are real.
+    ``maxiter`` counts inner iterations, checked once per cycle (a run may
+    end up to ``restart - 1`` past it); ``history`` holds the residual
+    estimate ``|g[j+1]|`` per inner iteration. Resuming from ``state=``
+    restarts at a cycle boundary, as a continuous run does."""
+    dom = A.dom
+    m = int(restart)
+    bnorm = dom.norm(b)
+    hdtype = dom.dtype if dom.dtype.is_complex else bnorm.dtype
+    dev = bnorm.device
+    leaves0, spec = pytree.tree_flatten(b)
+    if state is None:
+        if x0 is None:
+            x, r = dom.zeros(), b
+        else:
+            x = _clone(x0)
+            r = tr.sub(b, A(x))
+        st = GMRESState(x, dom.norm(r), 0)
+    else:
+        st = GMRESState(*(_clone(f) for f in state))
+    threshold = tol * bnorm
+    hist = _history(maxiter, bnorm)
+
+    while st.i < maxiter and bool(st.rnorm > threshold):
+        r = tr.sub(b, A(st.x))
+        beta = dom.norm(r)
+        V = [torch.zeros((m + 1,) + leaf.shape, dtype=leaf.dtype, device=leaf.device)
+             for leaf in leaves0]
+        for row, leaf in zip(V, pytree.tree_leaves(tr.scale(1.0 / _pos_safe(beta), r))):
+            row[0] = leaf
+        H = torch.zeros((m + 1, m), dtype=hdtype, device=dev)
+        cs = torch.zeros((m,), dtype=bnorm.dtype, device=dev)  # c is always real
+        sn = torch.zeros((m,), dtype=hdtype, device=dev)
+        g = torch.zeros((m + 1,), dtype=hdtype, device=dev)
+        g[0] = beta
+        for j in range(m):
+            w = pytree.tree_leaves(A(pytree.tree_unflatten([row[j] for row in V], spec)))
+            # CGS2: project twice against the whole (zero-padded) basis
+            h = _dot_all(V, w)
+            w = [wl - cl for wl, cl in zip(w, _combine(V, h))]
+            h2 = _dot_all(V, w)
+            w = [wl - cl for wl, cl in zip(w, _combine(V, h2))]
+            hcol = (h + h2).to(hdtype)
+            wnorm = torch.sqrt(sum(torch.real(torch.vdot(wl.reshape(-1), wl.reshape(-1)))
+                                   for wl in w))
+            for row, wl in zip(V, w):
+                row[j + 1] = wl / _pos_safe(wnorm)
+            hcol[j + 1] = wnorm
+            # the previous rotations 0..j-1 on the new column (both new
+            # entries are computed before either is written)
+            for k in range(j):
+                hcol[k], hcol[k + 1] = (cs[k] * hcol[k] + sn[k] * hcol[k + 1],
+                                        -torch.conj(sn[k]) * hcol[k] + cs[k] * hcol[k + 1])
+            c, s, rr = _cgivens(hcol[j], hcol[j + 1])
+            hcol[j], hcol[j + 1] = rr, 0.0
+            cs[j], sn[j] = c, s
+            g[j], g[j + 1] = c * g[j], -torch.conj(s) * g[j]
+            H[:, j] = hcol
+            if st.i + j < maxiter:
+                hist[st.i + j] = torch.abs(g[j + 1])
+        # guard breakdown and early convergence: dead columns get a unit diagonal
+        R = H[:m, :m]
+        R = R + torch.diag((torch.abs(torch.diagonal(R)) == 0).to(hdtype))
+        y = torch.linalg.solve_triangular(R, g[:m, None], upper=True)[:, 0]
+        dx = pytree.tree_unflatten(_combine([row[:m] for row in V], y), spec)
+        x = tr.add(st.x, dx)
+        st = GMRESState(x, dom.norm(tr.sub(b, A(x))), st.i + m)
+
+    return SolveResult(st.x, st.i, st.rnorm, hist, st)
+
+
+# ---------------------------------------------------------------------------
+# Chebyshev semi-iteration — an SPD solver without inner products
+# ---------------------------------------------------------------------------
+
+
+class ChebyshevState(NamedTuple):
+    x: Any
+    r: Any
+    p: Any
+    alpha: torch.Tensor
+    beta: torch.Tensor
+    i: int
+
+
+def chebyshev(
+    A: LinearOperator,
+    b,
+    lmin: float,
+    lmax: float,
+    x0=None,
+    *,
+    maxiter: int = 100,
+    tol: float = 1e-6,
+    check_every: int = 10,
+    state: Optional[ChebyshevState] = None,
+) -> SolveResult:
+    """Chebyshev semi-iteration on an SPD operator with spectrum inside
+    ``[lmin, lmax]`` (estimate them with :func:`estimate_spectral_bounds`;
+    tensors are read once, on entry). The recurrence has no inner products:
+    one operator application and three axpys per iteration; the residual
+    norm is taken, and read on the host, every ``check_every`` iterations
+    only, for the stopping test and the history (one entry per check).
+
+    The test runs at ``check_every`` granularity, so a run may go up to
+    ``check_every - 1`` iterations past ``maxiter`` (``iterations`` reports
+    the true count). ``lmin`` must be a true lower bound: the iteration
+    diverges on eigenmodes below it, while an overestimated ``lmax`` only
+    slows it."""
+    dom = A.dom
+    lmin, lmax = float(lmin), float(lmax)
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    bnorm = dom.norm(b)
+    if state is None:
+        if x0 is None:
+            x, r = dom.zeros(), b
+        else:
+            x = _clone(x0)
+            r = tr.sub(b, A(x))
+        zero = torch.zeros_like(bnorm)
+        st = ChebyshevState(x, r, tr.zeros_like(r), zero, zero, 0)
+    else:
+        st = ChebyshevState(*(_clone(f) for f in state))
+    nchecks = -(-maxiter // check_every)
+    hist = _history(nchecks, bnorm)
+    threshold = tol * bnorm
+    rnorm = dom.norm(st.r)
+
+    while st.i < maxiter and bool(rnorm > threshold):
+        for _ in range(check_every):
+            # the Chebyshev recurrence on 0-d device scalars
+            if st.i == 0:
+                beta = torch.zeros_like(st.alpha)
+                alpha = torch.full_like(st.alpha, 1.0 / theta)
+            else:
+                beta = (0.5 * (delta * st.alpha) ** 2 if st.i == 1
+                        else (0.5 * delta * st.alpha) ** 2)
+                alpha = 1.0 / (theta - beta / st.alpha)
+            p = tr.xpay(st.r, beta, st.p)
+            x = tr.xpay(st.x, alpha, p)
+            r = tr.xpay(st.r, -alpha, A(p))
+            st = ChebyshevState(x, r, p, alpha, beta, st.i + 1)
+        rnorm = dom.norm(st.r)
+        k = (st.i - 1) // check_every
+        if k < nchecks:
+            hist[k] = rnorm
+
+    return SolveResult(st.x, st.i, rnorm, hist, st)
+
+
+def estimate_spectral_bounds(
+    A: LinearOperator,
+    generator: Optional[torch.Generator] = None,
+    *,
+    iters: int = 30,
+    safety: float = 1.05,
+):
+    """``(lmin, lmax)`` estimates (0-d tensors) for an SPD operator: power
+    iteration for ``lmax`` (inflated by ``safety``), then power iteration on
+    ``lmax I - A`` for ``lmin`` (deflated). The start vectors are drawn from
+    ``generator`` (default: a CPU generator seeded with 23).
+
+    The ``lmin`` deflation is deliberately aggressive: an unconverged power
+    iteration on ``lmax I - A`` underestimates ``lmax - λ_min``, which would
+    put ``lmin`` above the smallest eigenvalue (fatal for Chebyshev), so the
+    shift is inflated by ``safety`` and the result deflated by it again."""
+    dom = A.dom
+    g = generator if generator is not None else torch.Generator().manual_seed(23)
+
+    def power(op_apply, v, lam):
+        for _ in range(iters):
+            w = op_apply(v)
+            lam = dom.norm(w)
+            v = tr.scale(1.0 / _pos_safe(lam), w)
+        return lam
+
+    v1, n1 = _normalize(dom, dom.randn(g))
+    lmax = power(A, v1, torch.zeros_like(n1)) * safety
+    v2, n2 = _normalize(dom, dom.randn(g))
+    lmin_shift = power(lambda v: tr.xpay(tr.scale(lmax, v), -1.0, A(v)), v2,
+                       torch.zeros_like(n2))
+    lmin = _div(torch.clamp(lmax - safety * lmin_shift, min=0.0), safety)
+    return lmin, lmax

@@ -15,18 +15,15 @@ import jets_tpu as jt
 import jets_tpu_torch as tt
 from jets_tpu.ops.diagonal import diagonal_operator as jax_diagonal
 from jets_tpu.ops.stencil import laplacian_operator as jax_laplacian
+from jets_tpu_torch.ops.diagonal import diagonal_operator
 from jets_tpu_torch.ops.stencil import laplacian_operator
 
 CPU = torch.device("cpu")  # the tests build on the CPU, as a caller asks
 
 
 def _diag(w):
-    """The port's counterpart of jets_tpu.ops.diagonal (not ported yet)."""
-    w = torch.as_tensor(w)
-    sp = tt.space_of(w)
-    return tt.LinearOperator(tt.Jet(
-        dom=sp, rng=sp, df=lambda dm, m0, s: s["w"] * dm,
-        dft=lambda dd, m0, s: torch.conj(s["w"]) * dd, state={"w": w}))
+    """The port's diagonal operator (jets_tpu_torch.ops.diagonal) on the CPU."""
+    return diagonal_operator(w, device=CPU)
 
 
 def _square(sp):
@@ -165,8 +162,14 @@ def test_algebra_structure_bookkeeping():
         tt.compose(_diag(np.ones(3)), _diag(np.ones(4)))
     with pytest.raises(ValueError, match="matching spaces"):
         _diag(np.ones(3)) + _diag(np.ones(4))
+    # a raw 2-D matrix is wrapped as jets_tpu wraps it; a 3-D array is not
+    M = np.arange(12.0).reshape(3, 4)
+    np.testing.assert_allclose(
+        tt.materialize(tt.compose(_diag(np.arange(1.0, 4.0)), M)).numpy(),
+        np.asarray(jt.materialize(jt.compose(jax_diagonal(jnp.arange(1.0, 4.0)), M))),
+        rtol=1e-12)
     with pytest.raises(TypeError):
-        tt.compose(_diag(np.ones(3)), np.eye(3))
+        tt.compose(_diag(np.ones(3)), np.ones((3, 3, 3)))
     with pytest.raises(TypeError, match="complex"):
         tt.scale(1j, _diag(np.ones(3)))
     V = tt.vec(laplacian_operator((3, 4), torch.float64, device=CPU))

@@ -15,8 +15,8 @@ import torch
 
 import jets_tpu_torch as tt
 from jets_tpu_torch.core.spaces import resolve_device
-from jets_tpu_torch.models import seismic
-from jets_tpu_torch.ops import diagonal, stencil, wave
+from jets_tpu_torch.models import configs, seismic
+from jets_tpu_torch.ops import conv, diagonal, matrix, stencil, wave
 
 CONSTRUCTORS = {
     "Space": tt.Space,
@@ -32,6 +32,15 @@ CONSTRUCTORS = {
     "multishot_tti_wave_operator": wave.multishot_tti_wave_operator,
     "q_wave_propagator": wave.q_wave_propagator,
     "diagonal_operator": diagonal.diagonal_operator,
+    "matrix_operator": matrix.matrix_operator,
+    "conv1d_operator": conv.conv1d_operator,
+    "derivative_operator": conv.derivative_operator,
+    "blur2d_operator": stencil.blur2d_operator,
+    "config1_spd_cg": configs.config1_spd_cg,
+    "config2_deconv_lsqr": configs.config2_deconv_lsqr,
+    "config3_deblur_cgls": configs.config3_deblur_cgls,
+    "config4_distributed_lsqr": configs.config4_distributed_lsqr,
+    "config5_seismic3d_pod": configs.config5_seismic3d_pod,
 }
 
 # the smallest call of each constructor, device left out
@@ -55,6 +64,17 @@ CALLS = {
         (8, 8), [9, 20], nt=4, **kw),
     "q_wave_propagator": lambda **kw: wave.q_wave_propagator((4, 8, 8), nt=4, **kw),
     "diagonal_operator": lambda **kw: diagonal.diagonal_operator(np.ones((3, 4)), **kw),
+    "matrix_operator": lambda **kw: matrix.matrix_operator(np.ones((3, 4)), **kw),
+    "conv1d_operator": lambda **kw: conv.conv1d_operator([1.0, 2.0], 5, **kw),
+    "derivative_operator": lambda **kw: conv.derivative_operator(5, **kw),
+    "blur2d_operator": lambda **kw: stencil.blur2d_operator((6, 6), **kw),
+    "config1_spd_cg": lambda **kw: configs.config1_spd_cg(n=8, **kw),
+    "config2_deconv_lsqr": lambda **kw: configs.config2_deconv_lsqr(n=200, **kw),
+    "config3_deblur_cgls": lambda **kw: configs.config3_deblur_cgls(side=16, **kw),
+    "config4_distributed_lsqr": lambda **kw: configs.config4_distributed_lsqr(
+        nblocks=2, grid=(16, 16), nrecv=16, **kw),
+    "config5_seismic3d_pod": lambda **kw: configs.config5_seismic3d_pod(
+        nshots=2, grid=(8, 8, 8), nrecv=8, **kw),
 }
 
 
@@ -78,7 +98,7 @@ def test_leaving_the_device_out_without_a_card_raises(name, monkeypatch):
 @pytest.mark.parametrize("name", sorted(CALLS))
 def test_asking_for_the_cpu_builds_there(name):
     op = CALLS[name](device="cpu")
-    if isinstance(op, tuple):  # make_seismic_problem: (A, m, d)
+    if isinstance(op, tuple):  # make_seismic_problem (A, m, d), configs (A, solve, d, info)
         op = op[0]
     sp = op if isinstance(op, tt.Space) else op.dom
     assert sp.device == torch.device("cpu")

@@ -1,6 +1,7 @@
 """The port stands alone: it never imports JAX, and importing it (and
-solving with LSQR, CG or LSMR, or taking a stored-adjoint isotropic, VTI,
-TTI or constant-Q wave gradient, on the CPU) needs neither nvcc nor triton
+solving with LSQR, CG or LSMR, taking a stored-adjoint isotropic, VTI, TTI
+or constant-Q wave gradient, or solving BASELINE config 3 with CGLS and
+config 1's operator with GMRES, on the CPU) needs neither nvcc nor triton
 nor a built kernel library."""
 import os
 import pathlib
@@ -58,6 +59,15 @@ mq = tt.BlockVector((c, torch.full_like(c, 40.0)), Fq.dom)
 gq = Fq.linearize(mq).H(Fq(mq * 1.02) - Fq(mq))
 assert isinstance(gq, tt.BlockVector) and gq.nblocks == 2
 assert all(bool(torch.isfinite(b).all()) and bool(b.abs().max() > 0) for b in gq)
+from jets_tpu_torch.models import configs
+from jets_tpu_torch.solvers import gmres
+res, rel, A3 = configs.run_config(configs.config3_deblur_cgls, maxiter=20, tol=0.0,
+                                  side=32, device="cpu")
+assert res.iterations == 20 and rel < 0.1 and bool(torch.isfinite(res.history).all())
+Ag = configs.config1_spd_cg(n=24, device="cpu")[0]
+xg = torch.ones(24, dtype=torch.float64)
+rg = gmres(Ag, Ag(xg), maxiter=24, restart=8, tol=1e-12)
+assert float(torch.linalg.vector_norm(rg.x - xg)) < 1e-8
 assert kernels._libs == {}, "the CPU path loaded a kernel library"
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "triton"))
 assert not bad, bad
