@@ -207,6 +207,16 @@ def check_history(res, maxiter, dnorm, phase):
 
 # The BASELINE configurations at their full sizes (``BASELINE.json``): phase,
 # builder, solver budget, the relative-residual threshold of
+# The shapes (and view offsets) at which phase 1 holds the solver-update
+# kernels K1, K6a, K6b and K7 against their plain versions: the 3-D and 2-D
+# flagships, configs 5 and 4, config 1 at float32, then an odd length (vector
+# path + scalar tail) and its offset view (the unaligned scalar path).
+SOLVER_SHAPES = [((256, 256, 256), 0), ((2048, 2048), 0), ((128, 128, 64), 0),
+                 ((128, 128), 0), ((1000,), 0), ((1000003,), 0), ((1000003,), 1)]
+SOLVER_SHAPES_TEXT = ("256^3, 2048^2, 128x128x64, 128^2, 1000 and 1000003 "
+                      "aligned/unaligned")
+
+
 # tests/test_configs.py (float32 config 1: 1e-4, its roundoff floor), dtype
 # (None: the builder's default), the budgets of the marginal ms/iter (config 1
 # stops short of 40: in float32 CG's recursive residual underflows to 0 soon
@@ -394,10 +404,7 @@ def main() -> int:
 
     scal = [torch.tensor(v, device=dev) for v in (0.37, -0.21, 1.7)]
     err = {"xw_update": 0.0, "lap3d_axpy_norm2": 0.0, "laplacian3d": 0.0}
-    # the main path's shapes, then an odd length (vector path + scalar tail)
-    # and its offset views (the unaligned scalar path)
-    for shape, off in [((256, 256, 256), 0), ((2048, 2048), 0), ((1000003,), 0),
-                       ((1000003,), 1)]:
+    for shape, off in SOLVER_SHAPES:
         x, w, vh = (rnd(shape)[off:] for _ in range(3))
         xp, wp = cs.xw_update_torch(x.clone(), w.clone(), vh, *scal)
         xk, wk = x.clone(), w.clone()
@@ -408,11 +415,14 @@ def main() -> int:
         assert torch.equal(xk, xp) and torch.equal(wk, wp), f"K1 not bitwise at {shape}"
         err["xw_update"] = max(err["xw_update"], float((xk - xp).abs().max()),
                                float((wk - wp).abs().max()))
-    z, v = rnd((256, 256, 256)), rnd((256, 256, 256))
-    lap_k, lap_p = cs.laplacian3d(z), cs.laplacian3d_torch(z)
-    torch.cuda.synchronize()
-    assert torch.equal(lap_k, lap_p), "K3 not bitwise"
-    err["laplacian3d"] = float((lap_k - lap_p).abs().max())
+    # K3 at config 5's grid, then the flagship's (whose z is kept for K2)
+    for shape in ((128, 128, 64), (256, 256, 256)):
+        z = rnd(shape)
+        lap_k, lap_p = cs.laplacian3d(z), cs.laplacian3d_torch(z)
+        torch.cuda.synchronize()
+        assert torch.equal(lap_k, lap_p), f"K3 not bitwise at {shape}"
+        err["laplacian3d"] = max(err["laplacian3d"], float((lap_k - lap_p).abs().max()))
+    v = rnd((256, 256, 256))
     s = torch.tensor(-0.43, device=dev)
     vh_k, n2_k = cs.lap3d_axpy_norm2(z, v, s)
     vh_p, _ = cs.lap3d_axpy_norm2_torch(z, v, s)
@@ -422,8 +432,8 @@ def main() -> int:
     n2_ref = float(torch.sum(vh_p.double() ** 2))
     n2_rel = abs(float(n2_k) - n2_ref) / n2_ref
     assert n2_rel <= 1e-5, f"K2 n2 rel err {n2_rel}"
-    log(1, f"K1 bitwise at 256^3, 2048^2 and 1000003 aligned/unaligned (in place); "
-           f"K3 bitwise at 256^3; K2 vh bitwise, n2 rel err {n2_rel:.3e} vs f64 "
+    log(1, f"K1 bitwise at {SOLVER_SHAPES_TEXT} (in place); "
+           f"K3 bitwise at 128x128x64 and 256^3; K2 vh bitwise, n2 rel err {n2_rel:.3e} vs f64 "
            f"(<= 1e-5); max_abs_err {err}")
     del x, w, vh, xp, wp, xk, wk, ro, rw, lap_k, lap_p, vh_k, vh_p
 
@@ -652,8 +662,7 @@ def main() -> int:
     for k in ("cg_update", "p_update", "lsmr_update", "fused_q_step"):
         err[k] = 0.0
     rho_rel = 0.0
-    for shape, off in [((256, 256, 256), 0), ((2048, 2048), 0), ((1000003,), 0),
-                       ((1000003,), 1)]:
+    for shape, off in SOLVER_SHAPES:
         x, r, p, q, h, hb = (rnd(shape)[off:] for _ in range(6))
         ref = cs.cg_update_torch(x.clone(), r.clone(), p, q, alpha)
         o = (x.clone(), r.clone())
@@ -693,8 +702,8 @@ def main() -> int:
             assert out is upk, "K14 not in place"
             assert torch.equal(out, ref), f"K14 not bitwise ({gdt}, order {order})"
             maxerr("fused_q_step", (out,), (ref,))
-    log(1, f"K6a (x, r), K6b and K7 bitwise and in place at 256^3, 2048^2 and 1000003 "
-           f"aligned/unaligned, K6a rho rel err {rho_rel:.3e} vs f64 (<= 1e-6); K14 "
+    log(1, f"K6a (x, r), K6b and K7 bitwise and in place at {SOLVER_SHAPES_TEXT}, "
+           f"K6a rho rel err {rho_rel:.3e} vs f64 (<= 1e-6); K14 "
            "bitwise and in place at 256^3, orders 2/4/8, f32 and bf16 friction fields")
     del ref, upk, out
 

@@ -47,6 +47,13 @@ def as_tensor(x) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x))
 
 
+def true_div(x, v: float):
+    """``x / v`` as a true division on every device (PyTorch turns a
+    division by a Python float on CUDA into a multiply by its reciprocal,
+    which rounds differently from JAX's weak-typed scalar division)."""
+    return x / torch.tensor(v, dtype=x.dtype, device=x.device)
+
+
 def _canon_shape(shape: Sequence[int] | int) -> Tuple[int, ...]:
     if isinstance(shape, int):
         return (int(shape),)

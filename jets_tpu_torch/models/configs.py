@@ -15,7 +15,7 @@ come from ``torch.Generator().manual_seed(seed)`` on the CPU and are then
 moved, so a seed gives the same problem on every device; the JAX package
 draws with ``jax.random``. The drawn arrays can be given instead (config 1
 ``M``, ``w``, ``x_true``; configs 2–3 ``x_true``; configs 4–5 the seismic
-``wr``, ``rcv``), which carries a problem of the JAX package into the port.
+``wr``), which carries a problem of the JAX package into the port.
 Configs 1–3 default to float64, as the JAX builders do; 4–5 to float32.
 """
 from __future__ import annotations
@@ -23,12 +23,11 @@ from __future__ import annotations
 import torch
 
 from ..core.algebra import compose
-from ..core.spaces import as_tensor, resolve_device
+from ..core.spaces import as_tensor, resolve_device, true_div
 from ..ops.conv import conv1d_operator, derivative_operator
 from ..ops.diagonal import diagonal_operator
 from ..ops.matrix import matrix_operator
 from ..ops.stencil import blur2d_operator
-from ..ops.wave import _div
 from ..solvers import cg, cgls, lsqr
 from .seismic import make_seismic_problem
 
@@ -59,7 +58,7 @@ def config1_spd_cg(n: int = 1000, seed: int = 0, dtype: torch.dtype = torch.floa
     w = _draw(w, lambda: 1.0 + torch.rand((n,), generator=g, dtype=dtype), dtype, device)
     x_true = _draw(x_true, lambda: torch.randn((n,), generator=g, dtype=dtype), dtype,
                    device)
-    spd = _div(M @ M.T, float(n)) + 2.0 * torch.eye(n, dtype=dtype, device=device)
+    spd = true_div(M @ M.T, float(n)) + 2.0 * torch.eye(n, dtype=dtype, device=device)
     ws = torch.sqrt(w)
     A = compose(diagonal_operator(ws, device=device), matrix_operator(spd, device=device),
                 diagonal_operator(ws, device=device))
@@ -102,23 +101,23 @@ def config3_deblur_cgls(side: int = 512, seed: int = 0,
 
 def config4_distributed_lsqr(nblocks: int = 64, grid=(128, 128), nrecv: int = 512,
                              seed: int = 0, mesh=None,
-                             dtype: torch.dtype = torch.float32, *, wr=None, rcv=None,
+                             dtype: torch.dtype = torch.float32, *, wr=None,
                              device: torch.device | str | None = None):
     """The multi-shot seismic operator with ``nblocks`` shots on a 2-D grid,
     solved by LSQR. ``mesh`` must be None (distribution is ROADMAP queue 1
     item 18; the JAX package reduces the adjoint with a psum over it)."""
-    A, m_true, d = make_seismic_problem(grid, nblocks, nrecv, seed=seed, wr=wr, rcv=rcv,
+    A, m_true, d = make_seismic_problem(grid, nblocks, nrecv, seed=seed, wr=wr,
                                         mesh=mesh, noise=0.02, dtype=dtype, device=device)
     return A, (lambda op, b, **kw: lsqr(op, b, **kw)), d, {"m_true": m_true}
 
 
 def config5_seismic3d_pod(nshots: int = 256, grid=(128, 128, 64), nrecv: int = 2048,
                           seed: int = 0, mesh=None, dtype: torch.dtype = torch.float32,
-                          *, wr=None, rcv=None,
+                          *, wr=None,
                           device: torch.device | str | None = None):
     """The 3-D linearized seismic operator over ``nshots`` shots, solved by
     LSQR. ``mesh`` must be None (distribution is ROADMAP queue 1 item 18)."""
-    A, m_true, d = make_seismic_problem(grid, nshots, nrecv, seed=seed, wr=wr, rcv=rcv,
+    A, m_true, d = make_seismic_problem(grid, nshots, nrecv, seed=seed, wr=wr,
                                         mesh=mesh, noise=0.02, dtype=dtype, device=device)
     return A, (lambda op, b, **kw: lsqr(op, b, **kw)), d, {"m_true": m_true}
 

@@ -17,9 +17,8 @@ from __future__ import annotations
 import torch
 
 from ..core.jet import Jet, LinearOperator
-from ..core.spaces import Space, as_tensor
+from ..core.spaces import Space, as_tensor, true_div
 from .stencil import _correlate
-from .wave import _div
 
 __all__ = ["conv1d_operator", "convnd_operator", "derivative_operator",
            "gradient_operator"]
@@ -49,7 +48,7 @@ def conv1d_operator(kernel, n: int, dtype: torch.dtype = torch.float32,
 def _deriv_df(dm, m0, state):
     # forward difference with a zero boundary: d[i] = (m[i+1] - m[i]) / dx,
     # a true division (a Python float divisor is a reciprocal multiply on CUDA)
-    d = _div(dm[1:] - dm[:-1], state["dx"])
+    d = true_div(dm[1:] - dm[:-1], state["dx"])
     return torch.cat([d, torch.zeros((1,), dtype=dm.dtype, device=dm.device)])
 
 

@@ -67,7 +67,7 @@ import torch
 
 from ..core.blockspace import BlockSpace, BlockVector
 from ..core.jet import Jet, LinearOperator, Operator, with_state
-from ..core.spaces import Space
+from ..core.spaces import Space, true_div
 from ..parallel.sharded import stacked_block_operator
 from ..utils.tree import tmap
 from . import cuda_tti, cuda_vti, cuda_wave
@@ -197,16 +197,9 @@ def _resample_transpose(resample, nt, nrcv, dtype):
     return rt
 
 
-def _div(x, v: float):
-    """``x / v`` as a true division on every device (PyTorch turns a
-    division by a Python float on CUDA into a multiply by its reciprocal,
-    which rounds differently from JAX's weak-typed scalar division)."""
-    return x / torch.tensor(v, dtype=x.dtype, device=x.device)
-
-
 def _c2dt2(c, dt: float, dx: float):
     """``(c*c) * (dt*dt) / (dx*dx)``, rounded as the JAX package rounds it."""
-    return _div((c * c) * (dt * dt), dx * dx)
+    return true_div((c * c) * (dt * dt), dx * dx)
 
 
 def _store_codec(store: str, dtype):
@@ -228,7 +221,7 @@ def _store_codec(store: str, dtype):
                               torch.tensor(1e-30, dtype=dtype, device=u.device))
             return torch.round(u * (torch.full_like(s, 127.0) / s)).to(torch.int8), s
 
-        return enc, (lambda q, s: q.to(dtype) * _div(s, 127.0))
+        return enc, (lambda q, s: q.to(dtype) * true_div(s, 127.0))
     raise ValueError(f"store must be one of {_STORES}, got {store!r}")
 
 
@@ -399,7 +392,7 @@ def _adjoint_stored(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
                 out=None if store == "f32" else u_prev)
             u_prev, u = u, u_next
         del u_prev, u, u_next  # the history holds what the reverse sweep needs
-        scs = (_div(torch.stack(scales), 127.0) if store == "int8"
+        scs = (true_div(torch.stack(scales), 127.0) if store == "int8"
                else torch.ones(nt, dtype=dtype, device=dev))
         a1 = inject(dd[-1])
         a2 = torch.zeros(shape, dtype=dtype, device=dev)
@@ -879,7 +872,7 @@ def _adjoint_stored_vti(c, eps, delta, dd, src_wavelet, src_idx, rcv_idx, *, dt,
             scale = nxt  # snapshot k+1's scales, from this step's partial maxima
             pp, p, qp, q = p, p_next, q, q_next
         del pp, p, qp, q, p_next, q_next  # the history holds what the sweep needs
-        decs = (_div(torch.stack(scales), 127.0) if store == "int8"
+        decs = (true_div(torch.stack(scales), 127.0) if store == "int8"
                 else torch.ones((nt, 2), dtype=dtype, device=dev))
         ap1 = inject(dd[-1])
         aq1, ap2, aq2, gC, gah, gav = (zeros() for _ in range(6))
@@ -1300,7 +1293,7 @@ def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet, src_idx, r
             scale = nxt  # snapshot k+1's scales, from this step's partial maxima
             pp, p, qp, q = p, p_next, q, q_next
         del pp, p, qp, q, p_next, q_next  # the history holds what the sweep needs
-        decs = (_div(torch.stack(scales), 127.0) if store == "int8"
+        decs = (true_div(torch.stack(scales), 127.0) if store == "int8"
                 else torch.ones((nt, 2), dtype=dtype, device=dev))
         ap1 = inject(dd[-1])
         aq1, ap2, aq2 = (zeros() for _ in range(3))

@@ -36,8 +36,8 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..core.jet import AdjointOperator, LinearOperator
+from ..core.spaces import true_div
 from ..ops.cuda_solver import cg_update, lsmr_update, p_update, xw_update
-from ..ops.wave import _div
 from ..utils import tree as tr
 
 __all__ = ["cg", "cgls", "lsqr", "lsmr", "minres", "bicgstab", "gmres", "chebyshev",
@@ -885,5 +885,5 @@ def estimate_spectral_bounds(
     v2, n2 = _normalize(dom, dom.randn(g))
     lmin_shift = power(lambda v: tr.xpay(tr.scale(lmax, v), -1.0, A(v)), v2,
                        torch.zeros_like(n2))
-    lmin = _div(torch.clamp(lmax - safety * lmin_shift, min=0.0), safety)
+    lmin = true_div(torch.clamp(lmax - safety * lmin_shift, min=0.0), safety)
     return lmin, lmax
