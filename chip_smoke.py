@@ -45,7 +45,18 @@ deblurring on 512², LSQR on the 64-shot 128² and the 256-shot
 128 × 128 × 64 seismic operators (K1, and K3 in 3-D), each with its
 dot-product gate, its residual threshold, the card against the CPU and
 its ms per iteration, then MINRES, BiCGStab, GMRES(20) and Chebyshev on
-config 1's operator. Each path runs with the kernels' launch counts set to
+config 1's operator — and the eighth, the FWI inversion path at the wave
+stages' geometry: bounded L-BFGS (``lbfgs`` on
+``least_squares_objective``) over 16 shots in overlapping Ginsu windows
+of (256, 128, 128) with int8 histories, the windowed gradient against
+explicit slices and the windowed Born gate, NLCG on the VTI int8 gradient
+with velocity-only bounds, Gauss–Newton with CGLS on 4 shots,
+``remat_blocks`` 12 against 1 (traces and autograd gradients bitwise, peak
+memory; VTI, TTI and Q at (32, 64, 128)), and CPML
+(``cpml_wave_propagator``, its Born gates, its reflection against the
+sponge's, and 2 shots of ``multishot_wave_operator(boundary="cpml")``),
+each solve's launches held against its objective evaluations. Each path
+runs with the kernels' launch counts set to
 0 just before it and read just after. Every phase asserts; a failure
 raises and exits non-zero. Every entry point runs on the card by default;
 the CPU runs ask for ``device="cpu"``.
@@ -216,6 +227,22 @@ SOLVER_SHAPES = [((256, 256, 256), 0), ((2048, 2048), 0), ((128, 128, 64), 0),
 SOLVER_SHAPES_TEXT = ("256^3, 2048^2, 128x128x64, 128^2, 1000 and 1000003 "
                       "aligned/unaligned")
 
+# The shapes at which phase 1 holds the wave kernels against their plain
+# versions, one list per kernel family: the 256^3 flagship first, then every
+# other shape that the FWI phases give the kernels (phase 45's Ginsu windows
+# and those of its card-vs-CPU check, phase 46's windows, phase 49's remat
+# grid) and, for K11-K13, two ragged shapes. The FWI phases assert that the
+# shapes they run are listed here.
+ISO_SHAPES = ((256, 256, 256), (256, 128, 128), (32, 32, 32), (48, 32, 32),
+              (32, 64, 128))  # K4, K5
+VTI_SHAPES = ((256, 256, 256), (32, 64, 128))  # K8, K9, K10
+TTI_SHAPES = ((256, 256, 256), (37, 45, 70), (5, 19, 33), (32, 64, 128))  # K11-K13
+Q_SHAPES = ((256, 256, 256), (32, 64, 128))  # K14
+
+
+def shapes_text(shapes):
+    return ", ".join("x".join(map(str, s)) for s in shapes)
+
 
 # tests/test_configs.py (float32 config 1: 1e-4, its roundoff floor), dtype
 # (None: the builder's default), the budgets of the marginal ms/iter (config 1
@@ -336,6 +363,416 @@ def baseline_configs(smi):
     return launched
 
 
+def _counts():
+    """The launch counts of every wave kernel (K4, K5, K14; K8-K10; K11-K13)."""
+    from jets_tpu_torch.ops import cuda_tti as ct
+    from jets_tpu_torch.ops import cuda_vti as cv
+    from jets_tpu_torch.ops import cuda_wave as cw
+    return {**cw.launch_counts(), **cv.launch_counts(), **ct.launch_counts()}
+
+
+def _reset_counts():
+    from jets_tpu_torch.ops import cuda_tti as ct
+    from jets_tpu_torch.ops import cuda_vti as cv
+    from jets_tpu_torch.ops import cuda_wave as cw
+    for mod in (cw, cv, ct):
+        mod.reset_launch_counts()
+
+
+def _launched(before):
+    """The launches of each wave kernel since ``before``, zeros left out."""
+    return {k: n - before[k] for k, n in _counts().items() if n != before[k]}
+
+
+def _counted(fg):
+    """``fg`` with a count of its calls (the objective evaluations)."""
+    calls = [0]
+
+    def wrapped(m):
+        calls[0] += 1
+        return fg(m)
+
+    return wrapped, calls
+
+
+def fwi_inversion(smi, c_true, wkw):
+    """Phases 45-51, the FWI inversion path at the wave stages' geometry
+    (256^3 f32, order 2, dt 5e-4, dx 10, 15 Hz, sponge 12): bounded L-BFGS
+    on 16 Ginsu-windowed shots with int8 histories (K4, K5), the windowed
+    gradient against explicit slices and the windowed Born gate, NLCG on
+    the VTI gradient with velocity-only bounds (K8-K10), Gauss-Newton with
+    CGLS on 4 shots (K4, K5), ``remat_blocks`` against one segment (iso at
+    256^3; VTI, TTI and Q at (32, 64, 128)), and CPML. Each solve runs with
+    the launch counts set to 0 just before it and read just after, and holds
+    them exactly against the objective evaluations it made. Returns the
+    kernels' launches of the counted runs."""
+    from jets_tpu_torch import BlockVector, dot_product_test
+    from jets_tpu_torch.ops.wave import (born_operator, cpml_wave_propagator,
+                                         multishot_tti_wave_operator,
+                                         multishot_vti_wave_operator,
+                                         multishot_wave_operator, q_wave_propagator,
+                                         tti_wave_propagator, vti_wave_propagator,
+                                         wave_propagator)
+    from jets_tpu_torch.solvers import gauss_newton, lbfgs, least_squares_objective, nlcg
+
+    dev = c_true.device
+    wshape = tuple(c_true.shape)
+    launched = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launched[k] = launched.get(k, 0) + n
+
+    def finite(t, name):
+        leaves = t.blocks if isinstance(t, BlockVector) else (t,)
+        assert all(bool(torch.isfinite(x).all()) for x in leaves), f"{name} not finite"
+
+    # ---- phase 45: bounded L-BFGS on 16 windowed shots -------------------------
+    # windows of (256, 128, 128) at y, x corners on a 4 x 4 lattice of step 42/43:
+    # neighbouring windows overlap by 85 of their 128 points
+    lattice = (0, 43, 85, 128)
+    corners = np.array([(0, y, x) for y in lattice for x in lattice])
+    win = (256, 128, 128)
+    nsh, nt = len(corners), 120
+    assert wshape in ISO_SHAPES and win in ISO_SHAPES, "phase 1 did not check K4/K5 here"
+    wsrc = int(np.ravel_multi_index((128, 64, 64), win))  # each window's centre
+    wrcv = [int(np.ravel_multi_index((128, 64, x), win)) for x in range(128)]
+    lkw = dict(dt=wkw["dt"], dx=wkw["dx"], freq=wkw["freq"], sponge_width=12,
+               store_adjoint="int8", shot_map="map")
+    F = multishot_wave_operator(wshape, [wsrc] * nsh, nt=nt, rcv_idx=wrcv,
+                                window_shape=win, window_corners=corners, **lkw)
+    d_obs = F(c_true)
+    finite(d_obs, "observed data")
+    objective = least_squares_objective(F, d_obs)
+    fg, calls = _counted(objective)
+    c0 = torch.full(wshape, 1500.0, device=dev)
+    phi0 = float(fg(c0)[0])
+    calls[0] = 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    b = _counts()
+    t0 = time.perf_counter()
+    res = lbfgs(fg, c0, maxiter=3, mem=5, bounds=(1400.0, 1700.0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _launched(b)
+    peak = torch.cuda.max_memory_allocated()
+    peak_gib, above_gib = peak / 2**30, (peak - base) / 2**30
+    per = {"fused_leapfrog_step": 2 * nsh * nt, "fused_adjoint_step": nsh * nt}
+    assert got == {k: calls[0] * n for k, n in per.items()}, (got, calls[0])
+    add(got)
+    finite(res.history, "L-BFGS history")
+    assert res.iterations == 3, res.iterations
+    assert float(res.phi) < phi0, f"phi {float(res.phi)} not below fg(c0) {phi0}"
+    assert float(res.m.min()) >= 1400.0 and float(res.m.max()) <= 1700.0, "left the box"
+    b = _counts()
+    sh, wall1, nev, top = busy_share(lambda: objective(res.m))
+    add(_launched(b))
+    # the same windowed objective, scaled down, on the card and on the CPU
+    sgrid, swin = (32, 64, 64), (32, 32, 32)
+    assert swin in ISO_SHAPES, "phase 1 did not check K4/K5 at the small windows"
+    scorners = corners // 4
+    ssrc = int(np.ravel_multi_index((16, 16, 16), swin))
+    srcv = [int(np.ravel_multi_index((16, 16, x), swin)) for x in range(32)]
+    c_s = c_true[::8, ::4, ::4].contiguous()
+
+    def small(device):
+        Fs = multishot_wave_operator(sgrid, [ssrc] * nsh, nt=60, rcv_idx=srcv,
+                                     window_shape=swin, window_corners=scorners,
+                                     device=device, **lkw)
+        return least_squares_objective(Fs, Fs(c_s.to(device)))
+
+    phis, gs = small(dev)(torch.full(sgrid, 1480.0, device=dev))
+    phic, gc = small("cpu")(torch.full(sgrid, 1480.0))
+    rphi = abs(float(phis) - float(phic)) / abs(float(phic))
+    rg = rel(gs.cpu(), gc)
+    assert rphi <= 1e-5 and rg <= 1e-5, (rphi, rg)
+    log(45, f"bounded L-BFGS, {nsh} shots in Ginsu windows {win} of 256^3 (corners y, x "
+            f"in {lattice}), nt={nt}, map, int8: 3 iterations, {calls[0]} objective "
+            f"evaluations; launches {got} = evaluations x (K4 {2 * nsh * nt}, K5 "
+            f"{nsh * nt}); phi {phi0:.6e} -> {float(res.phi):.6e}, history "
+            + ", ".join(f"{float(h):.6e}" for h in res.history)
+            + f"; model in [{float(res.m.min()):.3f}, {float(res.m.max()):.3f}] within "
+            f"(1400, 1700); {1e3 * wall / calls[0]:.1f} ms per objective evaluation, "
+            f"{1e3 * wall / res.iterations:.1f} ms per L-BFGS iteration (the start's "
+            f"evaluation included), peak device memory {peak_gib:.2f} GiB ({above_gib:.2f} "
+            "above the phase's start); one evaluation under the profiler: "
+            + ("device busy not measured" if sh is None else
+               f"device busy {sh:.3f} of {wall1:.1f} ms")
+            + f" ({nev} device events; top kernels, us total/count: "
+            + "; ".join(f"{nm} {t:.0f}/{c}" for nm, (t, c) in top)
+            + f"); card vs CPU on {sgrid} windows {swin}: phi rel {rphi:.3e}, gradient "
+            f"rel {rg:.3e} (<= 1e-5) [{smi}]")
+    del F, d_obs, res, fg
+
+    # ---- phase 46: windowed gradient against explicit slices; Born gate --------
+    ggrid, gwin = (48, 64, 64), (48, 32, 32)
+    assert gwin in ISO_SHAPES, "phase 1 did not check K4/K5 at phase 46's windows"
+    gcorners = np.array([(0, 0, 0), (0, 16, 24), (0, 32, 8)])  # overlapping
+    gsrc = int(np.ravel_multi_index((24, 16, 16), gwin))
+    grcv = [int(np.ravel_multi_index((24, 16, x), gwin)) for x in range(32)]
+    c_g = c_true[::5, ::4, ::4][:48].contiguous()
+    gkw = dict(dt=wkw["dt"], dx=wkw["dx"], freq=wkw["freq"], sponge_width=6, nt=80)
+    Fw = multishot_wave_operator(ggrid, [gsrc] * 3, rcv_idx=grcv, window_shape=gwin,
+                                 window_corners=gcorners, store_adjoint="int8",
+                                 shot_map="map", **gkw)
+    dd = torch.randn(Fw.rng.shape, generator=torch.Generator().manual_seed(5)).to(dev)
+    b = _counts()
+    gw = Fw.linearize(c_g).H(dd)
+    add(_launched(b))
+    want = torch.zeros(ggrid, device=dev)
+    single = wave_propagator(gwin, src_idx=gsrc, rcv_idx=grcv, store_adjoint="int8", **gkw)
+    for k, (z, y, x) in enumerate(gcorners):
+        sl = (slice(z, z + 48), slice(y, y + 32), slice(x, x + 32))
+        want[sl] += single.linearize(c_g[sl].contiguous()).H(dd[k])
+    finite(gw, "windowed gradient")
+    assert torch.equal(gw, want), f"windowed gradient vs slices rel {rel(gw, want)}"
+    Fb = multishot_wave_operator(ggrid, [gsrc] * 3, rcv_idx=grcv, window_shape=gwin,
+                                 window_corners=gcorners, store_adjoint="f32",
+                                 shot_map="map", **gkw)
+    J = born_operator(Fb, c_g)
+    gb = torch.Generator().manual_seed(6)
+    lhs, rhs = dot_product_test(J, J.dom.randn(gb), J.rng.randn(gb))
+    gate = abs(float(lhs) - float(rhs)) / abs(float(rhs))
+    assert gate <= 1e-4, f"windowed Born gate rel {gate}"
+    log(46, f"{ggrid} in 3 overlapping windows {gwin}, nt=80, int8: the stacked adjoint "
+            "equals the single-shot gradients on the explicit slices scattered back, "
+            f"bitwise; windowed Born operator (f32 history) dot-product gate rel "
+            f"{gate:.3e} (<= 1e-4) [{smi}]")
+    del Fw, Fb, J, gw, want
+
+    # ---- phase 47: NLCG on the VTI gradient, velocity-only bounds --------------
+    vnt = 160
+    assert wshape in VTI_SHAPES, "phase 1 did not check K8-K10 at this grid"
+    src0 = int(np.ravel_multi_index((128, 128, 128), wshape))
+    Fv = vti_wave_propagator(wshape, nt=vnt, src_idx=src0, store_adjoint="int8", **wkw)
+
+    def vti(c, eps, delta):
+        return BlockVector((c, torch.full(wshape, eps, device=dev),
+                            torch.full(wshape, delta, device=dev)), Fv.dom)
+
+    dv_obs = Fv(vti(c_true, 0.12, 0.06))
+    fgv, vcalls = _counted(least_squares_objective(Fv, dv_obs))
+    # the true velocity (1422.7 to 1506.9 m/s) in a box of [1450, 1500], which
+    # the solve must clamp it into at both ends; eps and delta are free
+    c_lo, c_hi = 1450.0, 1500.0
+    inf = torch.full(wshape, float("inf"), device=dev)
+    lo = BlockVector((torch.full(wshape, c_lo, device=dev), -inf, -inf), Fv.dom)
+    hi = BlockVector((torch.full(wshape, c_hi, device=dev), inf, inf), Fv.dom)
+    mv0 = vti(c_true, 0.1, 0.05)
+    phiv0 = float(fgv(vti(c_true.clamp(c_lo, c_hi), 0.1, 0.05))[0])
+    vcalls[0] = 0
+    _reset_counts()
+    b = _counts()
+    t0 = time.perf_counter()
+    rv = nlcg(fgv, mv0, maxiter=2, bounds=(lo, hi))
+    torch.cuda.synchronize()
+    wall_v = time.perf_counter() - t0
+    got = _launched(b)
+    assert got == {"fused_vti_step": vcalls[0] * vnt, "fused_vti_hist_step": vcalls[0] * vnt,
+                   "fused_vti_adjoint_step": vcalls[0] * vnt}, (got, vcalls[0])
+    add(got)
+    finite(rv.m, "VTI model")
+    cv_, ev_, dv_ = rv.m.blocks
+    assert rv.iterations == 2 and float(rv.phi) < phiv0, (rv.iterations, float(rv.phi))
+    assert float(cv_.min()) == c_lo and float(cv_.max()) == c_hi, "c not clamped to its box"
+    assert bool((ev_ != 0.1).any()) and bool((dv_ != 0.05).any()), "eps/delta did not move"
+    n_lo, n_hi = int((cv_ == c_lo).sum()), int((cv_ == c_hi).sum())
+    log(47, f"NLCG on the VTI int8 gradient, 256^3, nt={vnt}, model (c, eps, delta) from "
+            f"(c_true, 0.1, 0.05) against data of (c_true, 0.12, 0.06), c bounded to "
+            f"[{c_lo:g}, {c_hi:g}], eps and delta unbounded: 2 iterations, "
+            f"{vcalls[0]} objective evaluations, launches {got} (K8 = K9 = K10 = "
+            f"evaluations x {vnt}); phi at the clamped start {phiv0:.6e} -> "
+            f"{float(rv.phi):.6e}; c in [{float(cv_.min()):.4f}, {float(cv_.max()):.4f}] "
+            f"({n_lo} points on the lower bound, {n_hi} on the upper), eps in "
+            f"[{float(ev_.min()):.6f}, {float(ev_.max()):.6f}], delta in "
+            f"[{float(dv_.min()):.6f}, {float(dv_.max()):.6f}]; "
+            f"{1e3 * wall_v / vcalls[0]:.1f} ms per objective evaluation [{smi}]")
+    del Fv, dv_obs, rv, fgv, lo, hi, mv0, inf
+
+    # ---- phase 48: Gauss-Newton with CGLS on 4 shots --------------------------
+    gsrcs = np.ravel_multi_index((np.full(4, 128), np.full(4, 128), 40 + 58 * np.arange(4)),
+                                 wshape)
+    Fgn = multishot_wave_operator(wshape, gsrcs, nt=nt, store_adjoint="int8",
+                                  shot_map="map", **wkw)
+    dgn = Fgn(c_true)
+    _reset_counts()
+    b = _counts()
+    t0 = time.perf_counter()
+    rgn = gauss_newton(Fgn, dgn, torch.full(wshape, 1500.0, device=dev), outer_iters=2,
+                       inner_iters=3)
+    torch.cuda.synchronize()
+    wall_gn = time.perf_counter() - t0
+    got = _launched(b)
+    # per outer iteration: F(m), then CGLS: A^H b, and per inner iteration A p
+    # (the primal under torch.func.jvp) and A^H r; then the last residual's F(m)
+    its = rgn.inner_iterations
+    sweeps = 4 * nt
+    want = {"fused_leapfrog_step": sweeps * (len(its) + 1 + sum(1 + 2 * i for i in its)),
+            "fused_adjoint_step": sweeps * sum(1 + i for i in its)}
+    assert got == want, (got, want, its)
+    add(got)
+    finite(rgn.m, "Gauss-Newton model")
+    r = rgn.residuals
+    assert len(r) == 3 and r[-1] < r[0], r
+    log(48, f"Gauss-Newton, 4 shots of 256^3, nt={nt}, map, int8, outer 2 x CGLS 3: "
+            f"inner iterations {its}; residual norms " + ", ".join(f"{x:.6e}" for x in r)
+            + f"; launches {got}; {wall_gn:.2f} s [{smi}]")
+    del Fgn, dgn, rgn
+
+    # ---- phase 49: remat_blocks 1 vs 12 at 256^3; VTI, TTI, Q small ------------
+    d_ref = wave_propagator(wshape, nt=nt, src_idx=src0, **wkw)(c_true)
+
+    def loss_grad(Fr, m, target):
+        leaves = [t.clone().requires_grad_() for t in
+                  (m.blocks if isinstance(m, BlockVector) else (m,))]
+        mm = BlockVector(leaves, m.space) if isinstance(m, BlockVector) else leaves[0]
+        out = Fr(mm)
+        r_ = out - target
+        grads = torch.autograd.grad(0.5 * torch.sum(r_ * r_), leaves)
+        return out.detach(), grads
+
+    rem = {}
+    for rb in (1, 12):
+        Fr = wave_propagator(wshape, nt=nt, src_idx=src0, remat_blocks=rb, **wkw)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        b = _counts()
+        t0 = time.perf_counter()
+        out, (g,) = loss_grad(Fr, torch.full(wshape, 1500.0, device=dev), d_ref)
+        torch.cuda.synchronize()
+        rem[rb] = (out, g, (torch.cuda.max_memory_allocated() - base) / 2**30,
+                   time.perf_counter() - t0, _launched(b))
+        add(rem[rb][4])
+    (o1, g1, m1, t1, n1), (o12, g12, m12, t12, n12) = rem[1], rem[12]
+    finite(g1, "autograd gradient")
+    assert n1 == {"fused_leapfrog_step": nt} and n12 == {"fused_leapfrog_step": 2 * nt}, \
+        (n1, n12)
+    assert torch.equal(o1, o12), "remat traces differ"
+    g_bitwise = bool(torch.equal(g1, g12))
+    assert g_bitwise or rel(g12, g1) <= 1e-6, f"remat gradient rel {rel(g12, g1)}"
+    assert m12 < m1, f"remat peak {m12} GiB not below {m1} GiB"
+    small_msgs = []
+    sshape = (32, 64, 128)
+    assert all(sshape in sh for sh in (ISO_SHAPES, VTI_SHAPES, TTI_SHAPES, Q_SHAPES)), \
+        "phase 1 did not check K4, K8, K11 and K14 at the remat grid"
+    ssrc = int(np.ravel_multi_index((16, 32, 64), sshape))
+    srcv2 = [int(np.ravel_multi_index((16, 32, x), sshape)) for x in range(128)]
+    skw = dict(nt=24, dt=wkw["dt"], dx=wkw["dx"], freq=wkw["freq"], src_idx=ssrc,
+               rcv_idx=srcv2, sponge_width=6)
+    cs_ = c_true[::8, ::4, ::2].contiguous()
+
+    def full(v):
+        return torch.full(sshape, v, device=dev)
+
+    shots = [ssrc, ssrc + 16]  # map-mode stacks of two shots
+    mkw2 = {k: v for k, v in skw.items() if k != "src_idx"}
+
+    def vti_m(dom):
+        return BlockVector((cs_, full(0.1), full(0.05)), dom)
+
+    def tti_m(dom):
+        return BlockVector((cs_, full(0.1), full(0.05), full(0.2), full(0.7)), dom)
+
+    # every propagator that takes remat_blocks: (constructor, model, shots)
+    cases = {
+        "VTI": (lambda **r: vti_wave_propagator(sshape, **skw, **r), vti_m, 1),
+        "TTI": (lambda **r: tti_wave_propagator(sshape, **skw, **r), tti_m, 1),
+        "Q": (lambda **r: q_wave_propagator(sshape, **skw, **r),
+              lambda dom: BlockVector((cs_, full(40.0)), dom), 1),
+        "iso multishot": (lambda **r: multishot_wave_operator(
+            sshape, shots, shot_map="map", **mkw2, **r), lambda dom: cs_, 2),
+        "VTI multishot": (lambda **r: multishot_vti_wave_operator(
+            sshape, shots, shot_map="map", **mkw2, **r), vti_m, 2),
+        "TTI multishot": (lambda **r: multishot_tti_wave_operator(
+            sshape, shots, shot_map="map", **mkw2, **r), tti_m, 2),
+    }
+    for name, (ctor, model, nshots) in cases.items():
+        outs = []
+        for rb in (1, 4):
+            Fs = ctor(remat_blocks=rb)
+            ms_ = model(Fs.dom)
+            b = _counts()
+            outs.append(loss_grad(Fs, ms_, torch.zeros(Fs.rng.shape, device=dev)))
+            n = _launched(b)
+            want_n = (1 if rb == 1 else 2) * 24 * nshots
+            assert n and all(v == want_n for v in n.values()), (name, n)
+            add(n)
+        (oa, ga), (ob, gb_) = outs
+        assert torch.equal(oa, ob), f"{name} remat traces differ"
+        for i, (x, y) in enumerate(zip(ga, gb_)):
+            finite(x, f"{name} gradient {i}")
+            assert torch.equal(x, y), f"{name} remat gradient {i} rel {rel(y, x)}"
+        small_msgs.append(f"{name} {list(n)} bitwise ({len(ga)} blocks)")
+    log(49, f"remat_blocks 1 vs 12, wave_propagator 256^3, nt={nt}, gradient of "
+            "0.5||F(c) - d||^2 by torch.autograd: traces bitwise, gradient "
+            + ("bitwise" if g_bitwise else f"rel {rel(g12, g1):.3e} (<= 1e-6)")
+            + f"; K4 {nt} vs {2 * nt} launches (the segments recompute through K4); peak "
+            f"device memory above the start {m1:.2f} vs {m12:.2f} GiB; {t1:.2f} vs "
+            f"{t12:.2f} s; at {sshape}, nt=24, remat 1 vs 4 on the kernel route (the "
+            "multishot stacks: 2 shots in map mode): "
+            + ", ".join(small_msgs) + f" [{smi}]")
+    del rem, o1, g1, o12, g12, d_ref
+
+    # ---- phase 50: CPML at 256^3 -----------------------------------------------
+    ckw = dict(dt=wkw["dt"], dx=wkw["dx"], freq=wkw["freq"], rcv_idx=wkw["rcv_idx"],
+               pml_width=12, cmax=2000.0)
+    Fc = cpml_wave_propagator(wshape, nt=220, src_idx=src0, **ckw)
+    t0 = time.perf_counter()
+    dc = Fc(c_true)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    finite(dc, "CPML traces")
+    assert float(dc.abs().max()) > 0, "CPML traces are zero"
+    b = _counts()
+    Fcg = cpml_wave_propagator(wshape, nt=60, src_idx=src0, remat_blocks=6, **ckw)
+    J = born_operator(Fcg, c_true)
+    gb = torch.Generator().manual_seed(7)
+    lhs, rhs = dot_product_test(J, J.dom.randn(gb), J.rng.randn(gb))
+    gate32 = abs(float(lhs) - float(rhs)) / abs(float(rhs))
+    assert gate32 <= 1e-4, f"CPML f32 Born gate rel {gate32}"
+    J64 = born_operator(cpml_wave_propagator((20, 20), nt=40, dt=8e-4, dx=10.0, freq=18.0,
+                                             src_idx=210, pml_width=4, cmax=2500.0,
+                                             dtype=torch.float64),
+                        torch.full((20, 20), 2000.0, dtype=torch.float64, device=dev))
+    lhs, rhs = dot_product_test(J64, J64.dom.randn(gb), J64.rng.randn(gb))
+    gate64 = abs(float(lhs) - float(rhs)) / abs(float(rhs))
+    assert gate64 <= 1e-9, f"CPML f64 Born gate rel {gate64}"
+    # reflection: a centred pulse in 64^3 run until it has crossed the boundary
+    # and come back, all points recorded, with CPML and with the sponge
+    rshape, rw = (64, 64, 64), 10
+    rkw = dict(nt=300, dt=1e-3, dx=10.0, freq=15.0,
+               src_idx=int(np.ravel_multi_index((32, 32, 32), rshape)),
+               rcv_idx=np.arange(64 ** 3))
+    c_r = torch.full(rshape, 2000.0, device=dev)
+    ratios = {}
+    for kind, Fr in (("cpml", cpml_wave_propagator(rshape, pml_width=rw, cmax=2000.0,
+                                                   **rkw)),
+                     ("sponge", wave_propagator(rshape, sponge_width=rw, fused=False,
+                                                **rkw))):
+        tr_ = Fr(c_r)
+        inner = tr_[-1].reshape(rshape)[rw + 4:-(rw + 4), rw + 4:-(rw + 4), rw + 4:-(rw + 4)]
+        ratios[kind] = float(inner.abs().max() / tr_.abs().max())
+        del tr_
+    assert ratios["cpml"] < 0.05 * ratios["sponge"], ratios
+    Fmc = multishot_wave_operator(wshape, [src0, src0 + 40], nt=60, boundary="cpml",
+                                  shot_map="map", cmax=2000.0, **wkw)
+    dmc = Fmc(c_true)
+    finite(dmc, "CPML multishot traces")
+    d1c = cpml_wave_propagator(wshape, nt=60, src_idx=src0 + 40, **ckw)(c_true)
+    assert torch.equal(dmc[1], d1c), f"CPML shot 1 vs single shot rel {rel(dmc[1], d1c)}"
+    assert _launched(b) == {}, "a CPML run launched a kernel"
+    log(50, f"CPML 256^3, nt=220 forward in {t_fwd:.2f} s (plain PyTorch); Born "
+            f"dot-product gate f32 256^3 nt=60 (remat_blocks 6) rel {gate32:.3e} (<= 1e-4), "
+            f"f64 20^2 rel {gate64:.3e} (<= 1e-9); reflection at 64^3, width {rw}: CPML "
+            f"{ratios['cpml']:.3e} vs sponge {ratios['sponge']:.3e} of the peak; 2-shot "
+            f"CPML multishot at 256^3, shot 1 bitwise the single-shot propagator [{smi}]")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -437,78 +874,99 @@ def main() -> int:
            f"(<= 1e-5); max_abs_err {err}")
     del x, w, vh, xp, wp, xk, wk, ro, rw, lap_k, lap_p, vh_k, vh_p
 
-    # K4 and K5 at the wave path's shape, every order and history type,
-    # bitwise against the plain versions, and in place
-    wshape = (256, 256, 256)
-    D, H, W = wshape
+    # K4 and K5 at every shape of ISO_SHAPES, every order and history type,
+    # bitwise against the plain versions, and in place; the 256^3 fields stay
+    # for the timings of phase 12
+    def sponges(shape):
+        return tuple(torch.linspace(lo, 1.0, n, device=dev)
+                     for lo, n in zip((0.9, 0.8, 0.7), shape))
+
+    def centre(shape):
+        return int(np.ravel_multi_index(tuple(n // 2 for n in shape), shape))
+
+    def iso_kernels_check(up, u, a1, a2, g2, c2, spz, spy, spx, src):
+        """K4 and K5 against their plain versions; returns the histories of u."""
+        shape = tuple(u.shape)
+        for order in (2, 4, 8):
+            ref = cw.fused_leapfrog_step_torch(up, u, c2, spz, spy, spx, s_t, src, amp,
+                                               order=order)
+            upk = up.clone()
+            out = cw.fused_leapfrog_step(upk, u, c2, spz, spy, spx, s_t, src, amp,
+                                         order=order, out=upk)
+            torch.cuda.synchronize()
+            assert out.data_ptr() == upk.data_ptr(), "K4 not in place"
+            assert torch.equal(out, ref), f"K4 not bitwise at order {order}, {shape}"
+            err["fused_leapfrog_step"] = max(err["fused_leapfrog_step"],
+                                             float((out - ref).abs().max()))
+        smax = u.abs().amax()
+        hists = {
+            "f32": (u, torch.tensor(1.0, device=dev)),
+            "bf16": (u.to(torch.bfloat16), torch.tensor(1.0, device=dev)),
+            "int8": (torch.round(u * (torch.full_like(smax, 127.0) / smax)).to(torch.int8),
+                     smax / torch.full_like(smax, 127.0)),
+        }
+        for store, (q, sc) in hists.items():
+            for order in (2, 4, 8):
+                core_r, g_r = cw.fused_adjoint_step_torch(a1, a2, g2, c2, q, sc, spz, spy,
+                                                          spx, order=order)
+                a2k, g2k = a2.clone(), g2.clone()
+                core, gk = cw.fused_adjoint_step(a1, a2k, g2k, c2, q, sc, spz, spy, spx,
+                                                 order=order, inplace=True)
+                torch.cuda.synchronize()
+                assert core.data_ptr() == a2k.data_ptr() and \
+                    gk.data_ptr() == g2k.data_ptr(), "K5 not in place"
+                assert torch.equal(core, core_r) and torch.equal(gk, g_r), \
+                    f"K5 not bitwise ({store}, order {order}, {shape})"
+                err["fused_adjoint_step"] = max(err["fused_adjoint_step"],
+                                                float((core - core_r).abs().max()),
+                                                float((gk - g_r).abs().max()))
+        return hists
+
+    wshape = ISO_SHAPES[0]
     up, u, a1, a2, g2 = (rnd(wshape) for _ in range(5))
     c2 = 0.3 * torch.rand(wshape, generator=gen, device=dev)
-    spz, spy, spx = (torch.linspace(lo, 1.0, n, device=dev)
-                     for lo, n in ((0.9, D), (0.8, H), (0.7, W)))
+    spz, spy, spx = sponges(wshape)
     s_t, amp = torch.tensor(0.37, device=dev), torch.tensor(2.5e-7, device=dev)
-    src_flat = (128 * H + 128) * W + 128
+    src_flat = centre(wshape)
     err["fused_leapfrog_step"] = err["fused_adjoint_step"] = 0.0
-    for order in (2, 4, 8):
-        ref = cw.fused_leapfrog_step_torch(up, u, c2, spz, spy, spx, s_t, src_flat, amp,
-                                           order=order)
-        upk = up.clone()
-        out = cw.fused_leapfrog_step(upk, u, c2, spz, spy, spx, s_t, src_flat, amp,
-                                     order=order, out=upk)
-        torch.cuda.synchronize()
-        assert out.data_ptr() == upk.data_ptr(), "K4 not in place"
-        assert torch.equal(out, ref), f"K4 not bitwise at order {order}"
-        err["fused_leapfrog_step"] = max(err["fused_leapfrog_step"],
-                                         float((out - ref).abs().max()))
-    smax = u.abs().amax()
-    hists = {
-        "f32": (u, torch.tensor(1.0, device=dev)),
-        "bf16": (u.to(torch.bfloat16), torch.tensor(1.0, device=dev)),
-        "int8": (torch.round(u * (torch.full_like(smax, 127.0) / smax)).to(torch.int8),
-                 smax / torch.full_like(smax, 127.0)),
-    }
-    for store, (q, sc) in hists.items():
-        for order in (2, 4, 8):
-            core_r, g_r = cw.fused_adjoint_step_torch(a1, a2, g2, c2, q, sc, spz, spy,
-                                                      spx, order=order)
-            a2k, g2k = a2.clone(), g2.clone()
-            core, gk = cw.fused_adjoint_step(a1, a2k, g2k, c2, q, sc, spz, spy, spx,
-                                             order=order, inplace=True)
-            torch.cuda.synchronize()
-            assert core.data_ptr() == a2k.data_ptr() and gk.data_ptr() == g2k.data_ptr(), \
-                "K5 not in place"
-            assert torch.equal(core, core_r) and torch.equal(gk, g_r), \
-                f"K5 not bitwise ({store}, order {order})"
-            err["fused_adjoint_step"] = max(err["fused_adjoint_step"],
-                                            float((core - core_r).abs().max()),
-                                            float((gk - g_r).abs().max()))
-    log(1, f"K4 bitwise and in place at 256^3, orders 2/4/8; K5 bitwise and in "
-           f"place at 256^3 with f32/bf16/int8 histories, orders 2/4/8")
-    del a2k, g2k, core, gk, core_r, g_r, ref, upk, out
+    hists = iso_kernels_check(up, u, a1, a2, g2, c2, spz, spy, spx, src_flat)
+    for shape in ISO_SHAPES[1:]:
+        iso_kernels_check(*(rnd(shape) for _ in range(5)),
+                          0.3 * torch.rand(shape, generator=gen, device=dev),
+                          *sponges(shape), centre(shape))
+    log(1, f"K4 bitwise and in place at {shapes_text(ISO_SHAPES)}, orders 2/4/8; K5 "
+           f"bitwise and in place at the same shapes with f32/bf16/int8 histories, "
+           f"orders 2/4/8")
 
-    # K8, K9 and K10 at the VTI path's shape, every order and history type,
-    # bitwise against the plain versions, in place; fields from a numpy seed,
-    # with C = c²dt², ah = 1+2ε and av = √(1+2δ) from physical (c, ε, δ)
+    # K8, K9 and K10 at every shape of VTI_SHAPES, every order and history
+    # type, bitwise against the plain versions, in place; fields from a numpy
+    # seed, with C = c²dt², ah = 1+2ε and av = √(1+2δ) from physical (c, ε, δ)
     rk = np.random.default_rng(7)
 
-    def npf(draw):
-        return torch.from_numpy(draw(wshape).astype(np.float32)).to(dev)
+    def npf(draw, shape=wshape):
+        return torch.from_numpy(draw(shape).astype(np.float32)).to(dev)
+
+    def vti_coeffs(shape):
+        """(C, ah, av) of random physical (c, eps, delta)."""
+        c = npf(lambda n: rk.uniform(1400.0, 4500.0, n), shape)
+        return ((c * c) * (5e-4 * 5e-4),
+                1.0 + 2.0 * npf(lambda n: rk.uniform(0.0, 0.3, n), shape),
+                torch.sqrt(1.0 + 2.0 * npf(lambda n: rk.uniform(-0.1, 0.2, n), shape)))
+
+    def scalings(p, q):
+        """The history's quantisation factors and decode scales per store type."""
+        sc, one = torch.stack([p.abs().amax(), q.abs().amax()]), torch.ones(2, device=dev)
+        return ({"f32": one, "bf16": one, "int8": torch.full_like(sc, 127.0) / sc},
+                {"f32": one, "bf16": one, "int8": sc / torch.full_like(sc, 127.0)})
 
     vpp, vp, vqp, vq, ap1, aq1, ap2, aq2, vgC, vgah, vgav = (
         npf(rk.standard_normal) for _ in range(11))
-    vc = npf(lambda n: rk.uniform(1400.0, 4500.0, n))
-    vC = (vc * vc) * (5e-4 * 5e-4)
-    vah = 1.0 + 2.0 * npf(lambda n: rk.uniform(0.0, 0.3, n))
-    vav = torch.sqrt(1.0 + 2.0 * npf(lambda n: rk.uniform(-0.1, 0.2, n)))
+    vC, vah, vav = vti_coeffs(wshape)
     idx2 = torch.tensor(1.0 / (10.0 * 10.0), device=dev)
     vst = torch.tensor(-0.37, device=dev)  # a negative sample: s_t·0 is -0.0
     vkw = dict(C=vC, ah=vah, av=vav, spz=spz, sy=spy, sx=spx, inv_dx2=idx2, s_t=vst,
                src_idx=src_flat, amp=amp)
-    vsc = torch.stack([vp.abs().amax(), vq.abs().amax()])
-    vqf = {"f32": torch.ones(2, device=dev), "bf16": torch.ones(2, device=dev),
-           "int8": torch.full_like(vsc, 127.0) / vsc}
-    vdec = {"f32": torch.ones(2, device=dev), "bf16": torch.ones(2, device=dev),
-            "int8": vsc / torch.full_like(vsc, 127.0)}
-    vhist = {}
+    vqf, vdec = scalings(vp, vq)
     for k in ("fused_vti_step", "fused_vti_hist_step", "fused_vti_adjoint_step"):
         err[k] = 0.0
 
@@ -516,48 +974,63 @@ def main() -> int:
         err[name] = max(err[name], *(float((a.float() - b.float()).abs().max())
                                      for a, b in zip(got, ref)))
 
-    for order in (2, 4, 8):
-        ref = cv.fused_vti_step_torch(vpp, vp, vqp, vq, order=order, **vkw)
-        o = (vpp.clone(), vqp.clone())
-        got = cv.fused_vti_step(o[0], vp, o[1], vq, order=order, out=o, **vkw)
-        torch.cuda.synchronize()
-        assert got[0] is o[0] and got[1] is o[1], "K8 not in place"
-        assert all(torch.equal(a, b) for a, b in zip(got, ref)), f"K8 not bitwise, order {order}"
-        maxerr("fused_vti_step", got, ref)
-        for store in ("f32", "bf16", "int8"):
-            qf = vqf[store]
-            ref = cv.fused_vti_hist_step_torch(vpp, vp, vqp, vq, qfp=qf[0], qfq=qf[1],
-                                               store=store, order=order, **vkw)
-            o = (vpp.clone(), vqp.clone())
-            got = cv.fused_vti_hist_step(o[0], vp, o[1], vq, qfp=qf[0], qfq=qf[1],
-                                         store=store, order=order, out=o, **vkw)
+    def vti_kernels_check(pp, p, qp, q, ap1, aq1, ap2, aq2, gC, gah, gav, kw, qfs, decs):
+        """K8-K10 against their plain versions; returns K9's history codes per
+        store type."""
+        shape, hist = tuple(p.shape), {}
+        for order in (2, 4, 8):
+            ref = cv.fused_vti_step_torch(pp, p, qp, q, order=order, **kw)
+            o = (pp.clone(), qp.clone())
+            got = cv.fused_vti_step(o[0], p, o[1], q, order=order, out=o, **kw)
             torch.cuda.synchronize()
-            assert got[0] is o[0] and got[1] is o[1], "K9 not in place"
+            assert got[0] is o[0] and got[1] is o[1], "K8 not in place"
             assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
-                f"K9 not bitwise (fields, codes, maxima; {store}, order {order})"
-            maxerr("fused_vti_hist_step", got, ref)
-            vhist[store] = (ref[2], ref[3])
-            dsc = vdec[store]
-            args = (vC, vav, vah, *vhist[store], dsc[0], dsc[1], idx2, spz, spy, spx)
-            ref = cv.fused_vti_adjoint_step_torch(ap1, aq1, ap2, aq2, vgC, vgah, vgav,
-                                                  *args, order=order)
-            o = tuple(t.clone() for t in (ap2, aq2, vgC, vgah, vgav))
-            got = cv.fused_vti_adjoint_step(ap1, aq1, *o, *args, order=order,
-                                            inplace=True)
-            torch.cuda.synchronize()
-            assert all(a is b for a, b in zip(got, o)), "K10 not in place"
-            assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
-                f"K10 not bitwise ({store}, order {order})"
-            maxerr("fused_vti_adjoint_step", got, ref)
-    log(1, "K8 bitwise and in place at 256^3, orders 2/4/8; K9 (fields, f32/bf16/int8 "
-           "codes, reduced maxima) and K10 (five outputs) bitwise and in place at 256^3 "
-           "with f32/bf16/int8 histories, orders 2/4/8")
-    del ref, got, o
+                f"K8 not bitwise, order {order}, {shape}"
+            maxerr("fused_vti_step", got, ref)
+            for store in ("f32", "bf16", "int8"):
+                qf = qfs[store]
+                ref = cv.fused_vti_hist_step_torch(pp, p, qp, q, qfp=qf[0], qfq=qf[1],
+                                                   store=store, order=order, **kw)
+                o = (pp.clone(), qp.clone())
+                got = cv.fused_vti_hist_step(o[0], p, o[1], q, qfp=qf[0], qfq=qf[1],
+                                             store=store, order=order, out=o, **kw)
+                torch.cuda.synchronize()
+                assert got[0] is o[0] and got[1] is o[1], "K9 not in place"
+                assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
+                    f"K9 not bitwise (fields, codes, maxima; {store}, order {order}, {shape})"
+                maxerr("fused_vti_hist_step", got, ref)
+                hist[store] = (ref[2], ref[3])
+                dsc = decs[store]
+                args = (kw["C"], kw["av"], kw["ah"], *hist[store], dsc[0], dsc[1],
+                        kw["inv_dx2"], kw["spz"], kw["sy"], kw["sx"])
+                ref = cv.fused_vti_adjoint_step_torch(ap1, aq1, ap2, aq2, gC, gah, gav,
+                                                      *args, order=order)
+                o = tuple(t.clone() for t in (ap2, aq2, gC, gah, gav))
+                got = cv.fused_vti_adjoint_step(ap1, aq1, *o, *args, order=order,
+                                                inplace=True)
+                torch.cuda.synchronize()
+                assert all(a is b for a, b in zip(got, o)), "K10 not in place"
+                assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
+                    f"K10 not bitwise ({store}, order {order}, {shape})"
+                maxerr("fused_vti_adjoint_step", got, ref)
+        return hist
 
-    # K11, K12 and K13 at the TTI path's shape and at two ragged ones (a last
-    # z-chunk, tile rows and columns cut by the grid's edge; D below one
-    # z-chunk), every order, coefficient width and history type, bitwise
-    # against the plain versions, in place; the axis (cosθ, sinθcosφ,
+    vhist = vti_kernels_check(vpp, vp, vqp, vq, ap1, aq1, ap2, aq2, vgC, vgah, vgav, vkw,
+                              vqf, vdec)
+    for shape in VTI_SHAPES[1:]:
+        f = [npf(rk.standard_normal, shape) for _ in range(11)]
+        C_, ah_, av_ = vti_coeffs(shape)
+        sz_, sy_, sx_ = sponges(shape)
+        vti_kernels_check(*f, dict(vkw, C=C_, ah=ah_, av=av_, spz=sz_, sy=sy_, sx=sx_,
+                                   src_idx=centre(shape)), *scalings(f[1], f[3]))
+    log(1, f"K8 bitwise and in place at {shapes_text(VTI_SHAPES)}, orders 2/4/8; K9 "
+           "(fields, f32/bf16/int8 codes, reduced maxima) and K10 (five outputs) bitwise "
+           "and in place at the same shapes with f32/bf16/int8 histories, orders 2/4/8")
+
+    # K11, K12 and K13 at every shape of TTI_SHAPES (among them two ragged
+    # ones: a last z-chunk, tile rows and columns cut by the grid's edge; D
+    # below one z-chunk), every order, coefficient width and history type,
+    # bitwise against the plain versions, in place; the axis (cosθ, sinθcosφ,
     # sinθsinφ) of random tilt and azimuth angles
     def tti_axis(shape):
         th = torch.from_numpy(rk.uniform(-0.6, 0.6, shape)).to(dev)
@@ -625,32 +1098,20 @@ def main() -> int:
     tf = dict(pp=vpp, p=vp, qp=vqp, q=vq, C=vC, ap1=ap1, aq1=aq1, ap2=ap2, aq2=aq2, gC=vgC,
               gah=vgah, gav=vgav, gnz=tacc[0], gny=tacc[1], gnx=tacc[2])
     thist = tti_kernels_check(tf, tco, tkw, vqf, vdec)
-    ragged = ((37, 45, 70), (5, 19, 33))
-    for rshape in ragged:
+    for rshape in TTI_SHAPES[1:]:
         rD, rH, rW = rshape
-        rf = {k: torch.from_numpy(rk.standard_normal(rshape).astype(np.float32)).to(dev)
-              for k in tf}
-        rc = torch.from_numpy(rk.uniform(1400.0, 4500.0, rshape).astype(np.float32)).to(dev)
-        rf["C"] = (rc * rc) * (5e-4 * 5e-4)
-        rco = {torch.float32: (1.0 + 2.0 * torch.from_numpy(
-            rk.uniform(0.0, 0.3, rshape).astype(np.float32)).to(dev), torch.sqrt(
-            1.0 + 2.0 * torch.from_numpy(rk.uniform(-0.1, 0.2, rshape).astype(np.float32))
-            .to(dev)), *tti_axis(rshape))}
+        rf = {k: npf(rk.standard_normal, rshape) for k in tf}
+        rf["C"], rah, rav = vti_coeffs(rshape)
+        rco = {torch.float32: (rah, rav, *tti_axis(rshape))}
         rco[torch.bfloat16] = tuple(t.to(torch.bfloat16) for t in rco[torch.float32])
-        rsc = torch.stack([rf["p"].abs().amax(), rf["q"].abs().amax()])
-        rone = torch.ones(2, device=dev)
-        rkw = dict(tkw, spz=torch.linspace(0.9, 1.0, rD, device=dev),
-                   sy=torch.linspace(0.8, 1.0, rH, device=dev),
-                   sx=torch.linspace(0.7, 1.0, rW, device=dev),
+        rsz, rsy, rsx = sponges(rshape)
+        rkw = dict(tkw, spz=rsz, sy=rsy, sx=rsx,
                    src_idx=((rD // 2) * rH + rH // 3) * rW + rW - 2)
-        tti_kernels_check(rf, rco, rkw,
-                          {"f32": rone, "bf16": rone, "int8": torch.full_like(rsc, 127.0) / rsc},
-                          {"f32": rone, "bf16": rone, "int8": rsc / torch.full_like(rsc, 127.0)})
-    log(1, "K11 bitwise and in place at 256^3 and the ragged "
-           + " and ".join(str(r) for r in ragged) + ", orders 2/4/8, f32 and bf16 "
-           "coefficients; K12 (fields, f32/bf16/int8 codes, reduced maxima) and K13 (eight "
-           "outputs) bitwise and in place at the same shapes with f32/bf16/int8 histories, "
-           "orders 2/4/8, f32 and bf16 coefficients")
+        tti_kernels_check(rf, rco, rkw, *scalings(rf["p"], rf["q"]))
+    log(1, f"K11 bitwise and in place at {shapes_text(TTI_SHAPES)}, orders 2/4/8, f32 and "
+           "bf16 coefficients; K12 (fields, f32/bf16/int8 codes, reduced maxima) and K13 "
+           "(eight outputs) bitwise and in place at the same shapes with f32/bf16/int8 "
+           "histories, orders 2/4/8, f32 and bf16 coefficients")
     del rf, rco
 
     # K6a, K6b and K7 at the Krylov paths' shapes, an odd length and its
@@ -689,23 +1150,32 @@ def main() -> int:
         assert all(torch.equal(a, b) for a, b in zip(got, ref)), f"K7 not bitwise at {shape}"
         maxerr("lsmr_update", got, ref)
     del x, r, p, q, h, hb, ref, got, o
-    gq = {torch.float32: 0.01 + 0.05 * torch.rand(wshape, generator=gen, device=dev)}
-    gq[torch.bfloat16] = gq[torch.float32].to(torch.bfloat16)
-    for gdt, gg in gq.items():
-        for order in (2, 4, 8):
-            ref = cw.fused_q_step_torch(up, u, c2, gg, spz, spy, spx, vst, src_flat, amp,
-                                        order=order)
-            upk = up.clone()
-            out = cw.fused_q_step(upk, u, c2, gg, spz, spy, spx, vst, src_flat, amp,
-                                  order=order, out=upk)
-            torch.cuda.synchronize()
-            assert out is upk, "K14 not in place"
-            assert torch.equal(out, ref), f"K14 not bitwise ({gdt}, order {order})"
-            maxerr("fused_q_step", (out,), (ref,))
+    def friction(shape):
+        g = 0.01 + 0.05 * torch.rand(shape, generator=gen, device=dev)
+        return {torch.float32: g, torch.bfloat16: g.to(torch.bfloat16)}
+
+    def q_kernel_check(up, u, c2, gq, spz, spy, spx, src):
+        shape = tuple(u.shape)
+        for gdt, gg in gq.items():
+            for order in (2, 4, 8):
+                ref = cw.fused_q_step_torch(up, u, c2, gg, spz, spy, spx, vst, src, amp,
+                                            order=order)
+                upk = up.clone()
+                out = cw.fused_q_step(upk, u, c2, gg, spz, spy, spx, vst, src, amp,
+                                      order=order, out=upk)
+                torch.cuda.synchronize()
+                assert out is upk, "K14 not in place"
+                assert torch.equal(out, ref), f"K14 not bitwise ({gdt}, order {order}, {shape})"
+                maxerr("fused_q_step", (out,), (ref,))
+
+    gq = friction(wshape)
+    q_kernel_check(up, u, c2, gq, spz, spy, spx, src_flat)
+    for shape in Q_SHAPES[1:]:
+        q_kernel_check(rnd(shape), rnd(shape), 0.3 * torch.rand(shape, generator=gen, device=dev),
+                       friction(shape), *sponges(shape), centre(shape))
     log(1, f"K6a (x, r), K6b and K7 bitwise and in place at {SOLVER_SHAPES_TEXT}, "
-           f"K6a rho rel err {rho_rel:.3e} vs f64 (<= 1e-6); K14 "
-           "bitwise and in place at 256^3, orders 2/4/8, f32 and bf16 friction fields")
-    del ref, upk, out
+           f"K6a rho rel err {rho_rel:.3e} vs f64 (<= 1e-6); K14 bitwise and in place at "
+           f"{shapes_text(Q_SHAPES)}, orders 2/4/8, f32 and bf16 friction fields")
 
     # ---- phase 2: the 3-D flagship at full width -----------------------------
     grid3, nshots3, nrecv = (256, 256, 256), 16, 4096
@@ -1737,6 +2207,8 @@ def main() -> int:
             "included")
     for k, n in baseline_configs(smi).items():
         main_path[k] += n
+    for k, n in fwi_inversion(smi, c_true, wkw).items():
+        main_path[k] += n
     sources = {"solver": "jets_tpu_torch/csrc/solver_kernels.cu",
                "wave": "jets_tpu_torch/csrc/wave_kernels.cu",
                "vti": "jets_tpu_torch/csrc/vti_kernels.cu",
@@ -1759,7 +2231,7 @@ def main() -> int:
         "fused_q_step": ("wave", "jets_tpu/ops/pallas_wave.py:1425"),
     }
     assert len(replaces) == 15 and all(main_path[k] > 0 for k in replaces), main_path
-    log(45, f"chip_smoke total {time.perf_counter() - t_start:.1f} s, kernel build "
+    log(51, f"chip_smoke total {time.perf_counter() - t_start:.1f} s, kernel build "
             f"included")
     rows = []
     for k, (lib, where) in replaces.items():

@@ -9,8 +9,11 @@ operators; :mod:`jets_tpu_torch.models.configs`), the seismic flagship, the
 Krylov solvers (CG, CGLS, LSQR, LSMR, MINRES, BiCGStab, GMRES, Chebyshev)
 with the normal operator and the Jacobi preconditioner
 (:mod:`jets_tpu_torch.solvers`), the diagonal operator, block spaces, and
-the isotropic, VTI and TTI anisotropic and constant-Q visco-acoustic wave
-operators of FWI (:mod:`jets_tpu_torch.ops.wave`). Plain tensor code is
+the isotropic (sponge or CPML boundaries, Ginsu windows, blocked
+rematerialization), VTI and TTI anisotropic and constant-Q visco-acoustic
+wave operators of FWI (:mod:`jets_tpu_torch.ops.wave`), and the nonlinear
+solvers that invert them: NLCG and L-BFGS with box bounds on the
+least-squares objective, and Gauss–Newton. Plain tensor code is
 PyTorch; the Pallas kernels of the JAX package are hand-written CUDA C++ in
 ``csrc/`` (see :mod:`jets_tpu_torch.ops.cuda_solver`,
 :mod:`jets_tpu_torch.ops.cuda_wave`, :mod:`jets_tpu_torch.ops.cuda_vti` and
@@ -54,6 +57,7 @@ from .core.verify import (
 from .kernels import has_cuda
 from .ops.diagonal import diagonal_operator
 from .ops.wave import (
+    cpml_wave_propagator,
     multishot_tti_wave_operator,
     multishot_vti_wave_operator,
     q_wave_propagator,

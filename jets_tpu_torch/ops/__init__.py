@@ -1,8 +1,8 @@
 """Operator packs ported so far: the dense matrix operator (``matrix``), the
 convolution, derivative and gradient operators (``conv``), the Laplacian,
 constant-coefficient stencil and blur operators (``stencil``), the diagonal
-operator, the isotropic, VTI, TTI and constant-Q acoustic wave operators
-(``wave``), and the hand-written CUDA kernels of the solver tails
+operator, the isotropic (sponge or CPML boundaries), VTI, TTI and constant-Q
+acoustic wave operators (``wave``), and the hand-written CUDA kernels of the solver tails
 (``cuda_solver``), of the isotropic and constant-Q wave steps
 (``cuda_wave``), of the VTI steps (``cuda_vti``) and of the TTI steps
 (``cuda_tti``)."""
@@ -10,9 +10,9 @@ from .conv import conv1d_operator, convnd_operator, derivative_operator, gradien
 from .diagonal import diagonal_operator
 from .matrix import matrix_operator
 from .stencil import blur2d_operator, laplacian_nd, laplacian_operator, stencil_operator
-from .wave import q_wave_propagator
+from .wave import cpml_wave_propagator, q_wave_propagator
 
-__all__ = ["blur2d_operator", "conv1d_operator", "convnd_operator",
+__all__ = ["blur2d_operator", "conv1d_operator", "convnd_operator", "cpml_wave_propagator",
            "derivative_operator", "diagonal_operator", "gradient_operator",
            "laplacian_nd", "laplacian_operator", "matrix_operator",
            "q_wave_propagator", "stencil_operator"]

@@ -10,13 +10,17 @@ taper at the boundaries::
 
 * :func:`wave_propagator` — nonlinear forward modelling ``F: c → traces``;
   its tangent is ``torch.func.jvp`` through the time loop, its adjoint
-  either ``torch.func.vjp`` through it (``store_adjoint=None``) or the
+  either autograd's reverse pass through it (``store_adjoint=None``) or the
   hand-derived reverse sweep over a stored, optionally compressed,
   forward-wavefield history (``store_adjoint`` ∈ f32/bf16/int8).
 * :func:`born_operator` — the Jacobian pinned at a background velocity.
 * :func:`multishot_wave_operator` — one propagator per shot, stacked over
   shots (``shot_map="map"``: a loop over shots, each on the kernels;
-  ``"vmap"``: one batched plain program).
+  ``"vmap"``: one batched plain program), optionally inside a per-shot
+  Ginsu window of the model or with CPML boundaries.
+* :func:`cpml_wave_propagator` — the isotropic physics with convolutional
+  PML boundaries (two memory fields per axis) instead of the sponge; plain
+  PyTorch, its adjoint derived.
 * :func:`vti_wave_propagator` and :func:`multishot_vti_wave_operator` —
   the pseudo-acoustic VTI system (two coupled fields p, q; model
   ``(c, ε, δ)`` on a ``BlockSpace([grid, grid, grid])``), with the same
@@ -51,19 +55,31 @@ iteration on the TPU to avoid carry copies; a Python loop rotates
 writes ``u_next`` into ``u_prev``'s buffer on sweeps that no autodiff
 transform watches.
 
+``remat_blocks > 1`` groups the time loop into that many segments, each
+under :func:`torch.utils.checkpoint.checkpoint` (non-reentrant) while an
+autograd tape records the model: the backward keeps the carries at the
+segment boundaries and recomputes each segment's steps, through the same
+kernels, instead of keeping every step's saved tensors. The traces are the
+same bits. Every derived adjoint runs by :func:`torch.autograd.grad`
+(:func:`_vjp_by_autograd`), since ``torch.func.vjp`` refuses checkpointed
+segments; the ``"vmap"`` multishot stacks refuse ``remat_blocks > 1``,
+since the checkpoint does not run under ``torch.func.vmap``.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``remat_blocks > 1``, ``wavefield_sharding``, custom source masks
-and extractors (off-grid geometry), ginsu windows, CPML boundaries,
-VTI/TTI static Q (``q=``) and ``mesh=``.
+item): ``wavefield_sharding``, custom source masks and extractors
+(off-grid geometry), VTI/TTI static Q (``q=``) and ``mesh=``.
 """
 from __future__ import annotations
 
 import functools
 import math
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
+from torch.utils.checkpoint import checkpoint
 
 from ..core.blockspace import BlockSpace, BlockVector
 from ..core.jet import Jet, LinearOperator, Operator, with_state
@@ -83,6 +99,7 @@ __all__ = [
     "tti_wave_propagator",
     "multishot_tti_wave_operator",
     "q_wave_propagator",
+    "cpml_wave_propagator",
     "with_wave_arrays",
 ]
 
@@ -98,6 +115,73 @@ def _check_space_order(order: int) -> int:
     if order not in (2, 4, 8):
         raise ValueError(f"space_order must be one of (2, 4, 8), got {order}")
     return int(order)
+
+
+def _remat_segments(nt: int, remat_blocks: int) -> int:
+    """The number of checkpointed segments of an ``nt``-step loop: a
+    ``remat_blocks`` that does not divide ``nt`` snaps, with a warning, to
+    the nearest divisor, so the blocked memory saving is kept."""
+    if remat_blocks > 1 and nt % remat_blocks != 0:
+        divisors = [k for k in range(2, nt + 1) if nt % k == 0]
+        if divisors:
+            snapped = min(divisors, key=lambda k: abs(k - remat_blocks))
+            warnings.warn(f"remat_blocks={remat_blocks} does not divide nt={nt}; "
+                          f"using the nearest divisor {snapped} instead", stacklevel=4)
+            return snapped
+        return 1  # nt == 1
+    return max(int(remat_blocks), 1)
+
+
+def _time_loop(step, carry, wavelet, remat_blocks: int, tape: bool):
+    """Receiver traces ``(nt, nrcv)`` of ``step(carry, s_t) -> (carry,
+    rec)`` run over the wavelet. With more than one segment
+    (:func:`_remat_segments`) and ``tape`` (an autograd tape records the
+    model), each segment runs under non-reentrant
+    :func:`torch.utils.checkpoint.checkpoint`, the carry crossing its
+    boundary and its traces coming out: the backward keeps the boundary
+    carries and recomputes a segment's steps when it reaches them. The
+    traces are the same bits either way. Without a tape (and under
+    ``torch.func.jvp``, whose forward mode stores nothing) the loop runs
+    straight."""
+    nt = int(wavelet.shape[0])
+    blocks = _remat_segments(nt, remat_blocks)
+
+    def segment(carry, xs):
+        recs = []
+        for s_t in xs:
+            carry, rec = step(carry, s_t)
+            recs.append(rec)
+        return carry, torch.stack(recs)
+
+    if blocks == 1 or not tape:
+        return segment(carry, wavelet)[1]
+    blk = nt // blocks
+    parts = []
+    for b in range(blocks):
+        carry, recs = checkpoint(segment, carry, wavelet[b * blk:(b + 1) * blk],
+                                 use_reentrant=False)
+        parts.append(recs)
+    return torch.cat(parts)
+
+
+def _records(*model) -> bool:
+    """True when an autograd tape records any of the model tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in model)
+
+
+def _vjp_by_autograd(fn, m0, dd):
+    """``vjp(fn, m0)(dd)`` by :func:`torch.autograd.grad` on a detached leaf
+    copy of ``m0`` (a tensor or a BlockVector): every propagator's derived
+    adjoint, which also runs through checkpointed segments, where
+    ``torch.func.vjp`` refuses them (it does not take saved-tensor hooks). A block the output does not depend on gets
+    zeros, as from ``torch.func.vjp``."""
+    leaves, spec = pytree.tree_flatten(m0)
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_() for t in leaves]
+        out = fn(pytree.tree_unflatten(xs, spec))
+        grads = torch.autograd.grad(out, xs, grad_outputs=dd, allow_unused=True)
+    return pytree.tree_unflatten([torch.zeros_like(x) if g is None else g
+                                  for x, g in zip(xs, grads)], spec)
 
 
 def _damp(n: int, width: int, strength: float, bottom_only: bool):
@@ -289,6 +373,34 @@ class _LeapfrogStep(torch.autograd.Function):
         return d_up, d_u, d_c2, d_st, None, None, None, None, None, None
 
 
+def _field_loop(step, nfields: int, shape, dtype, dev, src_wavelet, rcv_idx,
+                inplace: bool, remat_blocks: int, tape: bool):
+    """The traces of the first field of ``step(prev_0, cur_0, prev_1, cur_1,
+    ..., s_t) -> next_0`` (or a tuple ``(next_0, next_1, ...)`` of
+    ``nfields`` fields) run from zero fields, each field's pair rotating
+    ``(prev, cur) -> (cur, next)``: in place into a preallocated trace
+    tensor when ``inplace`` (``step`` then writes each ``next`` into its
+    ``prev``'s buffer), else through :func:`_time_loop`."""
+    def advance(carry, nxt):
+        nxt = (nxt,) if torch.is_tensor(nxt) else tuple(nxt)
+        return tuple(x for i, n in enumerate(nxt) for x in (carry[2 * i + 1], n)), nxt[0]
+
+    carry = tuple(torch.zeros(shape, dtype=dtype, device=dev) for _ in range(2 * nfields))
+    if not inplace:
+        def body(carry, s_t):
+            carry, first = advance(carry, step(*carry, s_t))
+            return carry, first.reshape(-1).index_select(0, rcv_idx)
+
+        return _time_loop(body, carry, src_wavelet, remat_blocks, tape)
+    nt = int(src_wavelet.shape[0])
+    _remat_segments(nt, remat_blocks)  # the same warning on every path
+    traces = torch.empty((nt, int(rcv_idx.shape[0])), dtype=dtype, device=dev)
+    for k in range(nt):
+        carry, first = advance(carry, step(*carry, src_wavelet[k]))
+        torch.index_select(first.reshape(-1), 0, rcv_idx, out=traces[k])
+    return traces
+
+
 def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
                remat_blocks: int = 1, order: int = 2, src_mask=None, extract=None,
                fused=None, wavefield_sharding=None, inplace: bool = False):
@@ -299,23 +411,19 @@ def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
     into ``u_prev``'s buffer and the traces gathered into a preallocated
     tensor. It is ignored while a tape records ``c``; callers inside a
     ``torch.func`` transform (or ``vmap``) pass ``inplace=False``.
+    ``remat_blocks`` checkpoints the loop in segments under a tape
+    (:func:`_time_loop`).
     """
     if wavefield_sharding is not None:
         raise _not_ported("wavefield_sharding", "18")
     if src_mask is not None or extract is not None:
         raise _not_ported("custom src_mask/extract (off-grid geometry)", "14")
-    if remat_blocks > 1:
-        raise _not_ported("remat_blocks > 1", "12")
     shape, dtype, dev = c.shape, c.dtype, c.device
-    nt = int(src_wavelet.shape[0])
     c2dt2 = _c2dt2(c, dt, dx)
     amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
     kernel = _kernel_route(fused, c, sponge, order)
-    inplace = inplace and not (torch.is_grad_enabled() and c.requires_grad)
-    u_prev = torch.zeros(shape, dtype=dtype, device=dev)
-    u = torch.zeros(shape, dtype=dtype, device=dev)
-    nrcv = int(rcv_idx.shape[0])
-    traces = torch.empty((nt, nrcv), dtype=dtype, device=dev) if inplace else []
+    tape = _records(c)
+    inplace = inplace and not tape
 
     if kernel:
         spz, sy, sx = _factors_1d(sponge)
@@ -335,14 +443,8 @@ def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
         def step(up, uu, s_t):
             return cuda_wave.leapfrog_plain(up, uu, c2dt2, S, s_t, mask, order)
 
-    for k in range(nt):
-        u_next = step(u_prev, u, src_wavelet[k])
-        if inplace:
-            torch.index_select(u_next.reshape(-1), 0, rcv_idx, out=traces[k])
-        else:
-            traces.append(u_next.reshape(-1).index_select(0, rcv_idx))
-        u_prev, u = u, u_next
-    return traces if inplace else torch.stack(traces)
+    return _field_loop(step, 1, shape, dtype, dev, src_wavelet, rcv_idx, inplace,
+                       remat_blocks, tape)
 
 
 def _adjoint_stored(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
@@ -475,42 +577,49 @@ def wave_propagator(
     recording interval ``dtrec`` is given). ``space_order`` ∈ {2, 4, 8}.
     ``fused``: ``None`` rides the kernels K4/K5 on a 3-D float32 grid on a
     CUDA card, ``True`` insists, ``False`` takes the plain step. ``store_adjoint`` ∈ {None, "f32",
-    "bf16", "int8"} switches the adjoint from ``torch.func.vjp`` through the
-    time loop to the stored-history sweep (:func:`_adjoint_stored`).
+    "bf16", "int8"} switches the adjoint from autograd through the time
+    loop (:func:`_vjp_by_autograd`) to the stored-history sweep
+    (:func:`_adjoint_stored`).
+    ``remat_blocks > 1`` checkpoints the time loop in that many segments
+    under an autograd tape (the module docstring).
     """
     grid_shape = tuple(int(s) for s in grid_shape)
     space_order = _check_space_order(space_order)
     _check_store(store_adjoint)
     if wavefield_sharding is not None:
         raise _not_ported("wave_propagator(wavefield_sharding=...)", "18")
-    if remat_blocks > 1:
-        raise _not_ported("remat_blocks > 1", "12")
     if fused and not cuda_wave.fits_wave_kernel(grid_shape, dtype, space_order):
         raise ValueError("fused wave step requires a 3-D float32 grid")
     sp = Space(grid_shape, dtype, device)
     return _single_shot_operator(
         sp, sp, _propagate, _adjoint_stored, nt=nt, dt=dt, dx=dx, freq=freq,
         src_idx=src_idx, rcv_idx=rcv_idx, dtrec=dtrec, store_adjoint=store_adjoint,
-        fused=fused, order=space_order,
-        sponge=_make_sponge(grid_shape, sponge_width, free_surface=free_surface,
-                            dtype=dtype))
+        fused=fused, order=space_order, remat_blocks=remat_blocks,
+        boundary={"sponge": _make_sponge(grid_shape, sponge_width,
+                                         free_surface=free_surface, dtype=dtype)})
 
 
-def _to_device(sponge, device):
-    if isinstance(sponge, tuple):
-        return tuple(f.to(device) for f in sponge)
-    return sponge.to(device)
+def _to_device(arrays, device):
+    """A boundary array (a tensor or a tuple of per-axis tensors) on
+    ``device``."""
+    if isinstance(arrays, tuple):
+        return tuple(f.to(device) for f in arrays)
+    return arrays.to(device)
 
 
 def _single_shot_operator(dom, gsp, propagate, adjoint, *, nt, dt, dx, freq, src_idx,
-                          rcv_idx, sponge, dtrec, store_adjoint, fused, order):
-    """The single-shot propagator of :func:`wave_propagator` and
-    :func:`vti_wave_propagator` on the model space ``dom`` (grid space
-    ``gsp``): ``propagate(m, wavelet, src, rcv, *, sponge, inplace, ...)``
-    runs the time loop, ``adjoint(m, dd, wavelet, src, rcv, *, sponge,
-    store, ...)`` the stored-history sweep. The tangent is ``torch.func.jvp``
-    through the loop, the adjoint ``torch.func.vjp`` through it or, with
-    ``store_adjoint``, the stored sweep."""
+                          rcv_idx, boundary, dtrec, store_adjoint, fused, order,
+                          remat_blocks=1):
+    """The single-shot propagator of :func:`wave_propagator`,
+    :func:`vti_wave_propagator` and the others on the model space ``dom``
+    (grid space ``gsp``): ``propagate(m, wavelet, src, rcv, *, inplace,
+    remat_blocks, **boundary, ...)`` runs the time loop, ``adjoint(m, dd,
+    wavelet, src, rcv, *, store, **boundary, ...)`` the stored-history
+    sweep. ``boundary`` names the boundary's arrays, kept in the state
+    (``{"sponge": ...}``, or the CPML profiles). The tangent is
+    ``torch.func.jvp`` through the loop, the adjoint
+    :func:`_vjp_by_autograd` through it or, with ``store_adjoint``, the
+    stored sweep."""
     dtype = gsp.dtype
     rcv = _index_tensor(_default_receivers(gsp.size) if rcv_idx is None else rcv_idx,
                         gsp.device)
@@ -520,7 +629,8 @@ def _single_shot_operator(dom, gsp, propagate, adjoint, *, nt, dt, dx, freq, src
 
     def _forward(m, state, inplace):
         traces = propagate(m, state["wavelet"], state["src_idx"], state["rcv_idx"],
-                           sponge=state["sponge"], inplace=inplace, **cfg)
+                           inplace=inplace, remat_blocks=remat_blocks,
+                           **{k: state[k] for k in boundary}, **cfg)
         return resample(traces) if resample is not None else traces
 
     def _f(m, state):
@@ -532,9 +642,7 @@ def _single_shot_operator(dom, gsp, propagate, adjoint, *, nt, dt, dx, freq, src
 
     if store_adjoint is None:
         def _dft(dd, m0, state):
-            _, vjp = torch.func.vjp(lambda m: _forward(m, state, False), m0)
-            (out,) = vjp(dd)
-            return out
+            return _vjp_by_autograd(lambda m: _forward(m, state, False), m0, dd)
     else:
         rt = (_resample_transpose(resample, nt, nrcv, dtype)
               if resample is not None else None)
@@ -543,26 +651,60 @@ def _single_shot_operator(dom, gsp, propagate, adjoint, *, nt, dt, dx, freq, src
             if rt is not None:
                 dd = rt(dd)
             return adjoint(m0, dd, state["wavelet"], state["src_idx"], state["rcv_idx"],
-                           sponge=state["sponge"], store=store_adjoint, **cfg)
+                           store=store_adjoint, **{k: state[k] for k in boundary}, **cfg)
 
     j = Jet(dom=dom, rng=Space((ntrec, nrcv), dtype, gsp.device), f=_f, df=_df,
             dft=_dft, state={
                 "wavelet": _ricker(nt, dt, freq, dtype).to(gsp.device),
-                "sponge": _to_device(sponge, gsp.device),
+                **{k: _to_device(v, gsp.device) for k, v in boundary.items()},
                 "src_idx": torch.tensor(int(src_idx), dtype=torch.int64),
                 "rcv_idx": rcv,
             })
     return Operator(j)
 
 
+def _windowing(grid_shape, window_shape, device):
+    """``(take, place)`` of per-shot Ginsu windows of ``window_shape`` in a
+    ``grid_shape`` model, each at a corner tensor (a row of ``window_corners``,
+    batched under ``torch.func.vmap``): ``take(m, corner)`` gathers the
+    window, ``place(g, corner)`` scatter-adds a window-shaped gradient into a
+    zero full grid. Both index through flat offsets, so a corner needs no
+    host read and ``vmap`` batches them."""
+    size = math.prod(grid_shape)
+    strides = torch.tensor([math.prod(grid_shape[i + 1:]) for i in range(len(grid_shape))],
+                           device=device)
+    base = torch.zeros((), dtype=torch.int64, device=device)
+    for n, st in zip(window_shape, strides):
+        base = base[..., None] + torch.arange(n, device=device) * st
+    base = base.reshape(-1)
+
+    def flat(corner):
+        return base + torch.sum(corner * strides)
+
+    def take(m, corner):
+        return m.reshape(-1).index_select(0, flat(corner)).reshape(window_shape)
+
+    def place(g, corner):
+        return torch.zeros(size, dtype=g.dtype, device=g.device).index_add(
+            0, flat(corner), g.reshape(-1)).reshape(grid_shape)
+
+    return take, place
+
+
 def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx, freq,
-                        rcv_idx, sponge, dtrec, store_adjoint, shot_map, order):
-    """The multi-shot propagator of :func:`multishot_wave_operator` and
-    :func:`multishot_vti_wave_operator` (``propagate``/``adjoint`` as for
-    :func:`_single_shot_operator`): the shots' source indices are the
-    stacked block state, everything else is shared. ``shot_map="map"`` runs
-    the shots one after another with ``fused=None`` (the kernels where they
-    apply), ``"vmap"`` as one ``torch.func.vmap`` of the plain step."""
+                        rcv_idx, boundary, dtrec, store_adjoint, shot_map, order,
+                        remat_blocks=1, windows=None):
+    """The multi-shot propagator of :func:`multishot_wave_operator` and the
+    VTI and TTI ones (``propagate``/``adjoint``/``boundary`` as for
+    :func:`_single_shot_operator`, ``gsp`` the grid each shot propagates
+    on): the shots' source indices (and window corners) are the stacked
+    block state, everything else is shared. ``shot_map="map"`` runs the
+    shots one after another with ``fused=None`` (the kernels where they
+    apply), ``"vmap"`` as one ``torch.func.vmap`` of the plain step, which
+    refuses ``remat_blocks > 1`` (PyTorch's checkpoint does not run under
+    ``vmap``).
+    ``windows=(window_shape, corners)`` runs each shot in its window of the
+    model (:func:`_windowing`)."""
     dtype = gsp.dtype
     src = _index_tensor(src_indices, "cpu")
     rcv = _index_tensor(_default_receivers(gsp.size) if rcv_idx is None else rcv_idx,
@@ -572,17 +714,41 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
     rt = (_resample_transpose(resample, nt, nrcv, dtype)
           if resample is not None else None)
     is_map = shot_map == "map"
+    if shot_map == "vmap" and remat_blocks > 1:
+        raise _not_ported("remat_blocks > 1 with shot_map='vmap' (PyTorch's checkpoint "
+                          "does not run under torch.func.vmap; shot_map='map' takes it)",
+                          "20")
     cfg = dict(dt=dt, dx=dx, order=order, fused=None if is_map else False)
+    bstate = {"src": src}
+    take = place = None
+    if windows is not None:
+        take, place = _windowing(dom.shape, windows[0], gsp.device)
+        bstate["corner"] = _index_tensor(windows[1], gsp.device).reshape(
+            int(src.shape[0]), len(dom.shape))
 
-    def shot_f(m, s, st, inplace):
-        traces = propagate(m, st["wavelet"], s, st["rcv"], sponge=st["sponge"],
-                           inplace=inplace, **cfg)
+    def local(m, corner):
+        return m if take is None else take(m, corner)
+
+    def shot_f(m, s, corner, st, inplace):
+        traces = propagate(local(m, corner), st["wavelet"], s, st["rcv"], inplace=inplace,
+                           remat_blocks=remat_blocks, **{k: st[k] for k in boundary},
+                           **cfg)
         return resample(traces) if resample is not None else traces
 
-    def child(m, bs, inplace):
+    def per_shot(fn, bs, *stacked):
+        """``fn(s, corner, *rows)`` of each shot: the one shot of ``bs`` in
+        ``map`` mode, a ``vmap`` over the stack otherwise."""
+        corners = bs.get("corner")
         if is_map:
-            return shot_f(m, bs["src"][0], bs, inplace)[None]
-        return torch.func.vmap(lambda s: shot_f(m, s, bs, False))(bs["src"])
+            return fn(bs["src"][0], None if corners is None else corners[0],
+                      *(t[0] for t in stacked))
+        if corners is None:
+            return torch.func.vmap(lambda s, *r: fn(s, None, *r))(bs["src"], *stacked)
+        return torch.func.vmap(fn)(bs["src"], corners, *stacked)
+
+    def child(m, bs, inplace):
+        out = per_shot(lambda s, cr: shot_f(m, s, cr, bs, inplace and is_map), bs)
+        return out[None] if is_map else out
 
     def f(m, bs):
         return child(m, bs, True)
@@ -593,24 +759,32 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
 
     dft = None
     if store_adjoint is not None:
-        def shot_dft(d, m0, s, st):
+        def shot_dft(s, corner, d, m0, st):
             if rt is not None:
                 d = rt(d)
-            return adjoint(m0, d, st["wavelet"], s, st["rcv"], sponge=st["sponge"],
-                           store=store_adjoint, **cfg)
+            g = adjoint(local(m0, corner), d, st["wavelet"], s, st["rcv"],
+                        store=store_adjoint, **{k: st[k] for k in boundary}, **cfg)
+            return g if place is None else place(g, corner)
 
         def dft(d_b, m0, bs):
-            if is_map:
-                return tmap(lambda t: t[None], shot_dft(d_b[0], m0, bs["src"][0], bs))
-            return torch.func.vmap(lambda d, s: shot_dft(d, m0, s, bs))(d_b, bs["src"])
+            out = per_shot(lambda s, cr, d: shot_dft(s, cr, d, m0, bs), bs, d_b)
+            return tmap(lambda t: t[None], out) if is_map else out
+    elif is_map:
+        # the derived per-shot adjoint (through the checkpointed segments
+        # when remat_blocks > 1)
+        def dft(d_b, m0, bs):
+            out = per_shot(lambda s, cr, d: _vjp_by_autograd(
+                lambda m: shot_f(m, s, cr, bs, False), m0, d), bs, d_b)
+            return tmap(lambda t: t[None], out)
 
     return stacked_block_operator(
         nblocks=int(src.shape[0]),
         dom=dom,
         rng_block=Space((ntrec, nrcv), dtype, gsp.device),
-        bstate={"src": src},
+        bstate=bstate,
         sstate={"wavelet": _ricker(nt, dt, freq, dtype).to(gsp.device),
-                "sponge": _to_device(sponge, gsp.device), "rcv": rcv},
+                **{k: _to_device(v, gsp.device) for k, v in boundary.items()},
+                "rcv": rcv},
         f=f,
         df=df,
         dft=dft,
@@ -658,32 +832,191 @@ def multishot_wave_operator(
     batched plain program (``torch.func.vmap``; the kernels do not batch).
     ``store_adjoint`` switches the per-shot adjoint to the stored-history
     sweep, summed over shots; without it the adjoint is derived: per shot
-    (``torch.func.vjp`` of the tangent) in ``map`` mode, over the whole
-    stack in ``vmap`` mode.
+    (:func:`_vjp_by_autograd` of the shot) in ``map`` mode, over the whole
+    stack in ``vmap`` mode. ``remat_blocks > 1`` needs ``map`` mode.
+
+    **Ginsu windows** (per-shot model subsetting): ``window_shape`` (one
+    shape for every shot) and ``window_corners`` ``(nshots, ndim)``; each
+    shot then propagates only inside ``c[corner : corner + window_shape]``
+    (on the kernels, in ``map`` mode, where the window's shape takes
+    them), and ``src_indices``/``rcv_idx`` are window-relative flat
+    indices. The stored-history adjoint scatter-adds each window's gradient
+    into a zero full grid, the derived one gets the same scatter from
+    autodiff of the gather, so overlapping windows accumulate exactly.
+
+    **Boundaries**: ``free_surface=True`` leaves the top edge of axis 0
+    undamped (a pressure-release surface); ``boundary="cpml"`` swaps the
+    sponge for the convolutional PML of :func:`cpml_wave_propagator` (width
+    ``sponge_width``, ``cmax`` scaling its damping). CPML shots run plain
+    with the derived adjoint: ``store_adjoint`` and windows compose with the
+    sponge only.
     """
     grid_shape = tuple(int(s) for s in grid_shape)
     space_order = _check_space_order(space_order)
     _check_store(store_adjoint)
+    nshots = int(np.asarray(src_indices).reshape(-1).shape[0])
+    prop_shape = grid_shape
     if (window_shape is None) != (window_corners is None):
         raise ValueError("ginsu windowing needs BOTH window_shape and "
                          "window_corners (or neither)")
+    windows = None
     if window_shape is not None:
-        raise _not_ported("ginsu windows (window_shape/window_corners)", "12")
+        prop_shape = tuple(int(s) for s in window_shape)
+        corners = np.asarray(window_corners, np.int64)
+        if corners.shape != (nshots, len(grid_shape)):
+            raise ValueError("window_corners must be (nshots, ndim) when window_shape "
+                             "is given")
+        # a gather past the grid would fault or read another shot's model:
+        # the corners are checked here, once
+        out = (corners < 0).any(axis=1) | (corners + np.asarray(prop_shape)
+                                           > np.asarray(grid_shape)).any(axis=1)
+        if out.any():
+            raise ValueError(f"ginsu window out of bounds for shots "
+                             f"{np.nonzero(out)[0].tolist()}: need 0 <= corner and "
+                             f"corner + {prop_shape} <= {grid_shape}")
+        windows = (prop_shape, corners)
     if boundary not in ("sponge", "cpml"):
         raise ValueError(f"boundary must be 'sponge' or 'cpml', got {boundary!r}")
-    if boundary == "cpml":
-        raise _not_ported("boundary='cpml'", "12")
+    use_cpml = boundary == "cpml"
+    if use_cpml and store_adjoint is not None:
+        raise ValueError("store_adjoint is not available with CPML boundaries (the "
+                         "stored sweep transposes the sponge scheme); CPML shots use "
+                         "the derived adjoint")
+    if use_cpml and windows is not None:
+        raise ValueError("ginsu windowing composes with boundary='sponge'")
     if mesh is not None:
         raise _not_ported("multishot_wave_operator(mesh=...)", "18")
-    if remat_blocks > 1:
-        raise _not_ported("remat_blocks > 1", "12")
+    if use_cpml:
+        a_prof, b_prof = _cpml_profiles(prop_shape, sponge_width, dt, dx, cmax, freq,
+                                        dtype=dtype, free_surface=free_surface)
+        bnd = {"a_prof": a_prof, "b_prof": b_prof}
+    else:
+        bnd = {"sponge": _make_sponge(prop_shape, sponge_width,
+                                      free_surface=free_surface, dtype=dtype)}
     sp = Space(grid_shape, dtype, device)
     return _multishot_operator(
-        sp, sp, _propagate, _adjoint_stored, src_indices, nt=nt, dt=dt, dx=dx,
-        freq=freq, rcv_idx=rcv_idx, dtrec=dtrec, store_adjoint=store_adjoint,
-        shot_map=shot_map, order=space_order,
-        sponge=_make_sponge(grid_shape, sponge_width, free_surface=free_surface,
-                            dtype=dtype))
+        sp, Space(prop_shape, dtype, sp.device),
+        _propagate_cpml if use_cpml else _propagate, _adjoint_stored, src_indices,
+        nt=nt, dt=dt, dx=dx, freq=freq, rcv_idx=rcv_idx, dtrec=dtrec,
+        store_adjoint=store_adjoint, shot_map=shot_map, order=space_order,
+        remat_blocks=remat_blocks, windows=windows, boundary=bnd)
+
+
+# ---------------------------------------------------------------------------
+# CPML absorbing boundaries: second-order-form convolutional PML with two
+# memory fields per axis (psi on the first derivative, zeta on the second),
+# after Pasalic & McGarry (SEG 2010). The memory fields are full grids whose
+# update coefficients (a, b) are 0 and 1 in the interior, so every update is
+# one elementwise pass. Plain PyTorch with the derived adjoint: the JAX
+# package has no kernel for this step either. The one-axis derivatives are
+# stencil.d1_axis / d2_axis, bitwise the JAX package's eager _d1_axis /
+# _d2_axis.
+# ---------------------------------------------------------------------------
+
+
+def _cpml_profiles(shape, width, dt, dx, cmax, f0, R=1e-3, dtype=torch.float32,
+                   free_surface: bool = False):
+    """Per-axis CPML update coefficients ``(a_ax, b_ax)`` as broadcastable
+    profiles, computed in float64 and rounded to ``dtype`` (on the CPU; the
+    operators move them). ``sigma`` ramps quadratically to ``sigma_max =
+    3·cmax·ln(1/R) / (2·W·dx)`` at the outer edge; ``alpha`` ramps linearly
+    from ``π·f0`` at the inner PML edge to 0 outside. In the interior
+    ``sigma = alpha = 0`` gives ``b = 1, a = 0``. With ``free_surface`` the
+    top of axis 0 has no PML (the stencil's zero boundary is the
+    pressure-release surface)."""
+    a_profiles, b_profiles = [], []
+    sig_max = 3.0 * cmax * np.log(1.0 / R) / (2.0 * width * dx)
+    for ax, n in enumerate(shape):
+        i = np.arange(n, dtype=np.float64)
+        edge = (n - 1 - i) if free_surface and ax == 0 else np.minimum(i, n - 1 - i)
+        depth = np.maximum(width - edge, 0.0) / width
+        sig = sig_max * depth**2
+        alpha = np.pi * f0 * (1.0 - depth) * (depth > 0)
+        b = np.exp(-(sig + alpha) * dt)
+        denom = np.where(sig + alpha > 0, sig + alpha, 1.0)
+        a = np.where(sig > 0, sig / denom * (b - 1.0), 0.0)
+        bshape = tuple(n if j == ax else 1 for j in range(len(shape)))
+        a_profiles.append(torch.as_tensor(a).to(dtype).reshape(bshape))
+        b_profiles.append(torch.as_tensor(b).to(dtype).reshape(bshape))
+    return tuple(a_profiles), tuple(b_profiles)
+
+
+def _propagate_cpml(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, a_prof, b_prof,
+                    order: int = 2, remat_blocks: int = 1, fused=None,
+                    inplace: bool = False):
+    """Leapfrog stepping with CPML memory-field boundaries; returns the
+    receiver traces ``(nt, nrcv)``. The carry is ``(u_prev, u, psi_0..,
+    zeta_0..)``; each step is the JAX package's XLA step, tree for tree.
+    Plain only (``fused`` and ``inplace`` are accepted and ignored);
+    ``remat_blocks`` as for :func:`_propagate`."""
+    shape, dtype, dev, nd = c.shape, c.dtype, c.device, c.ndim
+    c2dt2 = (c * c) * (dt * dt)
+    inv_dx2 = torch.tensor(1.0 / (dx * dx), dtype=dtype, device=dev)
+    inv_dx = torch.tensor(1.0 / dx, dtype=dtype, device=dev)
+    mask = cuda_wave.source_mask(shape, src_idx, torch.tensor(dt * dt, dtype=dtype,
+                                                              device=dev))
+
+    def body(carry, s_t):
+        u_prev, u, psis, zetas = carry
+        new_psis, new_zetas, lap = [], [], None
+        for ax in range(nd):
+            d1 = d1_axis(u, ax, inv_dx, order)
+            psi = b_prof[ax] * psis[ax] + a_prof[ax] * d1
+            d2 = d2_axis(u, ax, inv_dx2, order)
+            dpsi = d1_axis(psi, ax, inv_dx, order)
+            zeta = b_prof[ax] * zetas[ax] + a_prof[ax] * (d2 + dpsi)
+            new_psis.append(psi)
+            new_zetas.append(zeta)
+            term = d2 + dpsi + zeta
+            lap = term if lap is None else lap + term
+        u_next = 2.0 * u - u_prev + c2dt2 * lap + s_t * mask
+        return ((u, u_next, tuple(new_psis), tuple(new_zetas)),
+                u_next.reshape(-1).index_select(0, rcv_idx))
+
+    def zero():
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    carry = (zero(), zero(), tuple(zero() for _ in range(nd)),
+             tuple(zero() for _ in range(nd)))
+    return _time_loop(body, carry, src_wavelet, remat_blocks, _records(c))
+
+
+def cpml_wave_propagator(
+    grid_shape: Sequence[int],
+    *,
+    nt: int = 256,
+    dt: float = 0.001,
+    dx: float = 10.0,
+    freq: float = 15.0,
+    src_idx: int = 0,
+    rcv_idx=None,
+    pml_width: int = 12,
+    cmax: float = 4000.0,
+    space_order: int = 2,
+    remat_blocks: int = 1,
+    free_surface: bool = False,
+    dtrec: Optional[float] = None,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str | None = None,
+) -> Operator:
+    """Nonlinear forward modelling ``F: c → traces`` with CPML absorbing
+    boundaries (Pasalic–McGarry second-order-form convolutional PML), on
+    ``device`` (``None``: the CUDA card). The same jet contract as
+    :func:`wave_propagator`; its boundary reflects orders of magnitude less
+    than the cosine sponge at equal width. ``cmax`` is the static velocity
+    that scales the damping profiles (constants, not functions of the
+    model, so the linearization stays exact and the profiles stay out of
+    the gradient). Plain PyTorch: the tangent is ``torch.func.jvp`` and the
+    adjoint autograd through the time loop (:func:`_vjp_by_autograd`)."""
+    grid_shape = tuple(int(s) for s in grid_shape)
+    space_order = _check_space_order(space_order)
+    sp = Space(grid_shape, dtype, device)
+    a_prof, b_prof = _cpml_profiles(grid_shape, pml_width, dt, dx, cmax, freq,
+                                    dtype=dtype, free_surface=free_surface)
+    return _single_shot_operator(
+        sp, sp, _propagate_cpml, None, nt=nt, dt=dt, dx=dx, freq=freq, src_idx=src_idx,
+        rcv_idx=rcv_idx, dtrec=dtrec, store_adjoint=None, fused=False, order=space_order,
+        remat_blocks=remat_blocks, boundary={"a_prof": a_prof, "b_prof": b_prof})
 
 
 # ---------------------------------------------------------------------------
@@ -770,21 +1103,18 @@ class _VtiStep(torch.autograd.Function):
 
 
 def _propagate_vti(c, eps, delta, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
-                   order: int = 2, fused=None, inplace: bool = False):
+                   order: int = 2, fused=None, inplace: bool = False,
+                   remat_blocks: int = 1):
     """Coupled VTI leapfrog; returns the p-field receiver traces
-    ``(nt, nrcv)``. ``fused`` and ``inplace`` as for :func:`_propagate`: on
-    the kernel route the step is K8, in place on sweeps no transform
-    watches and inside :class:`_VtiStep` otherwise."""
+    ``(nt, nrcv)``. ``fused``, ``inplace`` and ``remat_blocks`` as for
+    :func:`_propagate`: on the kernel route the step is K8, in place on
+    sweeps no transform watches and inside :class:`_VtiStep` otherwise."""
     shape, dtype, dev = c.shape, c.dtype, c.device
-    nt = int(src_wavelet.shape[0])
     C, ah, av, inv_dx2 = _vti_coefficients(c, eps, delta, dt, dx)
     amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
     kernel = _kernel_route(fused, c, sponge, order)
-    inplace = inplace and not (torch.is_grad_enabled()
-                               and any(t.requires_grad for t in (c, eps, delta)))
-    pp, p, qp, q = (torch.zeros(shape, dtype=dtype, device=dev) for _ in range(4))
-    nrcv = int(rcv_idx.shape[0])
-    traces = torch.empty((nt, nrcv), dtype=dtype, device=dev) if inplace else []
+    tape = _records(c, eps, delta)
+    inplace = inplace and not tape
 
     if kernel:
         spz, sy, sx = _factors_1d(sponge)
@@ -806,14 +1136,8 @@ def _propagate_vti(c, eps, delta, src_wavelet, src_idx, rcv_idx, *, dt, dx, spon
             return cuda_vti.vti_plain(pp, p, qp, q, C, ah, av, S, inv_dx2, s_t, mask,
                                       order)
 
-    for k in range(nt):
-        p_next, q_next = step(pp, p, qp, q, src_wavelet[k])
-        if inplace:
-            torch.index_select(p_next.reshape(-1), 0, rcv_idx, out=traces[k])
-        else:
-            traces.append(p_next.reshape(-1).index_select(0, rcv_idx))
-        pp, p, qp, q = p, p_next, q, q_next
-    return traces if inplace else torch.stack(traces)
+    return _field_loop(step, 2, shape, dtype, dev, src_wavelet, rcv_idx, inplace,
+                       remat_blocks, tape)
 
 
 def _adjoint_stored_vti(c, eps, delta, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx,
@@ -964,11 +1288,11 @@ def vti_wave_propagator(
     ``fused``: ``None`` rides the kernels K8 (forward, tangent) and, with a
     stored adjoint, K9/K10 on a 3-D float32 grid on a CUDA card; ``True``
     insists; ``False`` takes the plain step. ``store_adjoint`` ∈ {None,
-    "f32", "bf16", "int8"} switches the adjoint from ``torch.func.vjp``
-    through the time loop to the stored two-field-history sweep
+    "f32", "bf16", "int8"} switches the adjoint from autograd through the
+    time loop to the stored two-field-history sweep
     (:func:`_adjoint_stored_vti`), which returns the ``(δc, δε, δδ)`` triple
-    in one reverse pass. Static Q (``q=``/``f0``), ``remat_blocks > 1`` and
-    ``wavefield_sharding`` are not ported yet.
+    in one reverse pass. ``remat_blocks`` as for :func:`wave_propagator`.
+    Static Q (``q=``/``f0``) and ``wavefield_sharding`` are not ported yet.
     """
     grid_shape = tuple(int(s) for s in grid_shape)
     space_order = _check_space_order(space_order)
@@ -977,8 +1301,6 @@ def vti_wave_propagator(
         raise _not_ported("vti_wave_propagator(q=...) (static Q)", "14")
     if wavefield_sharding is not None:
         raise _not_ported("vti_wave_propagator(wavefield_sharding=...)", "18")
-    if remat_blocks > 1:
-        raise _not_ported("remat_blocks > 1", "12")
     if fused and not cuda_wave.fits_wave_kernel(grid_shape, dtype, space_order):
         raise ValueError("fused VTI step requires a 3-D float32 grid")
     dom = _vti_domain(grid_shape, dtype, device)
@@ -986,7 +1308,8 @@ def vti_wave_propagator(
         dom, dom.subspace(0), _propagate_vti_m, _adjoint_stored_vti_m, nt=nt, dt=dt,
         dx=dx, freq=freq, src_idx=src_idx, rcv_idx=rcv_idx, dtrec=dtrec,
         store_adjoint=store_adjoint, fused=fused, order=space_order,
-        sponge=_make_sponge(grid_shape, sponge_width, dtype=dtype))
+        remat_blocks=remat_blocks,
+        boundary={"sponge": _make_sponge(grid_shape, sponge_width, dtype=dtype)})
 
 
 def multishot_vti_wave_operator(
@@ -1021,14 +1344,13 @@ def multishot_vti_wave_operator(
     _check_store(store_adjoint)
     if mesh is not None:
         raise _not_ported("multishot_vti_wave_operator(mesh=...)", "18")
-    if remat_blocks > 1:
-        raise _not_ported("remat_blocks > 1", "12")
     dom = _vti_domain(grid_shape, dtype, device)
     return _multishot_operator(
         dom, dom.subspace(0), _propagate_vti_m, _adjoint_stored_vti_m, src_indices,
         nt=nt, dt=dt, dx=dx, freq=freq, rcv_idx=rcv_idx, dtrec=dtrec,
         store_adjoint=store_adjoint, shot_map=shot_map, order=space_order,
-        sponge=_make_sponge(grid_shape, sponge_width, dtype=dtype))
+        remat_blocks=remat_blocks,
+        boundary={"sponge": _make_sponge(grid_shape, sponge_width, dtype=dtype)})
 
 
 # ---------------------------------------------------------------------------
@@ -1088,23 +1410,27 @@ class _PlainRuleStep(torch.autograd.Function):
     ``torch.func.jvp`` and ``torch.func.vjp`` of the plain step (the JAX
     rule's ``jax.jvp(xla_step, ...)``). A subclass saves its ``NPRIMALS``
     differentiable inputs first, in both ``save_for_backward`` and
-    ``save_for_forward``, and ``_step(ctx)`` rebuilds the plain step of
-    those primals from what it saved after them."""
+    ``save_for_forward``, and ``_step(ctx, rest)`` rebuilds the plain step
+    of those primals from what it saved after them (``rest``). The saved
+    tensors are read once per rule: under a checkpointed segment each read
+    unpacks them, and a second unpack is refused."""
 
     NPRIMALS: int
 
     @classmethod
     def jvp(cls, ctx, *tangents):
-        primals = ctx.saved_tensors[:cls.NPRIMALS]
+        saved = ctx.saved_tensors
+        primals = saved[:cls.NPRIMALS]
         tans = tuple(torch.zeros_like(x) if t is None else t
                      for x, t in zip(primals, tangents))
-        _, out = torch.func.jvp(cls._step(ctx), primals, tans)
+        _, out = torch.func.jvp(cls._step(ctx, saved[cls.NPRIMALS:]), primals, tans)
         return out
 
     @classmethod
     def backward(cls, ctx, *gouts):
-        primals = ctx.saved_tensors[:cls.NPRIMALS]
-        _, vjp = torch.func.vjp(cls._step(ctx), *primals)
+        saved = ctx.saved_tensors
+        primals = saved[:cls.NPRIMALS]
+        _, vjp = torch.func.vjp(cls._step(ctx, saved[cls.NPRIMALS:]), *primals)
         grads = vjp(gouts if len(gouts) > 1 else gouts[0])
         return grads + (None,) * (len(ctx.needs_input_grad) - cls.NPRIMALS)
 
@@ -1134,8 +1460,8 @@ class _TtiStep(_PlainRuleStep):
         ctx.src, ctx.order = src, order
 
     @staticmethod
-    def _step(ctx):
-        spz, sy, sx, inv_dx2, inv_dx, amp = ctx.saved_tensors[11:]
+    def _step(ctx, rest):
+        spz, sy, sx, inv_dx2, inv_dx, amp = rest
         S = cuda_wave.sponge_product(spz, sy, sx)
 
         def step(pp, p, qp, q, C, ah, av, nz, ny, nx, s_t):
@@ -1148,23 +1474,20 @@ class _TtiStep(_PlainRuleStep):
 
 def _propagate_tti3d(c, eps, delta, theta, phi, src_wavelet, src_idx, rcv_idx, *, dt,
                      dx, sponge, order: int = 2, fused=None, inplace: bool = False,
-                     coeff16: bool = False):
+                     coeff16: bool = False, remat_blocks: int = 1):
     """Coupled 3-D TTI leapfrog; returns the p-field receiver traces
-    ``(nt, nrcv)``. ``fused`` and ``inplace`` as for :func:`_propagate_vti`:
+    ``(nt, nrcv)``. ``fused``, ``inplace`` and ``remat_blocks`` as for
+    :func:`_propagate_vti`:
     on the kernel route the step is K11 on the streamed fields ``kc``, in
     place on sweeps no transform watches and inside :class:`_TtiStep`
     otherwise; the plain route is the JAX package's XLA step, tree for tree."""
     shape, dtype, dev = c.shape, c.dtype, c.device
-    nt = int(src_wavelet.shape[0])
     C, ah, av, nz, ny, nx, inv_dx2, inv_dx, _, kc = _tti_coefficients(
         c, eps, delta, theta, phi, dt, dx, coeff16)
     amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
     kernel = _kernel_route(fused, c, sponge, order)
-    inplace = inplace and not (torch.is_grad_enabled() and any(
-        t.requires_grad for t in (c, eps, delta, theta, phi)))
-    pp, p, qp, q = (torch.zeros(shape, dtype=dtype, device=dev) for _ in range(4))
-    nrcv = int(rcv_idx.shape[0])
-    traces = torch.empty((nt, nrcv), dtype=dtype, device=dev) if inplace else []
+    tape = _records(c, eps, delta, theta, phi)
+    inplace = inplace and not tape
 
     if kernel:
         spz, sy, sx = _factors_1d(sponge)
@@ -1186,18 +1509,13 @@ def _propagate_tti3d(c, eps, delta, theta, phi, src_wavelet, src_idx, rcv_idx, *
             return cuda_tti.tti_plain(pp, p, qp, q, C, ah, av, nz, ny, nx, S, inv_dx2,
                                       inv_dx, s_t, mask, order)
 
-    for k in range(nt):
-        p_next, q_next = step(pp, p, qp, q, src_wavelet[k])
-        if inplace:
-            torch.index_select(p_next.reshape(-1), 0, rcv_idx, out=traces[k])
-        else:
-            traces.append(p_next.reshape(-1).index_select(0, rcv_idx))
-        pp, p, qp, q = p, p_next, q, q_next
-    return traces if inplace else torch.stack(traces)
+    return _field_loop(step, 2, shape, dtype, dev, src_wavelet, rcv_idx, inplace,
+                       remat_blocks, tape)
 
 
 def _propagate_tti(c, eps, delta, theta, src_wavelet, src_idx, rcv_idx, *, dt, dx,
-                   sponge, order: int = 2, fused=None, inplace: bool = False):
+                   sponge, order: int = 2, fused=None, inplace: bool = False,
+                   remat_blocks: int = 1):
     """The 2-D tilt (θ in the x-z plane): ``H = cos²θ·∂xx + sin²θ·∂zz −
     sin2θ·∂xz``, ``V = sin²θ·∂xx + cos²θ·∂zz + sin2θ·∂xz`` with ``∂xz =
     d1_x(d1_z(u))``; plain only, as in the JAX package (``fused`` and
@@ -1213,20 +1531,18 @@ def _propagate_tti(c, eps, delta, theta, src_wavelet, src_idx, rcv_idx, *, dt, d
     def dxz(u):
         return d1_axis(d1_axis(u, 0, inv_dx, order), 1, inv_dx, order)
 
-    pp, p, qp, q = (torch.zeros(shape, dtype=dtype, device=dev) for _ in range(4))
-    traces = []
-    for k in range(int(src_wavelet.shape[0])):
+    def step(pp, p, qp, q, s_t):
         pxx, pzz = d2_axis(p, 1, inv_dx2, order), d2_axis(p, 0, inv_dx2, order)
         qxx, qzz = d2_axis(q, 1, inv_dx2, order), d2_axis(q, 0, inv_dx2, order)
         Hp = ct2 * pxx + st2 * pzz - s2t * dxz(p)
         Vq = st2 * qxx + ct2 * qzz + s2t * dxz(q)
         e_p = (2.0 * p - pp) + C * (ah * Hp + av * Vq)
         e_q = (2.0 * q - qp) + C * (av * Hp + Vq)
-        s = src_wavelet[k] * mask
-        p_next, q_next = e_p * sponge + s, e_q * sponge + s
-        traces.append(p_next.reshape(-1).index_select(0, rcv_idx))
-        pp, p, qp, q = p, p_next, q, q_next
-    return torch.stack(traces)
+        s = s_t * mask
+        return e_p * sponge + s, e_q * sponge + s
+
+    return _field_loop(step, 2, shape, dtype, dev, src_wavelet, rcv_idx, False,
+                       remat_blocks, _records(c, eps, delta, theta))
 
 
 def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet, src_idx, rcv_idx,
@@ -1413,11 +1729,11 @@ def tti_wave_propagator(
     fields ``1+2ε, √(1+2δ), nz, ny, nx`` to bfloat16 for both routes, which
     the kernels stream at half width; tangents and gradients flow through
     the rounding in float32. ``store_adjoint`` ∈ {None, "f32", "bf16",
-    "int8"} (3-D only) switches the adjoint from ``torch.func.vjp`` through
-    the time loop to the stored two-field-history sweep
+    "int8"} (3-D only) switches the adjoint from autograd through the time
+    loop to the stored two-field-history sweep
     (:func:`_adjoint_stored_tti3d`), which returns ``(δc, δε, δδ, δθ, δφ)``
-    in one reverse pass. Static Q (``q=``/``f0``), ``remat_blocks > 1`` and
-    ``wavefield_sharding`` are not ported yet.
+    in one reverse pass. ``remat_blocks`` as for :func:`wave_propagator`.
+    Static Q (``q=``/``f0``) and ``wavefield_sharding`` are not ported yet.
     """
     grid_shape = tuple(int(s) for s in grid_shape)
     space_order = _check_space_order(space_order)
@@ -1437,8 +1753,6 @@ def tti_wave_propagator(
         raise _not_ported("tti_wave_propagator(wavefield_sharding=...)", "18")
     if q is not None:
         raise _not_ported("tti_wave_propagator(q=...) (static Q)", "14")
-    if remat_blocks > 1:
-        raise _not_ported("remat_blocks > 1", "12")
     if fused and not (three_d and cuda_wave.fits_wave_kernel(grid_shape, dtype,
                                                               space_order)):
         raise ValueError("fused TTI step requires a 3-D float32 grid")
@@ -1448,7 +1762,8 @@ def tti_wave_propagator(
         functools.partial(_adjoint_stored_tti3d_m, coeff16=coeff16), nt=nt, dt=dt,
         dx=dx, freq=freq, src_idx=src_idx, rcv_idx=rcv_idx, dtrec=dtrec,
         store_adjoint=store_adjoint, fused=fused, order=space_order,
-        sponge=_make_sponge(grid_shape, sponge_width, dtype=dtype))
+        remat_blocks=remat_blocks,
+        boundary={"sponge": _make_sponge(grid_shape, sponge_width, dtype=dtype)})
 
 
 def multishot_tti_wave_operator(
@@ -1483,14 +1798,13 @@ def multishot_tti_wave_operator(
     _check_tti(grid_shape, store_adjoint, "TTI multishot")
     if mesh is not None:
         raise _not_ported("multishot_tti_wave_operator(mesh=...)", "18")
-    if remat_blocks > 1:
-        raise _not_ported("remat_blocks > 1", "12")
     dom = _tti_domain(grid_shape, dtype, device)
     return _multishot_operator(
         dom, dom.subspace(0), _propagate_tti_m, _adjoint_stored_tti3d_m, src_indices,
         nt=nt, dt=dt, dx=dx, freq=freq, rcv_idx=rcv_idx, dtrec=dtrec,
         store_adjoint=store_adjoint, shot_map=shot_map, order=space_order,
-        sponge=_make_sponge(grid_shape, sponge_width, dtype=dtype))
+        remat_blocks=remat_blocks,
+        boundary={"sponge": _make_sponge(grid_shape, sponge_width, dtype=dtype)})
 
 
 # ---------------------------------------------------------------------------
@@ -1534,8 +1848,8 @@ class _QStep(_PlainRuleStep):
         ctx.src, ctx.order = src, order
 
     @staticmethod
-    def _step(ctx):
-        spz, sy, sx, amp = ctx.saved_tensors[5:]
+    def _step(ctx, rest):
+        spz, sy, sx, amp = rest
         S = cuda_wave.sponge_product(spz, sy, sx)
 
         def step(up, u, c2, g, s_t):
@@ -1548,10 +1862,10 @@ class _QStep(_PlainRuleStep):
 
 def _propagate_q(c, q, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0, sponge,
                  order: int = 2, fused=None, inplace: bool = False,
-                 coeff16: bool = False):
+                 coeff16: bool = False, remat_blocks: int = 1):
     """Leapfrog with Kosloff constant-Q friction; returns the receiver
-    traces ``(nt, nrcv)``. ``fused`` and ``inplace`` as for
-    :func:`_propagate`: on the kernel route (a 3-D float32 grid on a CUDA
+    traces ``(nt, nrcv)``. ``fused``, ``inplace`` and ``remat_blocks`` as
+    for :func:`_propagate`: on the kernel route (a 3-D float32 grid on a CUDA
     card, with either g width) the step is K14, in place on sweeps no
     transform watches and inside :class:`_QStep` otherwise; 2-D grids and
     ``fused=False`` take the plain step (the JAX package's XLA step, tree for
@@ -1560,7 +1874,6 @@ def _propagate_q(c, q, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0, sponge,
     is the rounded value, the tangent flows in float32) and K14 streams the
     bfloat16 field itself."""
     shape, dtype, dev = c.shape, c.dtype, c.device
-    nt = int(src_wavelet.shape[0])
     c2dt2 = _c2dt2(c, dt, dx)
     g = _q_friction(q, dt, f0)
     kg = g
@@ -1569,12 +1882,8 @@ def _propagate_q(c, q, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0, sponge,
         g = g + (_r16(g) - g).detach()
     amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
     kernel = _kernel_route(fused, c, sponge, order)
-    inplace = inplace and not (torch.is_grad_enabled()
-                               and (c.requires_grad or q.requires_grad))
-    u_prev = torch.zeros(shape, dtype=dtype, device=dev)
-    u = torch.zeros(shape, dtype=dtype, device=dev)
-    nrcv = int(rcv_idx.shape[0])
-    traces = torch.empty((nt, nrcv), dtype=dtype, device=dev) if inplace else []
+    tape = _records(c, q)
+    inplace = inplace and not tape
 
     if kernel:
         spz, sy, sx = _factors_1d(sponge)
@@ -1595,14 +1904,8 @@ def _propagate_q(c, q, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0, sponge,
         def step(up, uu, s_t):
             return cuda_wave.q_plain(up, uu, c2dt2, om1g, inv1pg, S, s_t, mask, order)
 
-    for k in range(nt):
-        u_next = step(u_prev, u, src_wavelet[k])
-        if inplace:
-            torch.index_select(u_next.reshape(-1), 0, rcv_idx, out=traces[k])
-        else:
-            traces.append(u_next.reshape(-1).index_select(0, rcv_idx))
-        u_prev, u = u, u_next
-    return traces if inplace else torch.stack(traces)
+    return _field_loop(step, 1, shape, dtype, dev, src_wavelet, rcv_idx, inplace,
+                       remat_blocks, tape)
 
 
 def _adjoint_stored_q(c, qf, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0, sponge,
@@ -1733,17 +2036,15 @@ def q_wave_propagator(
     the friction field ``g = π·f0·dt/Q`` to bfloat16 for both routes, which
     K14 streams at half width; tangents and gradients flow through the
     rounding in float32. ``store_adjoint`` ∈ {None, "f32", "bf16", "int8"}
-    switches the adjoint from ``torch.func.vjp`` through the time loop to
-    the stored-history sweep (:func:`_adjoint_stored_q`), which returns the
-    ``(δc, δQ)`` pair. ``remat_blocks > 1`` is not ported yet."""
+    switches the adjoint from autograd through the time loop to the
+    stored-history sweep (:func:`_adjoint_stored_q`), which returns the
+    ``(δc, δQ)`` pair. ``remat_blocks`` as for :func:`wave_propagator`."""
     grid_shape = tuple(int(s) for s in grid_shape)
     space_order = _check_space_order(space_order)
     _check_store(store_adjoint)
     if coeff_dtype is not None and coeff_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("coeff_dtype must be float32 or bfloat16")
     coeff16 = coeff_dtype == torch.bfloat16
-    if remat_blocks > 1:
-        raise _not_ported("remat_blocks > 1", "12")
     if fused and not cuda_wave.fits_wave_kernel(grid_shape, dtype, space_order):
         raise ValueError("fused Q step requires a 3-D float32 grid")
     gsp = Space(grid_shape, dtype, device)
@@ -1754,7 +2055,8 @@ def q_wave_propagator(
         functools.partial(_adjoint_stored_q_m, f0=f0, coeff16=coeff16), nt=nt, dt=dt,
         dx=dx, freq=freq, src_idx=src_idx, rcv_idx=rcv_idx, dtrec=dtrec,
         store_adjoint=store_adjoint, fused=fused, order=space_order,
-        sponge=_make_sponge(grid_shape, sponge_width, dtype=dtype))
+        remat_blocks=remat_blocks,
+        boundary={"sponge": _make_sponge(grid_shape, sponge_width, dtype=dtype)})
 
 
 def with_wave_arrays(op: Operator, *, wavelet, sponge, src_idx, rcv_idx) -> Operator:

@@ -31,6 +31,7 @@ CONSTRUCTORS = {
     "tti_wave_propagator": wave.tti_wave_propagator,
     "multishot_tti_wave_operator": wave.multishot_tti_wave_operator,
     "q_wave_propagator": wave.q_wave_propagator,
+    "cpml_wave_propagator": wave.cpml_wave_propagator,
     "diagonal_operator": diagonal.diagonal_operator,
     "matrix_operator": matrix.matrix_operator,
     "conv1d_operator": conv.conv1d_operator,
@@ -63,6 +64,7 @@ CALLS = {
     "multishot_tti_wave_operator": lambda **kw: wave.multishot_tti_wave_operator(
         (8, 8), [9, 20], nt=4, **kw),
     "q_wave_propagator": lambda **kw: wave.q_wave_propagator((4, 8, 8), nt=4, **kw),
+    "cpml_wave_propagator": lambda **kw: wave.cpml_wave_propagator((8, 8), nt=4, **kw),
     "diagonal_operator": lambda **kw: diagonal.diagonal_operator(np.ones((3, 4)), **kw),
     "matrix_operator": lambda **kw: matrix.matrix_operator(np.ones((3, 4)), **kw),
     "conv1d_operator": lambda **kw: conv.conv1d_operator([1.0, 2.0], 5, **kw),

@@ -68,6 +68,27 @@ Ag = configs.config1_spd_cg(n=24, device="cpu")[0]
 xg = torch.ones(24, dtype=torch.float64)
 rg = gmres(Ag, Ag(xg), maxiter=24, restart=8, tol=1e-12)
 assert float(torch.linalg.vector_norm(rg.x - xg)) < 1e-8
+from jets_tpu_torch.ops import cpml_wave_propagator
+from jets_tpu_torch.ops.wave import multishot_wave_operator
+from jets_tpu_torch.solvers import gauss_newton, lbfgs, least_squares_objective, nlcg
+Fw = multishot_wave_operator((6, 8, 16), [3 * 32 + 4 * 8 + 4] * 2, nt=8, dt=6e-4,
+                             sponge_width=1, window_shape=(6, 4, 8),
+                             window_corners=[[0, 0, 0], [0, 4, 8]], store_adjoint="int8",
+                             shot_map="map", remat_blocks=2, device="cpu")
+fg = least_squares_objective(Fw, Fw(c * 1.02))
+rb = lbfgs(fg, c, maxiter=2, mem=3, tol=0.0, bounds=(1400.0, 1700.0))
+assert bool(torch.isfinite(rb.history).all()) and float(rb.phi) < float(fg(c)[0])
+rn = nlcg(fg, c, maxiter=1, tol=0.0)
+assert rn.iterations == 1 and float(rn.phi) < float(fg(c)[0])
+Fg = multishot_wave_operator((12, 16), [6 * 16 + 4, 6 * 16 + 12], nt=16, sponge_width=2,
+                             shot_map="map", dtype=torch.float64, device="cpu")
+cg0 = torch.full((12, 16), 1500.0, dtype=torch.float64)
+rgn = gauss_newton(Fg, Fg(cg0 * 1.02), cg0, outer_iters=1, inner_iters=2)
+assert rgn.residuals[-1] < rgn.residuals[0]
+Fc = cpml_wave_propagator((8, 8), nt=8, src_idx=36, pml_width=2, remat_blocks=2,
+                          device="cpu")
+c2 = torch.full((8, 8), 1500.0)
+assert Fc.linearize(c2).H(Fc(c2)).shape == (8, 8)
 assert kernels._libs == {}, "the CPU path loaded a kernel library"
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "triton"))
 assert not bad, bad

@@ -317,8 +317,9 @@ def test_validation_and_what_is_not_ported():
         tw.q_wave_propagator(SHAPE2, store_adjoint="int4", device=CPU)
     with pytest.raises(ValueError, match="space_order"):
         tw.q_wave_propagator(SHAPE2, space_order=6, device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tw.q_wave_propagator(SHAPE2, remat_blocks=2, device=CPU)
+    F2 = tw.q_wave_propagator(SHAPE2, nt=8, remat_blocks=2, device=CPU)
+    m = tt.BlockVector((torch.full(SHAPE2, 1500.0), torch.full(SHAPE2, 40.0)), F2.dom)
+    assert torch.equal(F2(m), tw.q_wave_propagator(SHAPE2, nt=8, device=CPU)(m))
     F = tw.q_wave_propagator(SHAPE2, nt=8, f0=25.0, device=CPU)
     assert isinstance(F.dom, tt.BlockSpace) and F.dom.nblocks == 2
     assert F.rng.shape == (8, 128)

@@ -470,11 +470,17 @@ def test_validation_errors_match_jax():
 
 
 def test_what_is_not_ported_names_its_roadmap_item():
-    for kw, item in ((dict(q=50.0), "14"), (dict(remat_blocks=4), "12"),
-                     (dict(wavefield_sharding=object()), "18")):
+    for kw, item in ((dict(q=50.0), "14"), (dict(wavefield_sharding=object()), "18")):
         with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
             tw.tti_wave_propagator(SHAPE3, **kw, device=CPU)
+    F4 = tw.tti_wave_propagator((12, 12), nt=6, remat_blocks=3, device=CPU)
+    m = tt.BlockVector((torch.full((12, 12), 1500.0), torch.full((12, 12), 0.1),
+                        torch.full((12, 12), 0.05), torch.full((12, 12), 0.3)), F4.dom)
+    assert torch.equal(F4(m), tw.tti_wave_propagator((12, 12), nt=6, device=CPU)(m))
     with pytest.raises(NotImplementedError, match="queue 1 item 18"):
         tw.multishot_tti_wave_operator((20, 20), [5, 9], mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tw.multishot_tti_wave_operator((20, 20), [5, 9], remat_blocks=2, device=CPU)
+    with pytest.raises(NotImplementedError, match="queue 1 item 20"):
+        tw.multishot_tti_wave_operator((20, 20), [5, 9], nt=4, remat_blocks=2, device=CPU)
+    Fm = tw.multishot_tti_wave_operator((20, 20), [5, 9], nt=4, remat_blocks=2,
+                                        shot_map="map", device=CPU)
+    assert Fm.rng.shape == (2, 4, 128)

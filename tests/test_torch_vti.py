@@ -339,14 +339,20 @@ def test_validation_and_what_is_not_ported():
         tw.vti_wave_propagator(SHAPE2, nt=4, dt=1e-3, dtrec=5e-4, device=CPU)
     with pytest.raises(NotImplementedError, match="queue 1 item 14"):
         tw.vti_wave_propagator(SHAPE2, q=50.0, device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tw.vti_wave_propagator(SHAPE2, remat_blocks=4, device=CPU)
+    F4 = tw.vti_wave_propagator(SHAPE2, nt=8, remat_blocks=4, device=CPU)
+    m = F4.dom.reshape(torch.cat([torch.full((24 * 24,), 1500.0),
+                                  torch.full((24 * 24,), 0.1),
+                                  torch.full((24 * 24,), 0.05)]))
+    assert torch.equal(F4(m), tw.vti_wave_propagator(SHAPE2, nt=8, device=CPU)(m))
     with pytest.raises(NotImplementedError, match="queue 1 item 18"):
         tw.vti_wave_propagator(SHAPE2, wavefield_sharding=object(), device=CPU)
     with pytest.raises(NotImplementedError, match="queue 1 item 18"):
         tw.multishot_vti_wave_operator((20, 20), [5, 9], mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tw.multishot_vti_wave_operator((20, 20), [5, 9], remat_blocks=2, device=CPU)
+    with pytest.raises(NotImplementedError, match="queue 1 item 20"):
+        tw.multishot_vti_wave_operator((20, 20), [5, 9], nt=4, remat_blocks=2, device=CPU)
+    Fm = tw.multishot_vti_wave_operator((20, 20), [5, 9], nt=4, remat_blocks=2,
+                                        shot_map="map", device=CPU)
+    assert Fm.rng.shape == (2, 4, 128)
     with pytest.raises(ValueError, match="shot_map"):
         tw.multishot_vti_wave_operator((20, 20), [5, 9], shot_map="scan", device=CPU)
     F = tw.vti_wave_propagator(SHAPE2, nt=4, device=CPU)

@@ -248,18 +248,24 @@ def test_validation_and_what_is_not_ported():
         tw.wave_propagator(SHAPE2, nt=4, fused=True, device=CPU)
     with pytest.raises(ValueError, match="dtrec"):
         tw.wave_propagator(SHAPE2, nt=4, dt=1e-3, dtrec=5e-4, device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tw.wave_propagator(SHAPE2, remat_blocks=4, device=CPU)
+    c = _T(_velocity(SHAPE2))
+    assert torch.equal(tw.wave_propagator(SHAPE2, nt=8, remat_blocks=4, device=CPU)(c),
+                       tw.wave_propagator(SHAPE2, nt=8, device=CPU)(c))
     with pytest.raises(NotImplementedError, match="queue 1 item 18"):
         tw.wave_propagator(SHAPE2, wavefield_sharding=object(), device=CPU)
     srcs = [5, 9]
-    with pytest.raises(NotImplementedError, match="ginsu"):
-        tw.multishot_wave_operator((20, 20), srcs, window_shape=(16, 16),
-                                   window_corners=[[0, 0], [4, 4]], device=CPU)
+    Fw = tw.multishot_wave_operator((20, 20), srcs, nt=4, window_shape=(16, 16),
+                                    window_corners=[[0, 0], [4, 4]], device=CPU)
+    assert Fw.dom.shape == (20, 20) and Fw.rng.shape == (2, 4, 128)
     with pytest.raises(ValueError, match="BOTH"):
         tw.multishot_wave_operator((20, 20), srcs, window_shape=(16, 16), device=CPU)
-    with pytest.raises(NotImplementedError, match="cpml"):
-        tw.multishot_wave_operator((20, 20), srcs, boundary="cpml", device=CPU)
+    with pytest.raises(NotImplementedError, match="queue 1 item 20"):
+        tw.multishot_wave_operator((20, 20), srcs, nt=4, remat_blocks=2, device=CPU)
+    Fc = tw.multishot_wave_operator((20, 20), srcs, nt=4, boundary="cpml", device=CPU)
+    assert Fc(torch.full((20, 20), 1500.0)).shape == (2, 4, 128)
+    with pytest.raises(ValueError, match="store_adjoint is not available with CPML"):
+        tw.multishot_wave_operator((20, 20), srcs, boundary="cpml", store_adjoint="f32",
+                                   device=CPU)
     with pytest.raises(ValueError, match="boundary"):
         tw.multishot_wave_operator((20, 20), srcs, boundary="pml", device=CPU)
     with pytest.raises(NotImplementedError, match="queue 1 item 18"):
