@@ -55,8 +55,22 @@ with velocity-only bounds, Gauss–Newton with CGLS on 4 shots,
 memory; VTI, TTI and Q at (32, 64, 128)), and CPML
 (``cpml_wave_propagator``, its Born gates, its reflection against the
 sponge's, and 2 shots of ``multishot_wave_operator(boundary="cpml")``),
-each solve's launches held against its objective evaluations. Each path
-runs with the kernels' launch counts set to
+each solve's launches held against its objective evaluations — and the
+ninth, the wave physics no kernel computes, at the wave stages' geometry:
+variable density and IsoDenQ (``vd_wave_propagator``,
+``vdq_wave_propagator``; a seeded ±20% density anomaly, Q as the sixth
+path) forwards at nt=220 and int8 gradients at nt=120, Q = ∞ bitwise
+variable density, a Jacobian gate and int8-vs-f32 cosines; static Q on
+VTI (forward nt=220, int8 gradient nt=160) and TTI (forward and int8
+gradient nt=60, f32 and bf16 coefficients), Q = ∞ bitwise the K8/K9/K10
+and K11/K12/K13 routes, ``fused=True`` refused, Jacobian gates; and
+off-grid RTM (``offgrid_wave_propagator`` at order 8, nt=160, a
+fractional source and a 64 × 64 receiver plane at depth 4.5): the Born
+gate, the int8 RTM image against the autodiff adjoint, 3 LSQR iterations
+of least-squares migration, integer positions against ``wave_propagator``
+on K4 and the ``ops/sampling`` gates; each against the CPU at
+(32, 64, 128), and each asserting that no wave kernel ran on the new
+physics. Each path runs with the kernels' launch counts set to
 0 just before it and read just after. Every phase asserts; a failure
 raises and exits non-zero. Every entry point runs on the card by default;
 the CPU runs ask for ``device="cpu"``.
@@ -90,6 +104,45 @@ def log(phase, msg):
 def rel(a, b):
     return float(torch.linalg.vector_norm((a - b).double())
                  / torch.linalg.vector_norm(b.double()))
+
+
+def _blocks(t):
+    from jets_tpu_torch import BlockVector
+    return t.blocks if isinstance(t, BlockVector) else (t,)
+
+
+def live(t, name):
+    """Every block of ``t`` finite and not identically zero, or fail."""
+    for i, x in enumerate(_blocks(t)):
+        assert bool(torch.isfinite(x).all()), f"{name}[{i}] is not finite"
+        assert float(x.abs().max()) > 0.0, f"{name}[{i}] is identically zero"
+
+
+def same(a, b, name):
+    """Bitwise equality of every block (a tensor or a BlockVector), or fail."""
+    pa, pb = _blocks(a), _blocks(b)
+    for i, (x, y) in enumerate(zip(pa, pb)):
+        live(y, f"{name}[{i}]")
+        assert torch.equal(x, y), f"{name}[{i}] not bitwise: rel {rel(x, y)}"
+    return f"{name} bitwise ({len(pa)} block{'s' * (len(pa) > 1)})"
+
+
+def agree(a, b, name, tol):
+    """Every block of ``a`` within ``tol`` of ``b``'s (the relative 2-norm,
+    on ``b``'s device), or fail."""
+    msgs = []
+    for i, (x, y) in enumerate(zip(_blocks(a), _blocks(b))):
+        live(y, f"{name}[{i}]")
+        x = x.to(y.device)
+        r = rel(x, y)
+        assert r <= tol, f"{name}[{i}]: rel {r} > {tol}"
+        msgs.append(f"{r:.3e} (bitwise: {bool(torch.equal(x, y))})")
+    return f"{name} rel {', '.join(msgs)} (<= {tol:g})"
+
+
+def _cosine(x, y):
+    return float(torch.vdot(x.double().reshape(-1), y.double().reshape(-1))
+                 / (torch.linalg.vector_norm(x.double()) * torch.linalg.vector_norm(y.double())))
 
 
 def cuda_ms(fn, reps):
@@ -773,6 +826,402 @@ def fwi_inversion(smi, c_true, wkw):
     return launched
 
 
+def other_physics(smi, c_true, q_true, wkw):
+    """Phases 51-56, the wave physics no kernel computes, at the wave stages'
+    geometry (256^3 f32, dt 5e-4, dx 10, 15 Hz, sponge 12, centre source, 128
+    receivers): variable density and IsoDenQ (``vd_wave_propagator``,
+    ``vdq_wave_propagator``), static Q on VTI and TTI (``q=``) and off-grid
+    RTM (``offgrid_wave_propagator``, ``ops/sampling``). Every run of the new
+    physics asserts that it launched no wave kernel; K4, K8-K13 launch only
+    where a reduction check holds a new path against a kernel route (Q = inf,
+    integer positions), and K1 in the LSQR of the least-squares migration.
+    Each timed run prints its ms per step and its peak device memory above
+    its start. Returns the kernels' launches of the counted runs."""
+    from jets_tpu_torch import BlockVector, dot_product_test
+    from jets_tpu_torch.ops import cuda_solver as cs
+    from jets_tpu_torch.ops.sampling import (sinc_point_sampling_operator,
+                                             sinc_sampling_operator)
+    from jets_tpu_torch.ops.wave import (born_operator, offgrid_wave_propagator,
+                                         tti_wave_propagator, vd_wave_propagator,
+                                         vdq_wave_propagator, vti_wave_propagator,
+                                         wave_propagator)
+    from jets_tpu_torch.solvers import lsqr
+
+    dev = c_true.device
+    wshape = tuple(c_true.shape)
+    n = wshape[0]  # 256; the geometry scales with it
+    src0 = int(np.ravel_multi_index((n // 2,) * 3, wshape))
+    skw = dict(src_idx=src0, **wkw)
+    launched = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launched[k] = launched.get(k, 0) + n
+
+    def plain(fn, name):
+        """``fn()``, asserting that it launched no wave kernel."""
+        b = _counts()
+        out = fn()
+        assert _launched(b) == {}, f"{name} launched {_launched(b)}"
+        return out
+
+    def timed(fn, nt, name):
+        """``fn()`` with no wave kernel launched: (out, ms per step by CUDA
+        events, peak device memory above the start in GiB)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = []
+        ms = plain(lambda: event_ms(lambda: out.append(fn())), name)
+        return out[0], ms / nt, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    def busy(fn, name):
+        """The device busy share of ``fn()`` under the profiler, as text."""
+        sh, wall, nev, top = plain(lambda: busy_share(fn), name)
+        return (f"{name}: device busy {'not measured' if sh is None else f'{sh:.3f}'} of "
+                f"{wall:.2f} ms ({nev} device events; top kernels, us total/count: "
+                + "; ".join(f"{nm} {t:.0f}/{c}" for nm, (t, c) in top) + ")")
+
+    def reference(fn, want):
+        """``fn()`` on a kernel route, asserting exactly the launches ``want``."""
+        b = _counts()
+        out = fn()
+        got = _launched(b)
+        assert got == want, (got, want)
+        add(got)
+        return out
+
+    def gate(J, seed, name):
+        """The dot-product gate of ``J`` with f32 sums and with f64 sums of the
+        same products (rel <= 1e-4 each)."""
+        gb = torch.Generator().manual_seed(seed)
+        mb, db = J.dom.randn(gb), J.rng.randn(gb)
+        lhs, rhs = plain(lambda: dot_product_test(J, mb, db), name)
+        g32 = abs(float(lhs) - float(rhs)) / abs(float(rhs))
+        Jm, Jd = plain(lambda: (J(mb), J.H(db)), name)
+        lhs64 = float(torch.vdot(db.double().reshape(-1), Jm.double().reshape(-1)))
+        rhs64 = sum(float(torch.vdot(x.double().reshape(-1), y.double().reshape(-1)))
+                    for x, y in zip(_blocks(Jd), _blocks(mb)))
+        g64 = abs(lhs64 - rhs64) / abs(rhs64)
+        assert g32 <= 1e-4 and g64 <= 1e-4, f"{name} gate rel {g32}, f64 sums {g64}"
+        return f"{name} dot-product gate rel {g32:.3e}, f64 sums {g64:.3e} (<= 1e-4)"
+
+    def cosines(ga, gb, name):
+        cs_ = [_cosine(x, y) for x, y in zip(ga.blocks, gb.blocks)]
+        assert all(c_ > 0.95 for c_ in cs_), (name, cs_)
+        return f"{name} cosines " + ", ".join(f"{c_:.6f}" for c_ in cs_) + " (> 0.95)"
+
+    def full(v, shape=wshape):
+        return torch.full(shape, v, device=dev)
+
+    def ones(op):
+        return torch.ones(op.rng.shape, device=dev)
+
+    # the (32, 64, 128) corner for the card-vs-CPU checks
+    cshape = (n // 8, n // 4, n // 2)
+    ckw = dict(dt=wkw["dt"], dx=wkw["dx"], freq=wkw["freq"], sponge_width=6,
+               src_idx=int(np.ravel_multi_index(tuple(s // 2 for s in cshape), cshape)),
+               rcv_idx=[int(np.ravel_multi_index((cshape[0] // 2, cshape[1] // 2, x), cshape))
+                        for x in range(0, cshape[2], 2)])
+    r12 = torch.from_numpy(np.random.default_rng(12).standard_normal((12, cshape[2] // 2))
+                           .astype(np.float32))
+
+    def corner(t):
+        return t[:cshape[0], :cshape[1], :cshape[2]].contiguous()
+
+    def card_vs_cpu(ctor, blocks, store, name, tol=1e-5):
+        """Forward and ``store``-history gradient at (32, 64, 128), nt=12, on
+        the card and on the CPU."""
+        Fk = ctor(cshape, nt=12, store_adjoint=store, **ckw)
+        Fc = ctor(cshape, nt=12, store_adjoint=store, device="cpu", **ckw)
+        mk = BlockVector(tuple(corner(t) for t in blocks), Fk.dom)
+        mc = BlockVector(tuple(t.cpu() for t in mk.blocks), Fc.dom)
+        dk, gk = plain(lambda: (Fk(mk), Fk.linearize(mk).H(r12.to(dev))), name)
+        dc, gc = Fc(mc), Fc.linearize(mc).H(r12)
+        return (agree(dk, dc, f"{name} card vs CPU traces", tol) + "; "
+                + agree(gk, gc, f"{name} card vs CPU {store} gradient", tol))
+
+    # ---- phase 51: variable density and IsoDenQ at 256^3 --------------------------
+    # buoyancy b = 1/rho, rho = 1000 kg/m^3 with one smooth seeded anomaly of +-20%
+    rs = np.random.default_rng(9)
+    axis = torch.arange(n, dtype=torch.float32, device=dev)
+    (bz, by, bx), sign = rs.uniform(n / 4, 3 * n / 4, 3), rs.choice((-1.0, 1.0))
+    gz, gy, gx = (torch.exp(-0.5 * ((axis - float(o)) / (0.11 * n)) ** 2)
+                  for o in (bz, by, bx))
+    rho = 1000.0 * (1.0 + 0.2 * sign * (gz[:, None, None] * gy[None, :, None]
+                                        * gx[None, None, :]))
+    b_true = 1.0 / rho
+    b_bg = full(1e-3)
+    msgs = []
+    stats = {}
+    for kind, ctor, extra in (("vd", vd_wave_propagator, ()),
+                              ("vdq", vdq_wave_propagator, (q_true,))):
+        F = ctor(wshape, nt=220, **skw)
+        m = BlockVector((c_true, b_true, *extra), F.dom)
+        d, ms, gib = timed(lambda: F(m), 220, f"{kind} forward")
+        live(d, f"{kind} traces")
+        assert d.shape == (220, len(wkw["rcv_idx"]))
+        stats[f"{kind} forward nt=220"] = (ms, gib)
+        Fg = ctor(wshape, nt=120, store_adjoint="int8", **skw)
+        mbg = BlockVector((full(1500.0), b_bg, *extra), Fg.dom)
+        res = plain(lambda: Fg(m) - Fg(mbg), f"{kind} residual")  # a physical residual
+        live(res, f"{kind} residual")
+        g, ms, gib = timed(lambda: Fg.linearize(m).H(res), 120, f"{kind} int8 gradient")
+        live(g, f"{kind} int8 gradient")
+        stats[f"{kind} int8 gradient nt=120"] = (ms, gib)
+        msgs.append(f"{kind}: {F.dom.nblocks} blocks, gradient blocks all finite and live")
+        del d, res, g
+    F20 = vdq_wave_propagator(wshape, nt=20, store_adjoint="int8", **skw)
+    msgs.append(busy(lambda: F20.linearize(m).H(ones(F20)), "vdq int8 gradient nt=20"))
+    log(51, "variable density (c, b) and IsoDenQ (c, b, Q) at 256^3, (c, b, Q) = "
+            "(1500 + anomalies, 1/rho with rho 1000 and a seeded smooth "
+            f"{'+' if sign > 0 else '-'}20% anomaly, 50 with a low-Q anomaly to 25), no "
+            "kernel launched: " + "; ".join(
+                f"{k} {ms:.3f} ms/step, peak {gib:.2f} GiB" for k, (ms, gib) in stats.items())
+            + "; " + "; ".join(msgs) + f" [{smi}]")
+
+    # ---- phase 52: IsoDenQ checks ---------------------------------------------------
+    inf = full(float("inf"))
+    Fv = vd_wave_propagator(wshape, nt=60, store_adjoint="f32", **skw)
+    Fq = vdq_wave_propagator(wshape, nt=60, store_adjoint="f32", **skw)
+    mv = BlockVector((c_true, b_true), Fv.dom)
+    mq_inf = BlockVector((c_true, b_true, inf), Fq.dom)
+    mq = BlockVector((c_true, b_true, q_true), Fq.dom)
+    dv = plain(lambda: Fv(mv), "vd forward")
+    res60 = dv - plain(lambda: Fv(BlockVector((full(1500.0), b_bg), Fv.dom)), "vd forward")
+    msg_inf = same(plain(lambda: Fq(mq_inf), "vdq forward"), dv, "vdq(Q = inf) vs vd traces")
+    gv = plain(lambda: Fv.linearize(mv).H(res60), "vd gradient")
+    gq_inf = plain(lambda: Fq.linearize(mq_inf).H(res60), "vdq gradient")
+    msg_inf += "; " + same(BlockVector(gq_inf.blocks[:2], Fv.dom), gv,
+                           "vdq(Q = inf) vs vd f32-history gradient (gc, gb)")
+    del gq_inf
+    msg_gate = gate(born_operator(Fq, mq), 8, "vdq Jacobian, nt=60, f32 history")
+    g32 = plain(lambda: Fq.linearize(mq).H(res60), "vdq gradient")
+    Fq8 = vdq_wave_propagator(wshape, nt=60, store_adjoint="int8", **skw)
+    Fv8 = vd_wave_propagator(wshape, nt=60, store_adjoint="int8", **skw)
+    msg_cos = (cosines(plain(lambda: Fq8.linearize(mq).H(res60), "vdq int8"), g32,
+                       "vdq int8 vs f32 history gradient (c, b, Q)") + "; "
+               + cosines(plain(lambda: Fv8.linearize(mv).H(res60), "vd int8"), gv,
+                         "vd int8 vs f32 history gradient (c, b)"))
+    del g32, gv, dv
+    msg_cpu = "; ".join(card_vs_cpu(ctor, blocks, "f32", kind) for kind, ctor, blocks in (
+        ("vd", vd_wave_propagator, (c_true, b_true)),
+        ("vdq", vdq_wave_propagator, (c_true, b_true, q_true))))
+    log(52, f"IsoDenQ checks at 256^3, nt=60, no kernel launched: {msg_inf}; {msg_gate}; "
+            f"{msg_cos}; at {cshape}, nt=12: {msg_cpu} [{smi}]")
+
+    # ---- phase 53: static Q on VTI --------------------------------------------------
+    def vti_m(dom, c, shape=wshape):
+        return BlockVector((c, full(0.1, shape), full(0.05, shape)), dom)
+
+    qkw = dict(q=q_true, f0=15.0, **skw)
+    stats = {}
+    F = vti_wave_propagator(wshape, nt=220, **qkw)
+    m = vti_m(F.dom, c_true)
+    d, ms, gib = timed(lambda: F(m), 220, "VTI Q forward")
+    live(d, "VTI Q traces")
+    stats["forward nt=220"] = (ms, gib)
+    d0 = reference(lambda: vti_wave_propagator(wshape, nt=220, **skw)(m),
+                   {"fused_vti_step": 220})
+    e_tail = [float(torch.linalg.vector_norm(x[110:])) for x in (d, d0)]
+    assert e_tail[0] < e_tail[1], f"Q did not attenuate the late arrivals: {e_tail}"
+    del d, d0
+    Fg = vti_wave_propagator(wshape, nt=160, store_adjoint="int8", **qkw)
+    res = plain(lambda: Fg(m) - Fg(vti_m(Fg.dom, full(1500.0))), "VTI Q residual")
+    g, ms, gib = timed(lambda: Fg.linearize(m).H(res), 160, "VTI Q int8 gradient")
+    live(g, "VTI Q int8 gradient")
+    stats["int8 gradient nt=160"] = (ms, gib)
+    del g, res
+    F20 = vti_wave_propagator(wshape, nt=20, store_adjoint="int8", **qkw)
+    msg_busy = busy(lambda: F20.linearize(m).H(ones(F20)), "VTI Q int8 gradient nt=20")
+    # Q = inf multiplies by exact ones: the traces and the int8 gradient are
+    # the lossless kernel route's (K8; K9 + K10) bit for bit
+    F_inf = vti_wave_propagator(wshape, nt=60, store_adjoint="int8",
+                                **{**qkw, "q": float("inf")})
+    F_k = vti_wave_propagator(wshape, nt=60, store_adjoint="int8", **skw)
+    r60 = torch.from_numpy(np.random.default_rng(53).standard_normal((60, len(wkw["rcv_idx"])))
+                           .astype(np.float32)).to(dev)
+    msg_inf = same(plain(lambda: F_inf(m), "VTI Q = inf"),
+                   reference(lambda: F_k(m), {"fused_vti_step": 60}),
+                   "VTI Q = inf vs K8 traces")
+    msg_inf += "; " + same(plain(lambda: F_inf.linearize(m).H(r60), "VTI Q = inf"),
+                           reference(lambda: F_k.linearize(m).H(r60),
+                                     {"fused_vti_hist_step": 60,
+                                      "fused_vti_adjoint_step": 60}),
+                           "VTI Q = inf vs K9 + K10 int8 gradient")
+    del F_inf, F_k
+    try:
+        vti_wave_propagator(wshape, nt=60, fused=True, **qkw)
+        raise AssertionError("fused=True with q= did not raise")
+    except ValueError as e:
+        assert "static Q" in str(e), e
+    msg_gate = gate(born_operator(vti_wave_propagator(wshape, nt=60, store_adjoint="f32",
+                                                      **qkw), m),
+                    9, "VTI Q Jacobian, nt=60, f32 history")
+    msg_cpu = card_vs_cpu(lambda shape, **kw: vti_wave_propagator(
+        shape, q=corner(q_true).cpu() if kw.get("device") == "cpu" else corner(q_true),
+        f0=15.0, **kw), (c_true, full(0.1), full(0.05)), "int8", "VTI Q")
+    log(53, "static Q on VTI at 256^3, (c, eps, delta) = (1500 + anomalies, 0.1, 0.05), Q "
+            "= 50 with a low-Q anomaly to 25, f0 15 Hz, no kernel launched on a Q'ed run: "
+            + "; ".join(f"{k} {ms:.3f} ms/step, peak {gib:.2f} GiB"
+                        for k, (ms, gib) in stats.items())
+            + f"; {msg_busy}; late-arrival energy {e_tail[0]:.4g} vs lossless "
+            f"{e_tail[1]:.4g}; "
+            f"{msg_inf}; fused=True with q= raises; {msg_gate}; at {cshape}, nt=12: "
+            f"{msg_cpu} [{smi}]")
+
+    # ---- phase 54: static Q on TTI, f32 and bf16 coefficients -----------------------
+    def tti_m(dom, c, shape=wshape):
+        return BlockVector((c, *(full(v, shape) for v in (0.1, 0.05, 0.2, 0.7))), dom)
+
+    stats, msgs = {}, []
+    for cdt in (None, torch.bfloat16):
+        tag = "bf16" if cdt else "f32"
+        F = tti_wave_propagator(wshape, nt=60, coeff_dtype=cdt, **qkw)
+        m = tti_m(F.dom, c_true)
+        d, ms, gib = timed(lambda: F(m), 60, f"TTI Q forward {tag}")
+        live(d, "TTI Q traces")
+        stats[f"forward nt=60, {tag} coefficients"] = (ms, gib)
+        Fg = tti_wave_propagator(wshape, nt=60, store_adjoint="int8", coeff_dtype=cdt, **qkw)
+        res = plain(lambda: Fg(m) - Fg(tti_m(Fg.dom, full(1500.0))), "TTI Q residual")
+        g, ms, gib = timed(lambda: Fg.linearize(m).H(res), 60, f"TTI Q int8 gradient {tag}")
+        live(g, "TTI Q int8 gradient")
+        stats[f"int8 gradient nt=60, {tag} coefficients"] = (ms, gib)
+        del d, res, g
+        F_inf = tti_wave_propagator(wshape, nt=60, coeff_dtype=cdt,
+                                    **{**qkw, "q": float("inf")})
+        msgs.append(same(plain(lambda: F_inf(m), "TTI Q = inf"),
+                         reference(lambda: tti_wave_propagator(
+                             wshape, nt=60, coeff_dtype=cdt, **skw)(m),
+                             {"fused_tti_step": 60}),
+                         f"TTI Q = inf vs K11 traces, {tag} coefficients"))
+        try:
+            tti_wave_propagator(wshape, nt=60, fused=True, coeff_dtype=cdt, **qkw)
+            raise AssertionError("fused=True with q= did not raise")
+        except ValueError as e:
+            assert "static Q" in str(e), e
+        msgs.append(card_vs_cpu(lambda shape, **kw: tti_wave_propagator(
+            shape, q=corner(q_true).cpu() if kw.get("device") == "cpu" else corner(q_true),
+            f0=15.0, coeff_dtype=cdt, **kw), (c_true, *(full(v) for v in (0.1, 0.05, 0.2,
+                                                                           0.7))),
+            "int8", f"TTI Q {tag}"))
+    m = tti_m(F.dom, c_true)
+    F_inf = tti_wave_propagator(wshape, nt=30, store_adjoint="int8",
+                                **{**qkw, "q": float("inf")})
+    F_k = tti_wave_propagator(wshape, nt=30, store_adjoint="int8", **skw)
+    msgs.append(same(plain(lambda: F_inf.linearize(m).H(r60[:30]), "TTI Q = inf"),
+                     reference(lambda: F_k.linearize(m).H(r60[:30]),
+                               {"fused_tti_hist_step": 30, "fused_tti_adjoint_step": 30}),
+                     "TTI Q = inf vs K12 + K13 int8 gradient (nt=30)"))
+    del F_inf, F_k
+    msgs.append(gate(born_operator(tti_wave_propagator(wshape, nt=30, store_adjoint="f32",
+                                                       **qkw), m),
+                     10, "TTI Q Jacobian, nt=30, f32 history"))
+    log(54, "static Q on TTI at 256^3, (c, eps, delta, theta, phi) = (1500 + anomalies, "
+            "0.1, 0.05, 0.2, 0.7), Q as phase 53, no kernel launched on a Q'ed run: "
+            + "; ".join(f"{k} {ms:.3f} ms/step, peak {gib:.2f} GiB"
+                        for k, (ms, gib) in stats.items())
+            + "; fused=True with q= raises; " + "; ".join(msgs) + f" [{smi}]")
+
+    # ---- phase 55: off-grid RTM and least-squares migration ------------------------
+    okw = dict(src_pos=(3.37, n / 2 - 0.4, n / 2 + 0.3), rcv_depth=4.5,
+               rcv_coords=(np.linspace(0.056 * n, 0.944 * n, 64),
+                           np.linspace(0.053 * n, 0.946 * n, 64)),
+               dt=wkw["dt"], dx=wkw["dx"], freq=wkw["freq"],
+               sponge_width=wkw["sponge_width"], space_order=8)
+    stats = {}
+    Fo = offgrid_wave_propagator(wshape, nt=160, **okw)
+    c_bg = full(1500.0)
+    d_obs, ms, gib = timed(lambda: Fo(c_true), 160, "off-grid forward")
+    assert d_obs.shape == (160, 64, 64)
+    live(d_obs, "off-grid traces")
+    stats["forward nt=160"] = (ms, gib)
+    d_obs = d_obs - plain(lambda: Fo(c_bg), "off-grid forward")  # the scattered data
+    live(d_obs, "off-grid scattered data")
+    J32 = born_operator(offgrid_wave_propagator(wshape, nt=160, store_adjoint="f32", **okw),
+                        c_bg)
+    msg_gate = gate(J32, 11, "off-grid Born, nt=160, f32 history")
+    J8 = born_operator(offgrid_wave_propagator(wshape, nt=160, store_adjoint="int8", **okw),
+                       c_bg)
+    img, ms, gib = timed(lambda: J8.H(d_obs), 160, "off-grid RTM int8")
+    live(img, "RTM image")
+    stats["RTM image (int8 adjoint) nt=160"] = (ms, gib)
+    J20 = born_operator(offgrid_wave_propagator(wshape, nt=20, store_adjoint="int8", **okw),
+                        c_bg)
+    msg_busy = busy(lambda: J20.H(d_obs[:20]), "off-grid int8 RTM nt=20")
+    Ja = born_operator(offgrid_wave_propagator(wshape, nt=160, remat_blocks=8, **okw), c_bg)
+    img_a, ms, gib = timed(lambda: Ja.H(d_obs), 160, "off-grid RTM autodiff")
+    stats["autodiff adjoint (remat_blocks 8) nt=160"] = (ms, gib)
+    cos_rtm = _cosine(img, img_a)
+    assert cos_rtm > 0.95, f"RTM int8 vs autodiff cosine {cos_rtm}"
+    cos_32 = _cosine(plain(lambda: J32.H(d_obs), "off-grid RTM f32"), img_a)
+    assert cos_32 > 1.0 - 1e-4, f"RTM f32 history vs autodiff cosine {cos_32}"
+    del img_a, Ja, J32
+    b1 = cs.launch_counts()["xw_update"]
+    t0 = time.perf_counter()
+    res = plain(lambda: lsqr(J8, d_obs, maxiter=3, tol=0.0), "LSQR")
+    torch.cuda.synchronize()
+    t_lsqr = time.perf_counter() - t0
+    n_k1 = cs.launch_counts()["xw_update"] - b1
+    assert n_k1 == 3, f"LSQR made {n_k1} K1 launches"
+    add({"xw_update": n_k1})
+    h = [float(x) for x in res.history]
+    assert res.iterations == 3 and all(np.isfinite(h))
+    assert all(a > b_ for a, b_ in zip(h, h[1:])), f"LSQR residual not decreasing: {h}"
+    live(res.x, "LSQR model")
+    log(55, f"off-grid RTM at 256^3, order 8, source at {okw['src_pos']}, a 64 x 64 "
+            "receiver plane at depth 4.5, no wave kernel launched: "
+            + "; ".join(f"{k} {ms:.3f} ms/step, peak {gib:.2f} GiB"
+                        for k, (ms, gib) in stats.items())
+            + f"; {msg_busy}; {msg_gate}; RTM image int8 vs autodiff cosine "
+            f"{cos_rtm:.6f} (> 0.95), "
+            f"f32 history vs autodiff {cos_32:.8f} (> 1 - 1e-4); "
+            f"LSQR 3 iterations on the int8 Born operator in {t_lsqr:.2f} s, residual norms "
+            + ", ".join(f"{x:.6e}" for x in h) + f" (decreasing), K1 {n_k1} launches [{smi}]")
+    del J8, img, res, d_obs, Fo
+
+    # ---- phase 56: off-grid checks ---------------------------------------------------
+    # integer positions against wave_propagator on its kernel route (K4 at order 8)
+    ys, xs = np.arange(8, n - 8, n // 16 - 1), np.arange(10, n - 6, n // 16 - 1)
+    Fi = offgrid_wave_propagator(wshape, nt=60, **{
+        **okw, "src_pos": (4.0, n / 2, n / 2), "rcv_depth": 4.0,
+        "rcv_coords": (ys.astype(float), xs.astype(float))})
+    rcv_i = [int(np.ravel_multi_index((4, y, x), wshape)) for y in ys for x in xs]
+    Fw = wave_propagator(wshape, nt=60, src_idx=int(np.ravel_multi_index((4, n // 2, n // 2),
+                                                                         wshape)),
+                         rcv_idx=rcv_i, space_order=8,
+                         **{k: v for k, v in wkw.items() if k != "rcv_idx"})
+    d_i = plain(lambda: Fi(c_true), "off-grid integer positions")
+    d_w = reference(lambda: Fw(c_true), {"fused_leapfrog_step": 60})
+    msg_int = agree(d_i.reshape(60, -1), d_w, "integer positions vs K4 (order 8) traces",
+                    1e-5)
+    # the sampling operators' gates at 256^3
+    sp = Fi.dom
+    S = sinc_sampling_operator(sp, [np.linspace(3.3, n - 5.9, 64),
+                                    np.linspace(2.7, n - 4.6, 48),
+                                    np.linspace(5.5, n - 6.5, 40)])
+    P = sinc_point_sampling_operator(sp, np.random.default_rng(56).uniform(
+        4.0, n - 5.0, (64, 3)))
+    msg_s = "; ".join(gate(A, 12 + i, name) for i, (A, name) in enumerate(
+        ((S, "sinc_sampling_operator 256^3 -> (64, 48, 40)"),
+         (P, "sinc_point_sampling_operator 256^3, 64 points"))))
+    okw_c = dict(okw, src_pos=(3.37, cshape[1] / 2 - 0.4, cshape[2] / 2 + 0.3),
+                 rcv_coords=(np.linspace(0.1 * cshape[1], 0.9 * cshape[1], 16),
+                             np.linspace(0.05 * cshape[2], 0.95 * cshape[2], 32)),
+                 sponge_width=6)
+    Fk = offgrid_wave_propagator(cshape, nt=12, store_adjoint="int8", **okw_c)
+    Fc = offgrid_wave_propagator(cshape, nt=12, store_adjoint="int8", device="cpu", **okw_c)
+    ck = corner(c_true)
+    rr = torch.from_numpy(np.random.default_rng(57).standard_normal((12, 16, 32))
+                          .astype(np.float32))
+    dk, gk = plain(lambda: (Fk(ck), Fk.linearize(ck).H(rr.to(dev))), "off-grid corner")
+    msg_cpu = (agree(dk, Fc(ck.cpu()), "off-grid card vs CPU traces", 1e-5) + "; "
+               + agree(gk, Fc.linearize(ck.cpu()).H(rr), "off-grid card vs CPU int8 gradient",
+                       1e-5))
+    log(56, f"off-grid checks: {msg_int}; {msg_s}; at {cshape}, nt=12: {msg_cpu} [{smi}]")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1312,15 +1761,6 @@ def main() -> int:
         return tuple(now[k] - before[k] for k in ("fused_leapfrog_step",
                                                    "fused_adjoint_step"))
 
-    def live(t, name):
-        assert bool(torch.isfinite(t).all()), f"{name} is not finite"
-        assert float(t.abs().max()) > 0.0, f"{name} is identically zero"
-
-    def agree(a, b, name, tol):
-        r = rel(a, b)
-        assert r <= tol, f"{name}: rel {r} > {tol}"
-        return f"{name} rel {r:.3e} (<= {tol:g}, bitwise: {bool(torch.equal(a, b))})"
-
     cw.reset_launch_counts()
     F = wave_propagator(wshape, nt=220, src_idx=src0, **wkw)
     Fp = wave_propagator(wshape, nt=220, src_idx=src0, fused=False, **wkw)
@@ -1486,15 +1926,6 @@ def main() -> int:
         now = cv.launch_counts()
         return tuple(now[k] - before[k] for k in ("fused_vti_step", "fused_vti_hist_step",
                                                    "fused_vti_adjoint_step"))
-
-    def same(a, b, name):
-        """Bitwise equality (every block of a BlockVector), or fail."""
-        pa = a.blocks if isinstance(a, BlockVector) else (a,)
-        pb = b.blocks if isinstance(b, BlockVector) else (b,)
-        for i, (x, y) in enumerate(zip(pa, pb)):
-            live(y, f"{name}[{i}]")
-            assert torch.equal(x, y), f"{name}[{i}] not bitwise: rel {rel(x, y)}"
-        return f"{name} bitwise ({len(pa)} block{'s' * (len(pa) > 1)})"
 
     def vti_model(dom, c):
         return BlockVector((c, torch.full(wshape, 0.1, device=dev),
@@ -1769,9 +2200,7 @@ def main() -> int:
     g8 = Fg8.linearize(mt_true).H(tres)
     for i, (x, y) in enumerate(zip(g8.blocks, g32.blocks)):
         live(y, f"f32-history gradient[{i}]")
-        cos = float(torch.vdot(x.double().reshape(-1), y.double().reshape(-1))
-                    / (torch.linalg.vector_norm(x.double())
-                       * torch.linalg.vector_norm(y.double())))
+        cos = _cosine(x, y)
         coss.append(cos)
         assert cos > 1.0 - 5e-2, f"int8 vs f32 history gradient[{i}] cosine {cos}"
     assert tdelta(b) == (120, 240, 240), tdelta(b)
@@ -2136,9 +2565,7 @@ def main() -> int:
     qcos = []
     for i, (x_, y_) in enumerate(zip(g8.blocks, g32.blocks)):
         live(y_, f"Q f32-history gradient[{i}]")
-        cos = float(torch.vdot(x_.double().reshape(-1), y_.double().reshape(-1))
-                    / (torch.linalg.vector_norm(x_.double())
-                       * torch.linalg.vector_norm(y_.double())))
+        cos = _cosine(x_, y_)
         qcos.append(cos)
         assert cos > 1.0 - 5e-2, f"Q int8 vs f32 history gradient[{i}] cosine {cos}"
     log(35, f"Q Jacobian 256^3, nt=60, f32 history: dot-product gate rel {gate_q:.3e} "
@@ -2209,6 +2636,8 @@ def main() -> int:
         main_path[k] += n
     for k, n in fwi_inversion(smi, c_true, wkw).items():
         main_path[k] += n
+    for k, n in other_physics(smi, c_true, q_true, wkw).items():
+        main_path[k] += n
     sources = {"solver": "jets_tpu_torch/csrc/solver_kernels.cu",
                "wave": "jets_tpu_torch/csrc/wave_kernels.cu",
                "vti": "jets_tpu_torch/csrc/vti_kernels.cu",
@@ -2231,7 +2660,7 @@ def main() -> int:
         "fused_q_step": ("wave", "jets_tpu/ops/pallas_wave.py:1425"),
     }
     assert len(replaces) == 15 and all(main_path[k] > 0 for k in replaces), main_path
-    log(51, f"chip_smoke total {time.perf_counter() - t_start:.1f} s, kernel build "
+    log(57, f"chip_smoke total {time.perf_counter() - t_start:.1f} s, kernel build "
             f"included")
     rows = []
     for k, (lib, where) in replaces.items():

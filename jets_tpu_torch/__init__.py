@@ -10,8 +10,10 @@ Krylov solvers (CG, CGLS, LSQR, LSMR, MINRES, BiCGStab, GMRES, Chebyshev)
 with the normal operator and the Jacobi preconditioner
 (:mod:`jets_tpu_torch.solvers`), the diagonal operator, block spaces, and
 the isotropic (sponge or CPML boundaries, Ginsu windows, blocked
-rematerialization), VTI and TTI anisotropic and constant-Q visco-acoustic
-wave operators of FWI (:mod:`jets_tpu_torch.ops.wave`), and the nonlinear
+rematerialization, off-grid Kaiser-sinc acquisition), variable-density
+(IsoDenQ), VTI and TTI anisotropic (with static Q) and constant-Q
+visco-acoustic wave operators of FWI (:mod:`jets_tpu_torch.ops.wave`), the
+off-grid sampling operators (:mod:`jets_tpu_torch.ops.sampling`), and the nonlinear
 solvers that invert them: NLCG and L-BFGS with box bounds on the
 least-squares objective, and Gauss–Newton. Plain tensor code is
 PyTorch; the Pallas kernels of the JAX package are hand-written CUDA C++ in
@@ -60,8 +62,11 @@ from .ops.wave import (
     cpml_wave_propagator,
     multishot_tti_wave_operator,
     multishot_vti_wave_operator,
+    offgrid_wave_propagator,
     q_wave_propagator,
     tti_wave_propagator,
+    vd_wave_propagator,
+    vdq_wave_propagator,
     vti_wave_propagator,
 )
 from . import utils  # noqa: E402

@@ -133,15 +133,20 @@ def vt(w, cf, inv_dx2, inv_dx, order):
 
 
 def tti_plain(p_prev, p, q_prev, q, C, ah, av, nz, ny, nx, sponge, inv_dx2, inv_dx,
-              s_t, mask, order):
+              s_t, mask, order, og=None, ig=None):
     """One coupled 3-D TTI step with a full-grid sponge and source mask (f32
     coefficient fields): the tree of K11 and of ``ops/wave._propagate_tti3d``'s
-    XLA step."""
+    XLA step; with the static-Q friction factors ``og``, ``ig`` as
+    :func:`cuda_vti.vti_plain` takes them (no kernel does)."""
     cf = directions(nz, ny, nx)
     Hp = h_of(derivs(p, inv_dx2, inv_dx, order), cf)
     Vq = v_of(derivs(q, inv_dx2, inv_dx, order), cf)
-    e_p = (2.0 * p - p_prev) + C * (ah * Hp + av * Vq)
-    e_q = (2.0 * q - q_prev) + C * (av * Hp + Vq)
+    if og is None:
+        e_p = (2.0 * p - p_prev) + C * (ah * Hp + av * Vq)
+        e_q = (2.0 * q - q_prev) + C * (av * Hp + Vq)
+    else:
+        e_p = ((2.0 * p - og * p_prev) + C * (ah * Hp + av * Vq)) * ig
+        e_q = ((2.0 * q - og * q_prev) + C * (av * Hp + Vq)) * ig
     src = s_t * mask
     return e_p * sponge + src, e_q * sponge + src
 

@@ -84,13 +84,21 @@ def dzz(u, inv_dx2, order):
     return d2_axis(u, 0, inv_dx2, order)
 
 
-def vti_plain(p_prev, p, q_prev, q, C, ah, av, sponge, inv_dx2, s_t, mask, order):
+def vti_plain(p_prev, p, q_prev, q, C, ah, av, sponge, inv_dx2, s_t, mask, order,
+              og=None, ig=None):
     """One coupled step with a full-grid sponge and source mask, any
-    dimension: the tree of K8 and of ``ops/wave._propagate_vti``'s XLA step."""
+    dimension: the tree of K8 and of ``ops/wave._propagate_vti``'s XLA step.
+    With the static-Q friction factors ``og = 1 − g`` and ``ig = 1/(1 + g)``
+    (no kernel takes them) each update is
+    ``((2p − og·p_prev) + C·(...))·ig`` before the sponge."""
     lhp = lh(p, inv_dx2, order)
     dzq = dzz(q, inv_dx2, order)
-    e_p = (2.0 * p - p_prev) + C * (ah * lhp + av * dzq)
-    e_q = (2.0 * q - q_prev) + C * (av * lhp + dzq)
+    if og is None:
+        e_p = (2.0 * p - p_prev) + C * (ah * lhp + av * dzq)
+        e_q = (2.0 * q - q_prev) + C * (av * lhp + dzq)
+    else:
+        e_p = ((2.0 * p - og * p_prev) + C * (ah * lhp + av * dzq)) * ig
+        e_q = ((2.0 * q - og * q_prev) + C * (av * lhp + dzq)) * ig
     src = s_t * mask
     return e_p * sponge + src, e_q * sponge + src
 

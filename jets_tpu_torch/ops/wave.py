@@ -1,6 +1,6 @@
-"""Isotropic, VTI and TTI anisotropic and constant-Q visco-acoustic wave
-operators (counterpart of the isotropic, VTI, TTI and constant-Q parts of
-``jets_tpu/ops/wave.py``, with the same names).
+"""Isotropic, variable-density, VTI and TTI anisotropic and constant-Q
+visco-acoustic wave operators (counterpart of ``jets_tpu/ops/wave.py``,
+with the same names).
 
 Physics: constant-density acoustic wave equation, 2nd order in time,
 orders 2/4/8 in space, time-stepped by an explicit leapfrog with a sponge
@@ -32,7 +32,15 @@ taper at the boundaries::
 * :func:`q_wave_propagator` — visco-acoustic modelling with Kosloff
   constant-Q friction, model ``(c, Q)`` on ``BlockSpace([grid, grid])``,
   the friction field optionally in bfloat16, with the same tangent,
-  autodiff adjoint and stored-history adjoint.
+  autodiff adjoint and stored-history adjoint. ``q=`` on the VTI and TTI
+  propagators adds the same friction as a static modelling parameter.
+* :func:`vd_wave_propagator` and :func:`vdq_wave_propagator` — variable
+  density (model ``(c, b)``, buoyancy ``b = 1/ρ``) and the full IsoDenQ
+  physics (``(c, b, Q)``), with the same tangent, autodiff adjoint and
+  stored-history adjoint.
+* :func:`offgrid_wave_propagator` — the isotropic physics with off-grid
+  acquisition: a Kaiser-sinc source stamp and receiver interpolation
+  (:mod:`.sampling`).
 
 Every constructor builds on the CUDA card unless ``device`` says otherwise
 (``device="cpu"``, as the tests ask).
@@ -49,7 +57,9 @@ reverse sweep K13 (:func:`cuda_tti.fused_tti_adjoint_step`); the 3-D
 constant-Q step is K14 (:func:`cuda_wave.fused_q_step`), also in the forward
 sweep of its stored adjoint, whose reverse sweep is plain. Elsewhere, and
 with ``fused=False``, the plain PyTorch step with the same floating-point
-tree runs. The JAX package pairs two steps per ``lax.scan``
+tree runs. What no kernel computes always takes the plain step, and
+``fused=True`` raises for it: variable density, static Q on VTI and TTI,
+and a custom source mask, extractor or injector (off-grid geometry). The JAX package pairs two steps per ``lax.scan``
 iteration on the TPU to avoid carry copies; a Python loop rotates
 ``(u_prev, u) → (u, u_next)`` for free, so the port steps one at a time and
 writes ``u_next`` into ``u_prev``'s buffer on sweeps that no autodiff
@@ -66,8 +76,8 @@ segments; the ``"vmap"`` multishot stacks refuse ``remat_blocks > 1``,
 since the checkpoint does not run under ``torch.func.vmap``.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``wavefield_sharding``, custom source masks and extractors
-(off-grid geometry), VTI/TTI static Q (``q=``) and ``mesh=``.
+item): ``wavefield_sharding`` and ``mesh=`` (item 18), and
+``remat_blocks > 1`` with ``shot_map="vmap"`` (item 20).
 """
 from __future__ import annotations
 
@@ -87,6 +97,7 @@ from ..core.spaces import Space, true_div
 from ..parallel.sharded import stacked_block_operator
 from ..utils.tree import tmap
 from . import cuda_tti, cuda_vti, cuda_wave
+from .sampling import _axis_contract, kaiser_sinc_matrix, kaiser_sinc_matrix_np
 from .stencil import d1_axis, d2_axis
 from .stencil import laplacian_nd as _laplacian
 
@@ -100,6 +111,9 @@ __all__ = [
     "multishot_tti_wave_operator",
     "q_wave_propagator",
     "cpml_wave_propagator",
+    "vd_wave_propagator",
+    "vdq_wave_propagator",
+    "offgrid_wave_propagator",
     "with_wave_arrays",
 ]
 
@@ -270,10 +284,11 @@ def _trace_resampler(nt: int, dt: float, dtrec, dtype=torch.float32):
     return ntrec, resample
 
 
-def _resample_transpose(resample, nt, nrcv, dtype):
-    """The adjoint of ``resample`` (``torch.func.vjp`` at zero traces)."""
+def _resample_transpose(resample, shape, dtype):
+    """The adjoint of ``resample`` on ``shape`` traces (``torch.func.vjp``
+    at zero traces)."""
     def rt(d):
-        zeros = torch.zeros((nt, nrcv), dtype=dtype, device=d.device)
+        zeros = torch.zeros(shape, dtype=dtype, device=d.device)
         _, vjp = torch.func.vjp(resample, zeros)
         (out,) = vjp(d)
         return out
@@ -309,18 +324,24 @@ def _store_codec(store: str, dtype):
     raise ValueError(f"store must be one of {_STORES}, got {store!r}")
 
 
-def _kernel_route(fused, c, sponge, order: int) -> bool:
+_ON_GRID_ONLY = ("fused wave step requires a 3-D float32 grid with the default "
+                 "on-grid source and receivers")
+
+
+def _kernel_route(fused, c, sponge, order: int, refuse: Optional[str] = None) -> bool:
     """Whether the time loop rides the kernels: ``fused=None`` takes them
     for a 3-D float32 grid on a CUDA card; ``fused=True`` insists (on a CPU
     tensor the wrappers then run their plain versions) and raises where the
-    kernels cannot go, as the JAX package does."""
-    can = isinstance(sponge, tuple) and cuda_wave.fits_wave_kernel(
+    kernels cannot go, as the JAX package does. ``refuse`` names what the
+    call asks that no kernel computes (a custom source mask, extractor or
+    injector; static-Q friction): it turns the route off, and ``fused=True``
+    raises it."""
+    can = refuse is None and isinstance(sponge, tuple) and cuda_wave.fits_wave_kernel(
         c.shape, c.dtype, order)
     if fused is None:
         return can and c.device.type == "cuda"
     if fused and not can:
-        raise ValueError("fused wave step requires a 3-D float32 grid with the "
-                         "default on-grid source and receivers")
+        raise ValueError(refuse or _ON_GRID_ONLY)
     return bool(fused)
 
 
@@ -374,31 +395,41 @@ class _LeapfrogStep(torch.autograd.Function):
 
 
 def _field_loop(step, nfields: int, shape, dtype, dev, src_wavelet, rcv_idx,
-                inplace: bool, remat_blocks: int, tape: bool):
+                inplace: bool, remat_blocks: int, tape: bool, extract=None):
     """The traces of the first field of ``step(prev_0, cur_0, prev_1, cur_1,
     ..., s_t) -> next_0`` (or a tuple ``(next_0, next_1, ...)`` of
     ``nfields`` fields) run from zero fields, each field's pair rotating
-    ``(prev, cur) -> (cur, next)``: in place into a preallocated trace
-    tensor when ``inplace`` (``step`` then writes each ``next`` into its
-    ``prev``'s buffer), else through :func:`_time_loop`."""
+    ``(prev, cur) -> (cur, next)``: in place when ``inplace`` (``step`` then
+    may write each ``next`` into its ``prev``'s buffer), else through
+    :func:`_time_loop`. Each step's trace is the field gathered at the flat
+    indices ``rcv_idx`` (in place: into a preallocated trace tensor) or, with
+    ``extract``, ``extract(field)`` of any shape."""
     def advance(carry, nxt):
         nxt = (nxt,) if torch.is_tensor(nxt) else tuple(nxt)
         return tuple(x for i, n in enumerate(nxt) for x in (carry[2 * i + 1], n)), nxt[0]
+
+    def record(u):
+        return u.reshape(-1).index_select(0, rcv_idx) if extract is None else extract(u)
 
     carry = tuple(torch.zeros(shape, dtype=dtype, device=dev) for _ in range(2 * nfields))
     if not inplace:
         def body(carry, s_t):
             carry, first = advance(carry, step(*carry, s_t))
-            return carry, first.reshape(-1).index_select(0, rcv_idx)
+            return carry, record(first)
 
         return _time_loop(body, carry, src_wavelet, remat_blocks, tape)
     nt = int(src_wavelet.shape[0])
     _remat_segments(nt, remat_blocks)  # the same warning on every path
-    traces = torch.empty((nt, int(rcv_idx.shape[0])), dtype=dtype, device=dev)
+    traces = (None if extract is not None
+              else torch.empty((nt, int(rcv_idx.shape[0])), dtype=dtype, device=dev))
+    recs = []
     for k in range(nt):
         carry, first = advance(carry, step(*carry, src_wavelet[k]))
-        torch.index_select(first.reshape(-1), 0, rcv_idx, out=traces[k])
-    return traces
+        if traces is None:  # custom extractors run on the plain steps' fresh fields
+            recs.append(extract(first))
+        else:
+            torch.index_select(first.reshape(-1), 0, rcv_idx, out=traces[k])
+    return torch.stack(recs) if traces is None else traces
 
 
 def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
@@ -412,16 +443,19 @@ def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
     tensor. It is ignored while a tape records ``c``; callers inside a
     ``torch.func`` transform (or ``vmap``) pass ``inplace=False``.
     ``remat_blocks`` checkpoints the loop in segments under a tape
-    (:func:`_time_loop`).
+    (:func:`_time_loop`). ``src_mask`` (a full-grid injection mask, ``dt²``
+    included) and ``extract`` (``u -> trace``) replace the on-grid point
+    source and the receiver gather (the off-grid geometry of
+    :func:`offgrid_wave_propagator`); either one takes the plain step, as no
+    kernel takes them.
     """
     if wavefield_sharding is not None:
         raise _not_ported("wavefield_sharding", "18")
-    if src_mask is not None or extract is not None:
-        raise _not_ported("custom src_mask/extract (off-grid geometry)", "14")
     shape, dtype, dev = c.shape, c.dtype, c.device
     c2dt2 = _c2dt2(c, dt, dx)
     amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
-    kernel = _kernel_route(fused, c, sponge, order)
+    custom = src_mask is not None or extract is not None
+    kernel = _kernel_route(fused, c, sponge, order, _ON_GRID_ONLY if custom else None)
     tape = _records(c)
     inplace = inplace and not tape
 
@@ -438,13 +472,13 @@ def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
                                            order)
     else:
         S = _sponge_full(sponge)
-        mask = cuda_wave.source_mask(shape, src_idx, amp)
+        mask = cuda_wave.source_mask(shape, src_idx, amp) if src_mask is None else src_mask
 
         def step(up, uu, s_t):
             return cuda_wave.leapfrog_plain(up, uu, c2dt2, S, s_t, mask, order)
 
     return _field_loop(step, 1, shape, dtype, dev, src_wavelet, rcv_idx, inplace,
-                       remat_blocks, tape)
+                       remat_blocks, tape, extract)
 
 
 def _adjoint_stored(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
@@ -461,11 +495,13 @@ def _adjoint_stored(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
     f32 history, which keeps the fields themselves) and the reverse sweep
     K5 (``a_k`` into ``a_{k+2}``'s buffer, ``gc2`` in place) followed by the
     receiver injection ``index_add_``. The plain route is the JAX package's
-    XLA sweep, tree for tree."""
+    XLA sweep, tree for tree. ``src_mask`` and ``inject`` (``trace row ->
+    full-grid field``, the transpose of the forward's ``extract``) replace
+    the on-grid source and the receiver scatter; either one takes the plain
+    route."""
     if wavefield_sharding is not None:
         raise _not_ported("wavefield_sharding", "18")
-    if src_mask is not None or inject is not None:
-        raise _not_ported("custom src_mask/inject (off-grid geometry)", "14")
+    custom = src_mask is not None or inject is not None
     shape, dtype, dev = c.shape, c.dtype, c.device
     size = math.prod(shape)
     nt = int(src_wavelet.shape[0])
@@ -474,13 +510,14 @@ def _adjoint_stored(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
     enc, dec = _store_codec(store, dtype)
     dd = dd.to(dtype)
 
-    def inject(row):
-        return torch.zeros(size, dtype=dtype, device=dev).index_add(
-            0, rcv_idx, row).reshape(shape)
+    if inject is None:
+        def inject(row):
+            return torch.zeros(size, dtype=dtype, device=dev).index_add(
+                0, rcv_idx, row).reshape(shape)
 
     scale = torch.tensor((dt * dt) / (dx * dx), dtype=dtype, device=dev)
     hist, scales = [], []
-    if _kernel_route(fused, c, sponge, order):
+    if _kernel_route(fused, c, sponge, order, _ON_GRID_ONLY if custom else None):
         spz, sy, sx = _factors_1d(sponge)
         src = int(src_idx)
         u_prev = torch.zeros(shape, dtype=dtype, device=dev)
@@ -510,7 +547,7 @@ def _adjoint_stored(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
         return gc2 * (2.0 * c) * scale
 
     S = _sponge_full(sponge)
-    mask = cuda_wave.source_mask(shape, src_idx, amp)
+    mask = cuda_wave.source_mask(shape, src_idx, amp) if src_mask is None else src_mask
     u_prev = torch.zeros(shape, dtype=dtype, device=dev)
     u = torch.zeros(shape, dtype=dtype, device=dev)
     for k in range(nt):
@@ -616,7 +653,8 @@ def _single_shot_operator(dom, gsp, propagate, adjoint, *, nt, dt, dx, freq, src
     remat_blocks, **boundary, ...)`` runs the time loop, ``adjoint(m, dd,
     wavelet, src, rcv, *, store, **boundary, ...)`` the stored-history
     sweep. ``boundary`` names the boundary's arrays, kept in the state
-    (``{"sponge": ...}``, or the CPML profiles). The tangent is
+    (``{"sponge": ...}``, or the CPML profiles, with a static-Q
+    propagator's friction factors ``og``, ``ig`` beside them). The tangent is
     ``torch.func.jvp`` through the loop, the adjoint
     :func:`_vjp_by_autograd` through it or, with ``store_adjoint``, the
     stored sweep."""
@@ -644,7 +682,7 @@ def _single_shot_operator(dom, gsp, propagate, adjoint, *, nt, dt, dx, freq, src
         def _dft(dd, m0, state):
             return _vjp_by_autograd(lambda m: _forward(m, state, False), m0, dd)
     else:
-        rt = (_resample_transpose(resample, nt, nrcv, dtype)
+        rt = (_resample_transpose(resample, (nt, nrcv), dtype)
               if resample is not None else None)
 
         def _dft(dd, m0, state):
@@ -711,7 +749,7 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
                         gsp.device)
     nrcv = int(rcv.shape[0])
     ntrec, resample = _trace_resampler(nt, dt, dtrec, dtype)
-    rt = (_resample_transpose(resample, nt, nrcv, dtype)
+    rt = (_resample_transpose(resample, (nt, nrcv), dtype)
           if resample is not None else None)
     is_map = shot_map == "map"
     if shot_map == "vmap" and remat_blocks > 1:
@@ -1020,6 +1058,398 @@ def cpml_wave_propagator(
 
 
 # ---------------------------------------------------------------------------
+# Variable density: p_tt = κ·div(b·grad p) + κ·s with κ = c²/b and the
+# buoyancy b = 1/ρ, in the self-adjoint staggered form −(D⁺)ᵀ·diag(b_{i+½})·D⁺
+# per axis (zero flux outside the grid), so the pressure operator at a fixed
+# b is symmetric. Model (c, b) on BlockSpace([grid, grid]), or (c, b, Q) with
+# Kosloff constant-Q friction (the IsoDenQ physics of the JetPackWaveFD
+# propagators). Plain PyTorch: the JAX package runs these as XLA only.
+# ---------------------------------------------------------------------------
+
+
+def _b_half(b):
+    """The staggered buoyancies ``b_{i+½} = 0.5·(b[i+1] + b[i])`` of each
+    axis, computed once per propagation (the same bits as once per step)."""
+    return tuple(0.5 * (b.narrow(ax, 1, n - 1) + b.narrow(ax, 0, n - 1))
+                 for ax, n in enumerate(b.shape))
+
+
+def _zero_pad(x, ax, lo: int, hi: int):
+    """``x`` with ``lo`` zeros before and ``hi`` after it along ``ax``."""
+    z = torch.zeros_like(x.narrow(ax, 0, 1))
+    return torch.cat([z] * lo + [x] + [z] * hi, dim=ax)
+
+
+def _div_b_grad(u, bh, inv_dx2):
+    """``Σ_ax D⁻(b_{i+½}·D⁺u)·(1/dx²)`` with zero flux outside the grid, at
+    the staggered buoyancies ``bh`` (:func:`_b_half`); the per-axis sum
+    ``out + dminus·inv_dx2`` in the JAX package's order."""
+    out = None
+    for ax, n in enumerate(u.shape):
+        dplus = u.narrow(ax, 1, n - 1) - u.narrow(ax, 0, n - 1)   # at i+½
+        fp = _zero_pad(bh[ax] * dplus, ax, 1, 1)
+        dminus = fp.narrow(ax, 1, n) - fp.narrow(ax, 0, n)
+        out = dminus * inv_dx2 if out is None else out + dminus * inv_dx2
+    return out
+
+
+def _div_b_grad_bbar(u, w, inv_dx2):
+    """The cotangent on ``b`` of ``b ↦ ⟨w, div(b·grad u)⟩`` at a fixed ``u``:
+    per axis ``(w̄[i] − w̄[i+1])·D⁺u`` (``w̄ = w·inv_dx2``), spread half and
+    half onto the two cells the average ``b_{i+½}`` reads."""
+    out = None
+    wd = w * inv_dx2
+    for ax, n in enumerate(u.shape):
+        dplus = u.narrow(ax, 1, n - 1) - u.narrow(ax, 0, n - 1)
+        half = 0.5 * ((wd.narrow(ax, 0, n - 1) - wd.narrow(ax, 1, n - 1)) * dplus)
+        contrib = _zero_pad(half, ax, 0, 1) + _zero_pad(half, ax, 1, 0)
+        out = contrib if out is None else out + contrib
+    return out
+
+
+def _propagate_vd(c, b, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge, g=None,
+                  order: int = 2, fused=None, inplace: bool = False,
+                  remat_blocks: int = 1):
+    """Variable-density leapfrog ``p⁺ = ((2p − p⁻) + K·(L_b(p) + s·mask))·S``
+    with ``K = (c²/b)·dt²`` and a source mask of amplitude 1 (``K`` scales
+    it); with the friction ``g = γ·dt`` (from a Q block) the update is
+    ``((2p − (1−g)·p⁻) + K·(...))·(1/(1+g))`` before the sponge, and
+    ``g = 0`` is the lossless step bit for bit. Returns the traces
+    ``(nt, nrcv)``. Plain only (``order`` and ``fused`` are accepted and
+    ignored, as the JAX package has neither here); ``inplace`` and
+    ``remat_blocks`` as for :func:`_propagate`."""
+    shape, dtype, dev = c.shape, c.dtype, c.device
+    kdt2 = ((c * c) / b) * (dt * dt)
+    bh = _b_half(b)
+    inv_dx2 = torch.tensor(1.0 / (dx * dx), dtype=dtype, device=dev)
+    mask = cuda_wave.source_mask(shape, src_idx, torch.ones((), dtype=dtype, device=dev))
+    S = _sponge_full(sponge)
+    if g is not None:
+        om1g, inv1pg = 1.0 - g, 1.0 / (1.0 + g)
+
+    def step(pp, p, s_t):
+        src = _div_b_grad(p, bh, inv_dx2) + s_t * mask
+        if g is None:
+            return ((2.0 * p - pp) + kdt2 * src) * S
+        return (((2.0 * p - om1g * pp) + kdt2 * src) * inv1pg) * S
+
+    tape = _records(*(t for t in (c, b, g) if t is not None))
+    return _field_loop(step, 1, shape, dtype, dev, src_wavelet, rcv_idx,
+                       inplace and not tape, remat_blocks, tape)
+
+
+def _adjoint_stored_vd(c, b, qf, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0,
+                       sponge, store: str = "int8", order: int = 2, fused=None):
+    """Adjoint-state gradient of the variable-density (with ``qf``, the
+    IsoDenQ) physics over a stored, encoded pressure history: the
+    transposed recurrence of :func:`_propagate_vd`, reindexed as in the JAX
+    package so that each reverse step reads one snapshot. With ``K = κ·dt²``,
+    ``sē_k = S⊙a_{k+1}``, ``ē_k = ig⊙sē_k``::
+
+        a_k  = Pᵀḡ + 2ē_k + L_b(K·ē_k) − og·ē_{k+1}
+        gK  += (L_b(p_k) + s_k·mask)⊙ē_k
+        gb  += b̄(p_k, K·ē_k)                  (:func:`_div_b_grad_bbar`)
+        gig += sē_k·(2p_k + K·(L_b(p_k) + s_k·mask)) − og·p_k·sē_{k+1}
+        gog += −p_k·ē_{k+1}
+
+    then ``gc = gK·(2c/b)·dt²``, ``gb −= gK·(K/b)`` and, for finite Q,
+    ``gg = −gog − ig²·gig``, ``gQ = −gg·(g/Q)``. Both sweeps are plain (no
+    kernel in the JAX package either; ``order`` and ``fused`` are accepted
+    and ignored). Returns ``(gc, gb)`` or ``(gc, gb, gQ)``."""
+    shape, dtype, dev = c.shape, c.dtype, c.device
+    size = math.prod(shape)
+    K = ((c * c) / b) * (dt * dt)
+    bh = _b_half(b)
+    inv_dx2 = torch.tensor(1.0 / (dx * dx), dtype=dtype, device=dev)
+    with_q = qf is not None
+    if with_q:
+        g = _q_friction(qf, dt, f0)
+        ig, og = 1.0 / (1.0 + g), 1.0 - g
+    mask = cuda_wave.source_mask(shape, src_idx, torch.ones((), dtype=dtype, device=dev))
+    S = _sponge_full(sponge)
+    enc, dec = _store_codec(store, dtype)
+    dd = dd.to(dtype)
+    nt = int(src_wavelet.shape[0])
+
+    def zeros():
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def inject(row):
+        return torch.zeros(size, dtype=dtype, device=dev).index_add(
+            0, rcv_idx, row).reshape(shape)
+
+    hist = []
+    pp, p = zeros(), zeros()
+    for k in range(nt):
+        hist.append(enc(p))  # history entry k holds p_k
+        src = _div_b_grad(p, bh, inv_dx2) + src_wavelet[k] * mask
+        if with_q:
+            p_next = (((2.0 * p - og * pp) + K * src) * ig) * S
+        else:
+            p_next = ((2.0 * p - pp) + K * src) * S
+        pp, p = p, p_next
+    del pp, p, p_next  # the history holds what the reverse sweep needs
+    # ḡ_{k-1} aligned to reverse step k (rec_k samples p_{k+1})
+    dd_shift = torch.cat([torch.zeros_like(dd[:1]), dd[:-1]])
+    a_nxt = inject(dd[-1])
+    ebar_nxt, sbar_nxt, gK, gb, gig, gog = (zeros() for _ in range(6))
+    for k in range(nt - 1, -1, -1):
+        qh, sc = hist[k]
+        hist[k] = None  # release the snapshot as the sweep passes it
+        p_k = dec(qh, sc)
+        sbar = a_nxt * S
+        ebar = ig * sbar if with_q else sbar
+        src_k = _div_b_grad(p_k, bh, inv_dx2) + src_wavelet[k] * mask
+        gK = gK + src_k * ebar
+        gb = gb + _div_b_grad_bbar(p_k, K * ebar, inv_dx2)
+        if with_q:
+            gig = gig + (sbar * (2.0 * p_k + K * src_k) - og * (p_k * sbar_nxt))
+            gog = gog - p_k * ebar_nxt
+            a_nxt = ((2.0 * ebar + _div_b_grad(K * ebar, bh, inv_dx2) - og * ebar_nxt)
+                     + inject(dd_shift[k]))
+        else:
+            a_nxt = ((2.0 * ebar + _div_b_grad(K * ebar, bh, inv_dx2) - ebar_nxt)
+                     + inject(dd_shift[k]))
+        ebar_nxt, sbar_nxt = ebar, sbar
+    gc = gK * ((2.0 * c) / b) * torch.tensor(dt * dt, dtype=dtype, device=dev)
+    gb = gb - gK * (K / b)
+    if not with_q:
+        return gc, gb
+    gg = -gog - (ig * ig) * gig
+    return gc, gb, -gg * (g / qf)
+
+
+def _propagate_vd_m(m, *args, f0=None, **kw):
+    """:func:`_propagate_vd` on a ``(c, b)`` or ``(c, b, Q)``
+    :class:`BlockVector` (``g = π·f0·dt/Q`` from the Q block)."""
+    c, b, *q = m.blocks
+    g = _q_friction(q[0], kw["dt"], f0) if q else None
+    return _propagate_vd(c, b, *args, g=g, **kw)
+
+
+def _adjoint_stored_vd_m(m, dd, *args, **kw):
+    """:func:`_adjoint_stored_vd` on a ``(c, b)`` or ``(c, b, Q)``
+    :class:`BlockVector`, returning the gradient as one."""
+    c, b, *q = m.blocks
+    return BlockVector(_adjoint_stored_vd(c, b, q[0] if q else None, dd, *args, **kw),
+                       m.space)
+
+
+def _vd_operator(grid_shape, nblocks, *, nt, dt, dx, freq, f0, src_idx, rcv_idx,
+                 sponge_width, remat_blocks, dtrec, store_adjoint, dtype, device):
+    grid_shape = tuple(int(s) for s in grid_shape)
+    _check_store(store_adjoint)
+    gsp = Space(grid_shape, dtype, device)
+    return _single_shot_operator(
+        BlockSpace([gsp] * nblocks), gsp, functools.partial(_propagate_vd_m, f0=f0),
+        functools.partial(_adjoint_stored_vd_m, f0=f0), nt=nt, dt=dt, dx=dx,
+        freq=freq, src_idx=src_idx, rcv_idx=rcv_idx, dtrec=dtrec,
+        store_adjoint=store_adjoint, fused=False, order=2, remat_blocks=remat_blocks,
+        boundary={"sponge": _make_sponge(grid_shape, sponge_width, dtype=dtype)})
+
+
+def vd_wave_propagator(
+    grid_shape: Sequence[int],
+    *,
+    nt: int = 256,
+    dt: float = 0.001,
+    dx: float = 10.0,
+    freq: float = 15.0,
+    src_idx: int = 0,
+    rcv_idx=None,
+    sponge_width: int = 12,
+    remat_blocks: int = 1,
+    dtrec: Optional[float] = None,
+    store_adjoint: Optional[str] = None,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str | None = None,
+) -> Operator:
+    """Two-parameter variable-density forward modelling ``F: (c, b) →
+    traces`` (velocity and buoyancy ``b = 1/ρ``, the JetPackWaveFD
+    velocity-buoyancy physics). Domain: ``BlockSpace([grid, grid])`` on
+    ``device`` (``None``: the CUDA card); range: ``(ntrec, nrcv)`` traces.
+    The tangent is ``torch.func.jvp`` through the time loop, the adjoint
+    autograd through it or, with ``store_adjoint`` ∈ {"f32", "bf16",
+    "int8"}, the stored-history sweep (:func:`_adjoint_stored_vd`); either
+    returns the ``(δc, δb)`` pair. Plain PyTorch (no TPU kernel takes this
+    physics). ``remat_blocks`` as for :func:`wave_propagator`."""
+    return _vd_operator(grid_shape, 2, nt=nt, dt=dt, dx=dx, freq=freq, f0=None,
+                        src_idx=src_idx, rcv_idx=rcv_idx, sponge_width=sponge_width,
+                        remat_blocks=remat_blocks, dtrec=dtrec,
+                        store_adjoint=store_adjoint, dtype=dtype, device=device)
+
+
+def vdq_wave_propagator(
+    grid_shape: Sequence[int],
+    *,
+    nt: int = 256,
+    dt: float = 0.001,
+    dx: float = 10.0,
+    freq: float = 15.0,
+    f0: Optional[float] = None,
+    src_idx: int = 0,
+    rcv_idx=None,
+    sponge_width: int = 12,
+    remat_blocks: int = 1,
+    dtrec: Optional[float] = None,
+    store_adjoint: Optional[str] = None,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str | None = None,
+) -> Operator:
+    """The full IsoDenQ physics ``F: (c, b, Q) → traces``: velocity,
+    buoyancy and Kosloff constant-Q attenuation (reference frequency ``f0``,
+    default the source ``freq``), the parameters of JetPackWaveFD's
+    ``Prop*AcoIsoDenQ`` propagators. Domain: ``BlockSpace([grid, grid,
+    grid])`` on ``device`` (``None``: the CUDA card); the adjoint returns
+    the ``(δc, δb, δQ)`` triple, by autograd or by the stored-history sweep
+    (``store_adjoint``) with the friction transposed. ``Q = ∞`` is
+    :func:`vd_wave_propagator`'s physics, bit for bit."""
+    return _vd_operator(grid_shape, 3, nt=nt, dt=dt, dx=dx, freq=freq,
+                        f0=float(freq if f0 is None else f0), src_idx=src_idx,
+                        rcv_idx=rcv_idx, sponge_width=sponge_width,
+                        remat_blocks=remat_blocks, dtrec=dtrec,
+                        store_adjoint=store_adjoint, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Off-grid acquisition: Kaiser-windowed sinc (Hicks) source stamp and
+# receiver interpolation (ops/sampling). The source's stamp is folded into a
+# full-grid injection mask once; the in-loop extraction is one static depth
+# window contracted with its 2r taps, then one banded matrix product per
+# remaining axis. Plain PyTorch: no kernel takes a custom mask or extractor.
+# ---------------------------------------------------------------------------
+
+
+def _offgrid_src_mask(shape, src_pos, dt: float, radius: int, dtype):
+    """The full-grid injection mask with the source's Kaiser-sinc stamp at
+    its fractional position ``src_pos``, scaled by ``dt²``: built once in
+    float64 numpy, then cast (on the CPU; the operator moves it)."""
+    rows = [kaiser_sinc_matrix_np(n, [float(p)], radius)[0] for n, p in zip(shape, src_pos)]
+    stamp = rows[0]
+    for r in rows[1:]:
+        stamp = np.multiply.outer(stamp, r)
+    return torch.from_numpy(stamp * (dt * dt)).to(dtype)
+
+
+def _offgrid_extract(u, wz, Wr, lo: int, hi: int):
+    """The receiver line or plane of ``u``: the depth window ``u[lo:hi]``
+    contracted with its taps ``wz``, then ``Wr[k]`` along each remaining
+    axis."""
+    line = torch.tensordot(wz, u[lo:hi], dims=([0], [0]))
+    for k, W in enumerate(Wr):
+        line = _axis_contract(W, line, k)
+    return line
+
+
+def _offgrid_inject(row, wz, Wr, lo: int, hi: int, shape):
+    """The transpose of :func:`_offgrid_extract`: ``Wr[k]ᵀ`` along each
+    receiver axis of ``row``, then the outer product with the depth taps
+    written into the window ``[lo, hi)`` of a zero grid."""
+    line = row
+    for k, W in enumerate(Wr):
+        line = _axis_contract(W.T, line, k)
+    out = torch.zeros(shape, dtype=row.dtype, device=row.device)
+    out[lo:hi] = wz.reshape((-1,) + (1,) * line.ndim) * line
+    return out
+
+
+def offgrid_wave_propagator(
+    grid_shape: Sequence[int],
+    *,
+    src_pos: Sequence[float],
+    rcv_depth: float,
+    rcv_coords,
+    nt: int = 256,
+    dt: float = 0.001,
+    dx: float = 10.0,
+    freq: float = 15.0,
+    sponge_width: int = 12,
+    space_order: int = 2,
+    radius: int = 4,
+    remat_blocks: int = 1,
+    dtrec: Optional[float] = None,
+    store_adjoint: Optional[str] = None,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str | None = None,
+) -> Operator:
+    """Nonlinear forward modelling ``F: c → traces`` with off-grid
+    acquisition: the source at the fractional position ``src_pos`` (one
+    float per axis) and a receiver line (2-D: ``rcv_coords`` one array) or
+    separable plane (3-D: one array per non-depth axis) at the fractional
+    depth ``rcv_depth`` along axis 0. Range: ``(ntrec,) + (len(coords), ...)``
+    traces; the domain lives on ``device`` (``None``: the CUDA card).
+
+    The isotropic physics of :func:`wave_propagator` on its plain step (no
+    kernel takes a custom source mask or extractor). The tangent is
+    ``torch.func.jvp``, the adjoint autograd through the time loop or, with
+    ``store_adjoint`` ∈ {"f32", "bf16", "int8"}, the stored-history sweep
+    with the off-grid source mask in its forward sweep and, as the receiver
+    injection, the explicit transpose of the extraction
+    (:func:`_offgrid_inject`). ``dtrec`` and ``remat_blocks`` as for
+    :func:`wave_propagator`."""
+    grid_shape = tuple(int(s) for s in grid_shape)
+    space_order = _check_space_order(space_order)
+    _check_store(store_adjoint)
+    nd = len(grid_shape)
+    sp = Space(grid_shape, dtype, device)
+    # depth taps: the static window [iz0, iz0 + 2r) clamped to the grid
+    n0 = grid_shape[0]
+    iz0 = int(np.floor(rcv_depth)) - radius + 1
+    lo, hi = max(iz0, 0), min(iz0 + 2 * radius, n0)
+    wz = torch.from_numpy(kaiser_sinc_matrix_np(n0, [float(rcv_depth)], radius)[0][lo:hi])
+    rcv_axes = ((np.asarray(rcv_coords, np.float64),) if nd == 2
+                else tuple(np.asarray(c, np.float64) for c in rcv_coords))
+    if len(rcv_axes) != nd - 1:
+        raise ValueError("rcv_coords must cover every non-depth axis")
+    Wr = tuple(kaiser_sinc_matrix(grid_shape[1 + k], rcv_axes[k], radius, dtype=dtype,
+                                  device=sp.device) for k in range(nd - 1))
+    out_shape = tuple(int(W.shape[0]) for W in Wr)
+    ntrec, resample = _trace_resampler(nt, dt, dtrec, dtype)
+    rt = (_resample_transpose(resample, (nt,) + out_shape, dtype)
+          if resample is not None else None)
+    cfg = dict(dt=dt, dx=dx, order=space_order)
+
+    def _forward(c, state, inplace):
+        traces = _propagate(
+            c, state["wavelet"], 0, None, sponge=state["sponge"],
+            src_mask=state["src_mask"], inplace=inplace, remat_blocks=remat_blocks,
+            extract=lambda u: _offgrid_extract(u, state["wz"], state["Wr"], lo, hi), **cfg)
+        return resample(traces) if resample is not None else traces
+
+    def _f(c, state):
+        return _forward(c, state, True)
+
+    def _df(dc, m0, state):
+        _, tangent = torch.func.jvp(lambda c: _forward(c, state, False), (m0,), (dc,))
+        return tangent
+
+    if store_adjoint is None:
+        def _dft(dd, m0, state):
+            return _vjp_by_autograd(lambda c: _forward(c, state, False), m0, dd)
+    else:
+        def _dft(dd, m0, state):
+            if rt is not None:
+                dd = rt(dd)
+            return _adjoint_stored(
+                m0, dd, state["wavelet"], 0, None, sponge=state["sponge"],
+                store=store_adjoint, src_mask=state["src_mask"],
+                inject=lambda row: _offgrid_inject(row, state["wz"], state["Wr"], lo, hi,
+                                                   grid_shape), **cfg)
+
+    j = Jet(dom=sp, rng=Space((ntrec,) + out_shape, dtype, sp.device), f=_f, df=_df,
+            dft=_dft, state={
+                "wavelet": _ricker(nt, dt, freq, dtype).to(sp.device),
+                "sponge": _to_device(_make_sponge(grid_shape, sponge_width, dtype=dtype),
+                                     sp.device),
+                "src_mask": _offgrid_src_mask(grid_shape, src_pos, dt, radius,
+                                              dtype).to(sp.device),
+                "wz": wz.to(dtype=dtype, device=sp.device),
+                "Wr": Wr,
+            })
+    return Operator(j)
+
+
+# ---------------------------------------------------------------------------
 # VTI anisotropy: the pseudo-acoustic coupled p/q system (axis 0 = z)
 #     p_tt = c²[(1+2ε)·Lh(p) + √(1+2δ)·∂zz(q)] + s
 #     q_tt = c²[√(1+2δ)·Lh(p) + ∂zz(q)] + s
@@ -1102,17 +1532,35 @@ class _VtiStep(torch.autograd.Function):
         return (-gp, d_p, -gq, d_q, d_C, d_ah, d_av, d_st) + (None,) * 7
 
 
+_NO_STATIC_Q = {"VTI": "fused VTI step does not support static Q",
+                "TTI": "fused TTI step does not support static Q"}
+
+
+def _static_q(q, dt: float, f0: float, grid_shape, dtype):
+    """The static Kosloff friction of a quality factor ``q`` (a scalar or a
+    grid; a modelling parameter, not a model block): ``{"og": 1 − g, "ig":
+    1/(1 + g)}`` on the grid, ``g = (π·f0·dt)/Q`` divided as the JAX
+    package divides it (:func:`_q_friction`). ``Q = ∞`` gives ``g = 0`` and
+    factors of exactly 1, the lossless step bit for bit."""
+    g = _q_friction(torch.as_tensor(q, dtype=dtype), dt, f0)
+    return {"og": (1.0 - g).expand(grid_shape).contiguous(),
+            "ig": (1.0 / (1.0 + g)).expand(grid_shape).contiguous()}
+
+
 def _propagate_vti(c, eps, delta, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
                    order: int = 2, fused=None, inplace: bool = False,
-                   remat_blocks: int = 1):
+                   remat_blocks: int = 1, og=None, ig=None):
     """Coupled VTI leapfrog; returns the p-field receiver traces
     ``(nt, nrcv)``. ``fused``, ``inplace`` and ``remat_blocks`` as for
     :func:`_propagate`: on the kernel route the step is K8, in place on
-    sweeps no transform watches and inside :class:`_VtiStep` otherwise."""
+    sweeps no transform watches and inside :class:`_VtiStep` otherwise.
+    The static-Q friction factors ``og``, ``ig`` (:func:`_static_q`) take
+    the plain step, as K8 has no friction field."""
     shape, dtype, dev = c.shape, c.dtype, c.device
     C, ah, av, inv_dx2 = _vti_coefficients(c, eps, delta, dt, dx)
     amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
-    kernel = _kernel_route(fused, c, sponge, order)
+    kernel = _kernel_route(fused, c, sponge, order,
+                           None if og is None else _NO_STATIC_Q["VTI"])
     tape = _records(c, eps, delta)
     inplace = inplace and not tape
 
@@ -1134,14 +1582,15 @@ def _propagate_vti(c, eps, delta, src_wavelet, src_idx, rcv_idx, *, dt, dx, spon
 
         def step(pp, p, qp, q, s_t):
             return cuda_vti.vti_plain(pp, p, qp, q, C, ah, av, S, inv_dx2, s_t, mask,
-                                      order)
+                                      order, og, ig)
 
     return _field_loop(step, 2, shape, dtype, dev, src_wavelet, rcv_idx, inplace,
                        remat_blocks, tape)
 
 
 def _adjoint_stored_vti(c, eps, delta, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx,
-                        sponge, order: int = 2, store: str = "int8", fused=None):
+                        sponge, order: int = 2, store: str = "int8", fused=None,
+                        og=None, ig=None):
     """Adjoint-state gradient ``(∂F/∂(c, ε, δ))ᵀ dd`` over a stored two-field
     forward history, encoded per snapshot (``store``: f32, bf16, int8).
     With ``ēp = S⊙ap₊``, ``ēq = S⊙aq₊``, ``C = c²dt²``::
@@ -1158,8 +1607,10 @@ def _adjoint_stored_vti(c, eps, delta, dd, src_wavelet, src_idx, rcv_idx, *, dt,
     partial maxima give) and the reverse sweep K10 (``ap``/``aq`` into the
     ``ap₊₊``/``aq₊₊`` buffers, the accumulators in place) followed by the
     receiver injection ``index_add_``. The plain route is the JAX package's
-    XLA sweeps (``fstep``/``bstep``), tree for tree. Returns
-    ``(gc, gε, gδ)``."""
+    XLA sweeps (``fstep``/``bstep``), tree for tree. With the static-Q
+    factors ``og``, ``ig`` (Q not differentiated) both sweeps are plain:
+    ``ig`` scales ``ēp``/``ēq`` after the sponge and ``og`` the carried
+    ``ēp₊``/``ēq₊``. Returns ``(gc, gε, gδ)``."""
     shape, dtype, dev = c.shape, c.dtype, c.device
     size = math.prod(shape)
     nt = int(src_wavelet.shape[0])
@@ -1178,7 +1629,7 @@ def _adjoint_stored_vti(c, eps, delta, dd, src_wavelet, src_idx, rcv_idx, *, dt,
         return (gC * (2.0 * c) * torch.tensor(dt * dt, dtype=dtype, device=dev),
                 2.0 * gah, gav / av)
 
-    if _kernel_route(fused, c, sponge, order):
+    if _kernel_route(fused, c, sponge, order, None if og is None else _NO_STATIC_Q["VTI"]):
         spz, sy, sx = _factors_1d(sponge)
         src = int(src_idx)
         pp, p, qp, q = (zeros() for _ in range(4))
@@ -1218,7 +1669,7 @@ def _adjoint_stored_vti(c, eps, delta, dd, src_wavelet, src_idx, rcv_idx, *, dt,
     for k in range(nt):
         hist.append((enc(p), enc(q)))  # history entry k holds (p_k, q_k)
         p_next, q_next = cuda_vti.vti_plain(pp, p, qp, q, C, ah, av, S, inv_dx2,
-                                            src_wavelet[k], mask, order)
+                                            src_wavelet[k], mask, order, og, ig)
         pp, p, qp, q = p, p_next, q, q_next
     # ḡ_{k-1} aligned to reverse step k (rec_k samples p_{k+1})
     dd_shift = torch.cat([torch.zeros_like(dd[:1]), dd[:-1]])
@@ -1229,15 +1680,18 @@ def _adjoint_stored_vti(c, eps, delta, dd, src_wavelet, src_idx, rcv_idx, *, dt,
         hist[k] = None
         p_k, q_k = dec(pq, psv), dec(qq, qsv)
         ebp, ebq = ap1 * S, aq1 * S
+        if og is not None:
+            ebp, ebq = ebp * ig, ebq * ig
         lh_k = cuda_vti.lh(p_k, inv_dx2, order)
         dzz_k = cuda_vti.dzz(q_k, inv_dx2, order)
         gC = gC + ((ah * lh_k + av * dzz_k) * ebp + (av * lh_k + dzz_k) * ebq)
         gah = gah + (C * lh_k) * ebp
         gav = gav + C * (dzz_k * ebp + lh_k * ebq)
+        ebp1s, ebq1s = (ebp1, ebq1) if og is None else (og * ebp1, og * ebq1)
         ap = (2.0 * ebp + cuda_vti.lh(C * ah * ebp, inv_dx2, order)
-              + cuda_vti.lh(C * av * ebq, inv_dx2, order) - ebp1) + inject(dd_shift[k])
+              + cuda_vti.lh(C * av * ebq, inv_dx2, order) - ebp1s) + inject(dd_shift[k])
         aq = (2.0 * ebq + cuda_vti.dzz(C * av * ebp, inv_dx2, order)
-              + cuda_vti.dzz(C * ebq, inv_dx2, order)) - ebq1
+              + cuda_vti.dzz(C * ebq, inv_dx2, order)) - ebq1s
         ap1, aq1, ebp1, ebq1 = ap, aq, ebp, ebq
     return outer(gC, gah, gav)
 
@@ -1292,24 +1746,33 @@ def vti_wave_propagator(
     time loop to the stored two-field-history sweep
     (:func:`_adjoint_stored_vti`), which returns the ``(δc, δε, δδ)`` triple
     in one reverse pass. ``remat_blocks`` as for :func:`wave_propagator`.
-    Static Q (``q=``/``f0``) and ``wavefield_sharding`` are not ported yet.
+
+    ``q=`` adds static Kosloff constant-Q friction to both fields (a scalar
+    or a grid of quality factors at the reference frequency ``f0``, default
+    the source ``freq``; a modelling parameter, not a block of the domain):
+    the attenuating DenQ variant. No kernel takes friction fields, so a
+    Q'ed propagator and its stored adjoint take the plain steps and
+    ``fused=True`` raises. ``wavefield_sharding`` is not ported yet.
     """
     grid_shape = tuple(int(s) for s in grid_shape)
     space_order = _check_space_order(space_order)
     _check_store(store_adjoint)
-    if q is not None:
-        raise _not_ported("vti_wave_propagator(q=...) (static Q)", "14")
     if wavefield_sharding is not None:
         raise _not_ported("vti_wave_propagator(wavefield_sharding=...)", "18")
+    if fused and q is not None:
+        raise ValueError(_NO_STATIC_Q["VTI"])
     if fused and not cuda_wave.fits_wave_kernel(grid_shape, dtype, space_order):
         raise ValueError("fused VTI step requires a 3-D float32 grid")
     dom = _vti_domain(grid_shape, dtype, device)
+    friction = {} if q is None else _static_q(q, dt, float(freq if f0 is None else f0),
+                                              grid_shape, dtype)
     return _single_shot_operator(
         dom, dom.subspace(0), _propagate_vti_m, _adjoint_stored_vti_m, nt=nt, dt=dt,
         dx=dx, freq=freq, src_idx=src_idx, rcv_idx=rcv_idx, dtrec=dtrec,
         store_adjoint=store_adjoint, fused=fused, order=space_order,
         remat_blocks=remat_blocks,
-        boundary={"sponge": _make_sponge(grid_shape, sponge_width, dtype=dtype)})
+        boundary={"sponge": _make_sponge(grid_shape, sponge_width, dtype=dtype),
+                  **friction})
 
 
 def multishot_vti_wave_operator(
@@ -1474,10 +1937,10 @@ class _TtiStep(_PlainRuleStep):
 
 def _propagate_tti3d(c, eps, delta, theta, phi, src_wavelet, src_idx, rcv_idx, *, dt,
                      dx, sponge, order: int = 2, fused=None, inplace: bool = False,
-                     coeff16: bool = False, remat_blocks: int = 1):
+                     coeff16: bool = False, remat_blocks: int = 1, og=None, ig=None):
     """Coupled 3-D TTI leapfrog; returns the p-field receiver traces
-    ``(nt, nrcv)``. ``fused``, ``inplace`` and ``remat_blocks`` as for
-    :func:`_propagate_vti`:
+    ``(nt, nrcv)``. ``fused``, ``inplace``, ``remat_blocks`` and the
+    static-Q factors ``og``, ``ig`` as for :func:`_propagate_vti`:
     on the kernel route the step is K11 on the streamed fields ``kc``, in
     place on sweeps no transform watches and inside :class:`_TtiStep`
     otherwise; the plain route is the JAX package's XLA step, tree for tree."""
@@ -1485,7 +1948,8 @@ def _propagate_tti3d(c, eps, delta, theta, phi, src_wavelet, src_idx, rcv_idx, *
     C, ah, av, nz, ny, nx, inv_dx2, inv_dx, _, kc = _tti_coefficients(
         c, eps, delta, theta, phi, dt, dx, coeff16)
     amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
-    kernel = _kernel_route(fused, c, sponge, order)
+    kernel = _kernel_route(fused, c, sponge, order,
+                           None if og is None else _NO_STATIC_Q["TTI"])
     tape = _records(c, eps, delta, theta, phi)
     inplace = inplace and not tape
 
@@ -1507,7 +1971,7 @@ def _propagate_tti3d(c, eps, delta, theta, phi, src_wavelet, src_idx, rcv_idx, *
 
         def step(pp, p, qp, q, s_t):
             return cuda_tti.tti_plain(pp, p, qp, q, C, ah, av, nz, ny, nx, S, inv_dx2,
-                                      inv_dx, s_t, mask, order)
+                                      inv_dx, s_t, mask, order, og, ig)
 
     return _field_loop(step, 2, shape, dtype, dev, src_wavelet, rcv_idx, inplace,
                        remat_blocks, tape)
@@ -1515,11 +1979,13 @@ def _propagate_tti3d(c, eps, delta, theta, phi, src_wavelet, src_idx, rcv_idx, *
 
 def _propagate_tti(c, eps, delta, theta, src_wavelet, src_idx, rcv_idx, *, dt, dx,
                    sponge, order: int = 2, fused=None, inplace: bool = False,
-                   remat_blocks: int = 1):
+                   remat_blocks: int = 1, og=None, ig=None):
     """The 2-D tilt (θ in the x-z plane): ``H = cos²θ·∂xx + sin²θ·∂zz −
     sin2θ·∂xz``, ``V = sin²θ·∂xx + cos²θ·∂zz + sin2θ·∂xz`` with ``∂xz =
-    d1_x(d1_z(u))``; plain only, as in the JAX package (``fused`` and
-    ``inplace`` are accepted and ignored). Returns the p-field traces."""
+    d1_x(d1_z(u))``, with the static-Q factors ``og``, ``ig`` as
+    :func:`_propagate_vti` takes them; plain only, as in the JAX package
+    (``fused`` and ``inplace`` are accepted and ignored). Returns the
+    p-field traces."""
     shape, dtype, dev = c.shape, c.dtype, c.device
     C, ah, av, inv_dx2 = _vti_coefficients(c, eps, delta, dt, dx)
     inv_dx = torch.tensor(1.0 / dx, dtype=dtype, device=dev)
@@ -1536,8 +2002,12 @@ def _propagate_tti(c, eps, delta, theta, src_wavelet, src_idx, rcv_idx, *, dt, d
         qxx, qzz = d2_axis(q, 1, inv_dx2, order), d2_axis(q, 0, inv_dx2, order)
         Hp = ct2 * pxx + st2 * pzz - s2t * dxz(p)
         Vq = st2 * qxx + ct2 * qzz + s2t * dxz(q)
-        e_p = (2.0 * p - pp) + C * (ah * Hp + av * Vq)
-        e_q = (2.0 * q - qp) + C * (av * Hp + Vq)
+        if og is None:
+            e_p = (2.0 * p - pp) + C * (ah * Hp + av * Vq)
+            e_q = (2.0 * q - qp) + C * (av * Hp + Vq)
+        else:
+            e_p = ((2.0 * p - og * pp) + C * (ah * Hp + av * Vq)) * ig
+            e_q = ((2.0 * q - og * qp) + C * (av * Hp + Vq)) * ig
         s = s_t * mask
         return e_p * sponge + s, e_q * sponge + s
 
@@ -1547,7 +2017,7 @@ def _propagate_tti(c, eps, delta, theta, src_wavelet, src_idx, rcv_idx, *, dt, d
 
 def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet, src_idx, rcv_idx,
                           *, dt, dx, sponge, order: int = 2, store: str = "int8",
-                          fused=None, coeff16: bool = False):
+                          fused=None, coeff16: bool = False, og=None, ig=None):
     """Adjoint-state gradient ``(∂F/∂(c, ε, δ, θ, φ))ᵀ dd`` of the 3-D TTI
     system over a stored two-field forward history, encoded per snapshot
     (``store``: f32, bf16, int8). Every rotated derivative is self-adjoint
@@ -1567,7 +2037,9 @@ def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet, src_idx, r
     accumulators in place) followed by the receiver injection
     ``index_add_``. The plain route is the JAX package's XLA sweeps
     (``fstep``/``bstep``), tree for tree. ``coeff16`` applies the forward's
-    straight-through bfloat16 rounding. Returns ``(gc, gε, gδ, gθ, gφ)``."""
+    straight-through bfloat16 rounding; the static-Q factors ``og``, ``ig``
+    take both sweeps plain, as in :func:`_adjoint_stored_vti`. Returns
+    ``(gc, gε, gδ, gθ, gφ)``."""
     shape, dtype, dev = c.shape, c.dtype, c.device
     size = math.prod(shape)
     nt = int(src_wavelet.shape[0])
@@ -1591,7 +2063,7 @@ def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet, src_idx, r
                 -sth * gnz + (cth * cph) * gny + (cth * sph) * gnx,
                 (-sth * sph) * gny + (sth * cph) * gnx)
 
-    if _kernel_route(fused, c, sponge, order):
+    if _kernel_route(fused, c, sponge, order, None if og is None else _NO_STATIC_Q["TTI"]):
         spz, sy, sx = _factors_1d(sponge)
         src = int(src_idx)
         pp, p, qp, q = (zeros() for _ in range(4))
@@ -1633,7 +2105,8 @@ def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet, src_idx, r
     for k in range(nt):
         hist.append((enc(p), enc(q)))  # history entry k holds (p_k, q_k)
         p_next, q_next = cuda_tti.tti_plain(pp, p, qp, q, C, ah, av, nz, ny, nx, S,
-                                            inv_dx2, inv_dx, src_wavelet[k], mask, order)
+                                            inv_dx2, inv_dx, src_wavelet[k], mask, order,
+                                            og, ig)
         pp, p, qp, q = p, p_next, q, q_next
     # ḡ_{k-1} aligned to reverse step k (rec_k samples p_{k+1})
     dd_shift = torch.cat([torch.zeros_like(dd[:1]), dd[:-1]])
@@ -1646,6 +2119,8 @@ def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet, src_idx, r
         dp6 = cuda_tti.derivs(dec(pq, psv), inv_dx2, inv_dx, order)
         dq6 = cuda_tti.derivs(dec(qq, qsv), inv_dx2, inv_dx, order)
         ebp, ebq = ap1 * S, aq1 * S
+        if og is not None:
+            ebp, ebq = ebp * ig, ebq * ig
         Hp, Vq = cuda_tti.h_of(dp6, cf), cuda_tti.v_of(dq6, cf)
         gC = gC + ((ah * Hp + av * Vq) * ebp + (av * Hp + Vq) * ebq)
         gah = gah + (C * Hp) * ebp
@@ -1656,10 +2131,11 @@ def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet, src_idx, r
         gnz = gnz + (2.0 * nz * dczz + 2.0 * ny * dczy + 2.0 * nx * dczx)
         gny = gny + (2.0 * ny * dcyy + 2.0 * nz * dczy + 2.0 * nx * dcyx)
         gnx = gnx + (2.0 * nx * dcxx + 2.0 * nz * dczx + 2.0 * ny * dcyx)
+        ebp1s, ebq1s = (ebp1, ebq1) if og is None else (og * ebp1, og * ebq1)
         ap = (2.0 * ebp + cuda_tti.ht(C * ah * ebp + C * av * ebq, cf, inv_dx2, inv_dx,
-                                      order) - ebp1) + inject(dd_shift[k])
+                                      order) - ebp1s) + inject(dd_shift[k])
         aq = (2.0 * ebq + cuda_tti.vt(C * av * ebp + C * ebq, cf, inv_dx2, inv_dx,
-                                      order)) - ebq1
+                                      order)) - ebq1s
         ap1, aq1, ebp1, ebq1 = ap, aq, ebp, ebq
     return outer(gC, gah, gav, gnz, gny, gnx)
 
@@ -1733,7 +2209,10 @@ def tti_wave_propagator(
     loop to the stored two-field-history sweep
     (:func:`_adjoint_stored_tti3d`), which returns ``(δc, δε, δδ, δθ, δφ)``
     in one reverse pass. ``remat_blocks`` as for :func:`wave_propagator`.
-    Static Q (``q=``/``f0``) and ``wavefield_sharding`` are not ported yet.
+    ``q=``/``f0`` add static Kosloff friction as for
+    :func:`vti_wave_propagator` (plain steps; ``fused=True`` raises); it
+    composes with the stored adjoint, ``dtrec`` and bfloat16 coefficients.
+    ``wavefield_sharding`` is not ported yet.
     """
     grid_shape = tuple(int(s) for s in grid_shape)
     space_order = _check_space_order(space_order)
@@ -1751,19 +2230,22 @@ def tti_wave_propagator(
         raise ValueError("wavefield_sharding on TTI is 3-D only")
     if wavefield_sharding is not None:
         raise _not_ported("tti_wave_propagator(wavefield_sharding=...)", "18")
-    if q is not None:
-        raise _not_ported("tti_wave_propagator(q=...) (static Q)", "14")
+    if fused and q is not None:
+        raise ValueError(_NO_STATIC_Q["TTI"])
     if fused and not (three_d and cuda_wave.fits_wave_kernel(grid_shape, dtype,
                                                               space_order)):
         raise ValueError("fused TTI step requires a 3-D float32 grid")
     dom = _tti_domain(grid_shape, dtype, device)
+    friction = {} if q is None else _static_q(q, dt, float(freq if f0 is None else f0),
+                                              grid_shape, dtype)
     return _single_shot_operator(
         dom, dom.subspace(0), functools.partial(_propagate_tti_m, coeff16=coeff16),
         functools.partial(_adjoint_stored_tti3d_m, coeff16=coeff16), nt=nt, dt=dt,
         dx=dx, freq=freq, src_idx=src_idx, rcv_idx=rcv_idx, dtrec=dtrec,
         store_adjoint=store_adjoint, fused=fused, order=space_order,
         remat_blocks=remat_blocks,
-        boundary={"sponge": _make_sponge(grid_shape, sponge_width, dtype=dtype)})
+        boundary={"sponge": _make_sponge(grid_shape, sponge_width, dtype=dtype),
+                  **friction})
 
 
 def multishot_tti_wave_operator(

@@ -16,7 +16,7 @@ import torch
 import jets_tpu_torch as tt
 from jets_tpu_torch.core.spaces import resolve_device
 from jets_tpu_torch.models import configs, seismic
-from jets_tpu_torch.ops import conv, diagonal, matrix, stencil, wave
+from jets_tpu_torch.ops import conv, diagonal, matrix, sampling, stencil, wave
 
 CONSTRUCTORS = {
     "Space": tt.Space,
@@ -32,6 +32,10 @@ CONSTRUCTORS = {
     "multishot_tti_wave_operator": wave.multishot_tti_wave_operator,
     "q_wave_propagator": wave.q_wave_propagator,
     "cpml_wave_propagator": wave.cpml_wave_propagator,
+    "vd_wave_propagator": wave.vd_wave_propagator,
+    "vdq_wave_propagator": wave.vdq_wave_propagator,
+    "offgrid_wave_propagator": wave.offgrid_wave_propagator,
+    "kaiser_sinc_matrix": sampling.kaiser_sinc_matrix,
     "diagonal_operator": diagonal.diagonal_operator,
     "matrix_operator": matrix.matrix_operator,
     "conv1d_operator": conv.conv1d_operator,
@@ -65,6 +69,11 @@ CALLS = {
         (8, 8), [9, 20], nt=4, **kw),
     "q_wave_propagator": lambda **kw: wave.q_wave_propagator((4, 8, 8), nt=4, **kw),
     "cpml_wave_propagator": lambda **kw: wave.cpml_wave_propagator((8, 8), nt=4, **kw),
+    "vd_wave_propagator": lambda **kw: wave.vd_wave_propagator((8, 8), nt=4, **kw),
+    "vdq_wave_propagator": lambda **kw: wave.vdq_wave_propagator((8, 8), nt=4, **kw),
+    "offgrid_wave_propagator": lambda **kw: wave.offgrid_wave_propagator(
+        (8, 8), src_pos=(3.5, 4.2), rcv_depth=2.5, rcv_coords=[1.5, 5.5], nt=4, **kw),
+    "kaiser_sinc_matrix": lambda **kw: sampling.kaiser_sinc_matrix(8, [2.5], **kw),
     "diagonal_operator": lambda **kw: diagonal.diagonal_operator(np.ones((3, 4)), **kw),
     "matrix_operator": lambda **kw: matrix.matrix_operator(np.ones((3, 4)), **kw),
     "conv1d_operator": lambda **kw: conv.conv1d_operator([1.0, 2.0], 5, **kw),
@@ -102,7 +111,7 @@ def test_asking_for_the_cpu_builds_there(name):
     op = CALLS[name](device="cpu")
     if isinstance(op, tuple):  # make_seismic_problem (A, m, d), configs (A, solve, d, info)
         op = op[0]
-    sp = op if isinstance(op, tt.Space) else op.dom
+    sp = op if isinstance(op, (tt.Space, torch.Tensor)) else op.dom  # a tensor: the matrix
     assert sp.device == torch.device("cpu")
 
 

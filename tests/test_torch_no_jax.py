@@ -1,8 +1,8 @@
 """The port stands alone: it never imports JAX, and importing it (and
-solving with LSQR, CG or LSMR, taking a stored-adjoint isotropic, VTI, TTI
-or constant-Q wave gradient, or solving BASELINE config 3 with CGLS and
-config 1's operator with GMRES, on the CPU) needs neither nvcc nor triton
-nor a built kernel library."""
+solving with LSQR, CG or LSMR, taking a stored-adjoint isotropic, VTI, TTI,
+constant-Q or IsoDenQ wave gradient, modelling with off-grid acquisition,
+or solving BASELINE config 3 with CGLS and config 1's operator with GMRES,
+on the CPU) needs neither nvcc nor triton nor a built kernel library."""
 import os
 import pathlib
 import re
@@ -89,6 +89,19 @@ Fc = cpml_wave_propagator((8, 8), nt=8, src_idx=36, pml_width=2, remat_blocks=2,
                           device="cpu")
 c2 = torch.full((8, 8), 1500.0)
 assert Fc.linearize(c2).H(Fc(c2)).shape == (8, 8)
+import numpy as np
+from jets_tpu_torch.ops import offgrid_wave_propagator, vdq_wave_propagator
+Fd = vdq_wave_propagator((6, 8, 16), nt=12, dt=6e-4, src_idx=3 * 128 + 4 * 16 + 8,
+                         sponge_width=2, store_adjoint="int8", device="cpu")
+md = tt.BlockVector((c, torch.full_like(c, 1e-3), torch.full_like(c, 40.0)), Fd.dom)
+gd = Fd.linearize(md).H(Fd(md * 1.02) - Fd(md))
+assert isinstance(gd, tt.BlockVector) and gd.nblocks == 3
+assert all(bool(torch.isfinite(b).all()) and bool(b.abs().max() > 0) for b in gd)
+Fo = offgrid_wave_propagator((6, 8, 16), src_pos=(3.3, 4.2, 8.5), rcv_depth=2.5,
+                             rcv_coords=(np.array([2.5, 5.0]), np.array([4.25, 8.0, 11.5])),
+                             nt=12, dt=6e-4, sponge_width=2, device="cpu")
+do = Fo(c)
+assert do.shape == (12, 2, 3) and bool(torch.isfinite(do).all()) and bool(do.abs().max() > 0)
 assert kernels._libs == {}, "the CPU path loaded a kernel library"
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "triton"))
 assert not bad, bad

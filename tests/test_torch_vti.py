@@ -337,8 +337,9 @@ def test_validation_and_what_is_not_ported():
         tw.vti_wave_propagator(SHAPE2, nt=4, fused=True, device=CPU)
     with pytest.raises(ValueError, match="dtrec"):
         tw.vti_wave_propagator(SHAPE2, nt=4, dt=1e-3, dtrec=5e-4, device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        tw.vti_wave_propagator(SHAPE2, q=50.0, device=CPU)
+    with pytest.raises(ValueError, match="static Q"):  # ported: no kernel takes Q
+        tw.vti_wave_propagator(SHAPE2, q=50.0, fused=True, device=CPU)
+    assert tw.vti_wave_propagator(SHAPE2, nt=4, q=50.0, device=CPU).dom.nblocks == 3
     F4 = tw.vti_wave_propagator(SHAPE2, nt=8, remat_blocks=4, device=CPU)
     m = F4.dom.reshape(torch.cat([torch.full((24 * 24,), 1500.0),
                                   torch.full((24 * 24,), 0.1),
