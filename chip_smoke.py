@@ -70,8 +70,22 @@ gate, the int8 RTM image against the autodiff adjoint, 3 LSQR iterations
 of least-squares migration, integer positions against ``wave_propagator``
 on K4 and the ``ops/sampling`` gates; each against the CPU at
 (32, 64, 128), and each asserting that no wave kernel ran on the new
-physics. Each path runs with the kernels' launch counts set to
-0 just before it and read just after. Every phase asserts; a failure
+physics — and the tenth, the symmetric spaces and the DSP/transform
+operator packs at the width of a 16-shot block of gathers (16, 4096, 2048)
+float32: the processing chain of examples/06 (shift @ bandpass @ taper)
+inverted by damped LSQR (50 iterations) and its db2 wavelet compression,
+``rfft_operator`` onto the ``SymmetricSpace`` with its weighted gate and
+``to_logical`` against ``fftn``, GMRES(16) on an FFT composite over
+(1024, 1024) complex64, the deblending of examples/07 at one receiver's
+full size (1024 shots of 2000 samples, LSQR on ``blend @ integration``,
+100 iterations), and the gates of every other operator of the packs at
+gather width (envelope, mix, roughness, nim, difference, integration,
+translation, resampling, mute, square, sqrt, interpolation with a bitwise
+repeat of its adjoint, DCT, LMO, ghost, Radon with its 1.07 GiB phase
+tensor, and the structural transforms and projection), each against the
+CPU at a small shape; K1 runs only in the two LSQR solves. Each path runs
+with the kernels' launch counts set to 0 just before it and read just
+after. Every phase asserts; a failure
 raises and exits non-zero. Every entry point runs on the card by default;
 the CPU runs ask for ``device="cpu"``.
 The last lines are a JSON object of the kernels (route, source, launches
@@ -102,8 +116,11 @@ def log(phase, msg):
 
 
 def rel(a, b):
-    return float(torch.linalg.vector_norm((a - b).double())
-                 / torch.linalg.vector_norm(b.double()))
+    """The relative 2-norm difference on ``b``'s device, in float64
+    (complex128 for complex tensors)."""
+    wide = torch.complex128 if b.is_complex() else torch.float64
+    a, b = a.to(device=b.device, dtype=wide), b.to(wide)
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
 def _blocks(t):
@@ -274,11 +291,13 @@ def check_history(res, maxiter, dnorm, phase):
 # The shapes (and view offsets) at which phase 1 holds the solver-update
 # kernels K1, K6a, K6b and K7 against their plain versions: the 3-D and 2-D
 # flagships, configs 5 and 4, config 1 at float32, then an odd length (vector
-# path + scalar tail) and its offset view (the unaligned scalar path).
+# path + scalar tail) and its offset view (the unaligned scalar path), then
+# the LSQR models of the tenth path (phases 57 and 59).
 SOLVER_SHAPES = [((256, 256, 256), 0), ((2048, 2048), 0), ((128, 128, 64), 0),
-                 ((128, 128), 0), ((1000,), 0), ((1000003,), 0), ((1000003,), 1)]
+                 ((128, 128), 0), ((1000,), 0), ((1000003,), 0), ((1000003,), 1),
+                 ((16, 4096, 2048), 0), ((1024, 2000), 0)]
 SOLVER_SHAPES_TEXT = ("256^3, 2048^2, 128x128x64, 128^2, 1000 and 1000003 "
-                      "aligned/unaligned")
+                      "aligned/unaligned, and the tenth path's 16x4096x2048 and 1024x2000")
 
 # The shapes at which phase 1 holds the wave kernels against their plain
 # versions, one list per kernel family: the 256^3 flagship first, then every
@@ -1219,6 +1238,406 @@ def other_physics(smi, c_true, q_true, wkw):
                + agree(gk, Fc.linearize(ck.cpu()).H(rr), "off-grid card vs CPU int8 gradient",
                        1e-5))
     log(56, f"off-grid checks: {msg_int}; {msg_s}; at {cshape}, nt=12: {msg_cpu} [{smi}]")
+    return launched
+
+
+# The DSP/transform sizes of the tenth path (phases 57-60): a 16-shot block
+# of gathers with the flagship's 4096 receivers and 2048 samples at 4 ms
+# (8.2 s records), float32, and the deblending geometry of one receiver
+# (examples/07_deblending.py at full size). SMALL is the shape at which each
+# phase holds the card against the CPU.
+GATHER = (16, 4096, 2048)
+PANEL = GATHER[1:]
+DEBLEND = (1024, 2000)  # shots, samples at 2 ms
+SMALL = (2, 64, 512)
+DSP_ITERS, DEBLEND_ITERS = 50, 100  # the examples run 200 and 400
+
+
+def _wide_space(sp):
+    """``sp`` with float64 (complex128) members, for the gates' f64 sums."""
+    from jets_tpu_torch import Space, SymmetricSpace
+    wide = torch.complex128 if sp.dtype.is_complex else torch.float64
+    if isinstance(sp, SymmetricSpace):
+        return SymmetricSpace(sp.shape, sp.logical_shape, wide, sp.axis, sp.device)
+    return Space(sp.shape, wide, sp.device)
+
+
+def dsp_path(smi):
+    """Phases 57-60, the tenth path: the symmetric spaces and the
+    DSP/transform operator packs on the card at the width of a 16-shot block
+    of gathers (16, 4096, 2048) float32. Phase 57: the processing chain of
+    examples/06 (shift @ bandpass @ taper) inverted by damped LSQR through
+    K1, and its wavelet compression; 58: ``rfft_operator`` onto the
+    ``SymmetricSpace`` and GMRES(16) on an FFT composite; 59: the deblending
+    of examples/07 at one receiver's full size (1024 shots of 2000 samples),
+    LSQR through K1; 60: every other operator of the packs at gather width.
+    Each operator passes its dot-product gate (f32 sums and f64 sums of the
+    same products, <= 1e-4), each nonlinear one its linearization gate, each
+    phase holds the card against the CPU at a small shape (bitwise for the
+    elementwise and data-movement operators, <= 1e-6 for FFT, cuBLAS and
+    reductions) and asserts that no kernel ran but K1 in its two LSQR
+    solves, counted from 0. Returns K1's launches of the counted solves."""
+    from jets_tpu_torch import Space, dot_product_test, linearization_test
+    from jets_tpu_torch import ops as O
+    from jets_tpu_torch.ops import cuda_solver as cs
+    from jets_tpu_torch.solvers import gmres, lsqr
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    dt = 0.004
+    launched = {}
+
+    def reset():
+        cs.reset_launch_counts()
+        _reset_counts()
+
+    def counts():
+        """Every kernel's launches since the last reset, zeros left out."""
+        return {k: n for k, n in {**cs.launch_counts(), **_counts()}.items() if n}
+
+    def no_kernels(fn, name):
+        reset()
+        out = fn()
+        assert counts() == {}, f"{name} launched {counts()}"
+        return out
+
+    base = [0]
+
+    def start():
+        """A phase starts: its time, and its peak memory counted from here."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base[0] = torch.cuda.memory_allocated()
+        return time.perf_counter()
+
+    def peak():
+        return (f"peak device memory {(torch.cuda.max_memory_allocated() - base[0]) / 2**30:.2f}"
+                " GiB above the phase's start")
+
+    def draw(sp, seed, positive=False, shift=0.0):
+        """A seeded numpy draw of a member of ``sp`` as a CPU tensor."""
+        rng = np.random.default_rng(seed)
+        x = rng.standard_normal(sp.shape)
+        if sp.dtype.is_complex:
+            x = x + 1j * rng.standard_normal(sp.shape)
+        x = np.abs(x) + 0.5 if positive else x + shift
+        return torch.from_numpy(x).to(sp.dtype)
+
+    def gate(A, seed, name):
+        """The dot-product gate of ``A`` on the card with f32 sums and with f64
+        sums of the same products (rel <= 1e-4 each)."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        m, d = A.dom.randn(g), A.rng.randn(g)
+        lhs, rhs = dot_product_test(A, m, d)
+        Am, Ad = A(m), A.H(d)
+        wd, wr = _wide_space(A.dom), _wide_space(A.rng)
+        lhs64 = complex(wr.dot(d.to(wr.dtype), Am.to(wr.dtype)))
+        rhs64 = complex(wd.dot(Ad.to(wd.dtype), m.to(wd.dtype)))
+        if A.dom.dtype.is_complex != A.rng.dtype.is_complex:
+            lhs64, rhs64 = lhs64.real, rhs64.real
+        g32 = abs(complex(lhs) - complex(rhs)) / abs(complex(rhs))
+        g64 = abs(lhs64 - rhs64) / abs(rhs64)
+        assert g32 <= 1e-4 and g64 <= 1e-4, f"{name} gate rel {g32}, f64 sums {g64}"
+        return f"{name} gate {g32:.1e}/{g64:.1e}"
+
+    def lin_gate(F, m0, name):
+        """The linearization (Taylor) gate of ``F`` at ``m0`` with a small
+        perturbation: the last two ratios within 20% of 4."""
+        g = torch.Generator(device=dev).manual_seed(5)
+        obs, exp = linearization_test(F, m0, delta_m=0.1 * F.dom.randn(g))
+        obs = obs.cpu().numpy()
+        assert np.allclose(obs[-2:], exp.cpu().numpy()[-2:], rtol=0.2), (name, obs)
+        return f"{name} Taylor ratios " + "/".join(f"{o:.3f}" for o in obs)
+
+    def versus_cpu(build, name, exact, nonlinear=False, **kw):
+        """``build(device)`` on the card and on the CPU, applied to the same
+        numpy draws: forward and adjoint (nonlinear: forward, tangent and its
+        adjoint); bitwise when ``exact``, else rel <= 1e-6. Returns text with
+        the observed difference."""
+        Ak, Ac = build(dev), build(cpu)
+        m, d = draw(Ac.dom, 1, **kw), draw(Ac.rng, 2)
+        if nonlinear:
+            dm = draw(Ac.dom, 3)
+            Jk, Jc = Ak.linearize(m.to(dev)), Ac.linearize(m)
+            pairs = [(Ak(m.to(dev)), Ac(m)), (Jk(dm.to(dev)), Jc(dm)), (Jk.H(d.to(dev)), Jc.H(d))]
+        else:
+            pairs = [(Ak(m.to(dev)), Ac(m)), (Ak.H(d.to(dev)), Ac.H(d))]
+        bits = all(torch.equal(k.cpu(), c) for k, c in pairs)
+        worst = max(rel(k, c) for k, c in pairs)
+        if exact:
+            assert bits, f"{name}: card and CPU not bitwise (rel {worst})"
+        else:
+            assert worst <= 1e-6, f"{name}: card vs CPU rel {worst} > 1e-6"
+        return f"{name} {'bitwise' if bits else f'{worst:.1e}'}"
+
+    def solve_ms(solve, iters, name):
+        """Marginal ms per iteration of ``solve(maxiter)`` between ``iters/5``
+        and ``iters`` iterations (CUDA events, median of 3), and the device
+        busy share of 10 iterations under the profiler."""
+        def run(n):
+            return event_ms(lambda: solve(n))
+        lo = iters // 5
+        run(lo)
+        t_lo = sorted(run(lo) for _ in range(3))[1]
+        t_hi = sorted(run(iters) for _ in range(3))[1]
+        sh, wall, nev, top = busy_share(lambda: solve(10))
+        return ((t_hi - t_lo) / (iters - lo),
+                f"{name}: device busy {'not measured' if sh is None else f'{sh:.3f}'} of "
+                f"{wall:.2f} ms for 10 iterations ({nev / 10:.1f} device events per "
+                "iteration; top kernels, us total/count: "
+                + "; ".join(f"{nm} {t:.0f}/{c}" for nm, (t, c) in top) + ")")
+
+    # ---- phase 57: the processing chain, inverted by LSQR through K1 ----------------
+    t_ph = start()
+    sp = Space(GATHER)
+
+    def chain(space):
+        return (O.shift_operator(space, 3.5 * dt, dt=dt)
+                @ O.bandpass_operator(space, dt, 8.0, 45.0, f_taper=4.0)
+                @ O.taper_operator(space, (0, 0, 32)))
+
+    A = chain(sp)
+    msgs = [gate(A, 57, "chain")]
+    g = torch.Generator(device=dev).manual_seed(7)
+    m_true = O.bandpass_operator(sp, dt, 2.0, 18.0)(sp.randn(g))
+    d_obs = A(m_true)
+    reset()
+    res = lsqr(A, d_obs, maxiter=DSP_ITERS, tol=0.0, damp=1e-4)
+    torch.cuda.synchronize()
+    got = counts()
+    assert got == {"xw_update": DSP_ITERS}, f"chain LSQR launched {got}"
+    launched["xw_update"] = launched.get("xw_update", 0) + DSP_ITERS
+    live(res.x, "chain LSQR x")
+    misfit = rel(A(res.x), d_obs)
+    assert misfit < 0.05, f"chain misfit {misfit}"
+    ms_it, busy_txt = solve_ms(lambda n: lsqr(A, d_obs, maxiter=n, tol=0.0, damp=1e-4),
+                               DSP_ITERS, "chain LSQR")
+    # the wavelet view of the result: keep the coefficients above the 90%
+    # quantile of |c| (torch.quantile refuses more than 2^24 elements, so the
+    # quantile's linear interpolation between two kthvalue order statistics)
+    W = O.wavelet_operator(sp, "db2", levels=3, axes=(2,))
+    msgs.append(gate(W, 58, "wavelet db2 x3"))
+    c = W(res.x)
+    a = c.abs().reshape(-1)
+    pos = 0.9 * (a.numel() - 1)
+    k = int(np.floor(pos))
+    q0, q1 = (torch.kthvalue(a, k + 1 + i).values for i in (0, 1))
+    thresh = q0 + (pos - k) * (q1 - q0)
+    kept = float((a > thresh).sum()) / a.numel()
+    x_c = W.H(torch.where(c.abs() > thresh, c, torch.zeros_like(c)))
+    werr = rel(x_c, res.x)
+    assert 0.0 < werr < 1.0, f"wavelet reconstruction error {werr}"
+    del c, a, x_c
+    # K1 at the gather's shape: its time against its bound and its plain version
+    xs = [torch.randn(GATHER, generator=g, device=dev) for _ in range(3)]
+    sc = [torch.tensor(v, device=dev) for v in (0.37, -0.21, 1.7)]
+    k1_ms = cuda_ms(lambda: cs.xw_update(xs[0], xs[1], xs[2], *sc), 20)
+    k1_plain = cuda_ms(lambda: cs.xw_update_torch(xs[0], xs[1], xs[2], *sc), 20)
+    k1_bound, k1_by = bound_ms(nbytes(*xs, *xs[:2]), xs[0].numel(), "xw_update")
+    del xs
+    small = Space(SMALL)
+    cpu_txt = "; ".join((
+        versus_cpu(lambda dv: chain(Space(SMALL, device=dv)), "chain", exact=False),
+        versus_cpu(lambda dv: O.taper_operator(Space(SMALL, device=dv), (0, 0, 32)), "taper",
+                   exact=True),
+        versus_cpu(lambda dv: O.wavelet_operator(Space(SMALL, device=dv), "db2", 3, (2,)),
+                   "wavelet", exact=False)))
+    log(57, f"processing chain shift(3.5 dt) @ bandpass(8-45 Hz, taper 4) @ taper(0, 0, 32) on "
+            f"{GATHER} f32, dt {dt}: {msgs[0]}; LSQR damp 1e-4, {DSP_ITERS} iterations (the "
+            f"example runs 200): relative data misfit {misfit:.4e}, exactly {DSP_ITERS} K1 "
+            f"launches and no other kernel, {ms_it:.3f} ms/iteration (marginal, CUDA events); "
+            f"{busy_txt}; {msgs[1]}: kept {kept:.4f} of the coefficients (90% quantile "
+            f"{float(thresh):.6g} by kthvalue), reconstruction error {werr:.4f}; K1 at "
+            f"{GATHER}: {1e3 * k1_ms:.1f} us vs plain {1e3 * k1_plain:.1f} us, bound "
+            f"{1e3 * k1_bound:.1f} us by {k1_by}; card vs CPU at {SMALL}: {cpu_txt}; "
+            f"{peak()}; {time.perf_counter() - t_ph:.1f} s [{smi}]")
+    del A, W, res, m_true, d_obs
+
+    # ---- phase 58: rfft onto the SymmetricSpace; GMRES on an FFT composite -----------
+    t_ph = start()
+
+    def phase58():
+        R = O.rfft_operator(sp)
+        assert R.rng.shape == GATHER[:2] + (GATHER[2] // 2 + 1,)
+        assert R.rng.dtype == torch.complex64 and R.rng._weights().device.type == dev.type
+        out = [gate(R, 59, f"rfft {GATHER} -> SymmetricSpace {R.rng.shape}")]
+        x = Space((16, 512, 2048)).randn(g)
+        lg = O.rfft_operator(Space((16, 512, 2048))).rng.to_logical(torch.fft.rfftn(x))
+        r_log = rel(lg, torch.fft.fftn(x))
+        assert r_log <= 1e-6, f"to_logical(rfftn) vs fftn rel {r_log}"
+        out.append(f"to_logical(rfftn(x)) vs fftn(x) at (16, 512, 2048) rel {r_log:.2e}")
+        del x, lg
+        csp = Space((1024, 1024), torch.complex64)
+        F = O.fft_operator(csp)
+        dvals = draw(csp, 4).to(dev) * 0.5 / np.sqrt(2.0)
+        Ag = (F.H @ O.diagonal_operator(dvals, device=dev) @ F) + 2.0 * O.identity_operator(csp)
+        x_true = draw(csp, 5).to(dev) / np.sqrt(2.0)
+        t0 = time.perf_counter()
+        rg = gmres(Ag, Ag(x_true), maxiter=96, restart=16, tol=1e-6)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        err = rel(rg.x, x_true)
+        assert err <= 1e-4, f"GMRES error {err}"
+        out.append(f"GMRES(16) on F^H D F + 2I over fft_operator on (1024, 1024) complex64: "
+                   f"{rg.iterations} iterations, relative error {err:.3e} (<= 1e-4), "
+                   f"{wall:.3f} s")
+        out.append("card vs CPU at " + f"{SMALL}: " + "; ".join((
+            versus_cpu(lambda dv: O.rfft_operator(Space(SMALL, device=dv)), "rfft",
+                       exact=False),
+            versus_cpu(lambda dv: O.fft_operator(Space(SMALL[1:], torch.complex64, device=dv)),
+                       "fft", exact=False))))
+        return out
+
+    log(58, "; ".join(no_kernels(phase58, "phase 58")) + f"; no kernel launched; {peak()}; "
+            f"{time.perf_counter() - t_ph:.1f} s [{smi}]")
+
+    # ---- phase 59: deblending, LSQR through K1 -----------------------------------
+    t_ph = start()
+    nshots, nt = DEBLEND
+    rng = np.random.default_rng(0)  # examples/07_deblending.py's schedule and spikes
+    t0s = np.sort(rng.integers(0, (3 * nshots * nt) // 4, nshots))
+    T = int(t0s.max()) + nt
+    spikes = np.zeros((nshots, nt), np.float32)
+    for s in range(nshots):
+        idx = rng.integers(20, nt - 20, 4)
+        spikes[s, idx] = rng.standard_normal(4)
+    B = O.blend_operator(nshots, nt, t0s, T)
+    S = O.integration_operator(Space((nshots, nt)), axis=1)
+    m_true = S(torch.from_numpy(spikes).to(dev))
+    d = B(m_true)
+    A = B @ S
+    msgs = [gate(B, 60, "blend"), gate(A, 61, "blend @ integration")]
+    reset()
+    res = lsqr(A, d, maxiter=DEBLEND_ITERS, tol=0.0, damp=1e-3)
+    torch.cuda.synchronize()
+    got = counts()
+    assert got == {"xw_update": DEBLEND_ITERS}, f"deblending LSQR launched {got}"
+    launched["xw_update"] += DEBLEND_ITERS
+    m_est = S(res.x)
+    merr, relres = rel(m_est, m_true), rel(B(m_est), d)
+    assert merr < 1.0 and relres < 0.5, (merr, relres)
+    ms_it, busy_txt = solve_ms(lambda n: lsqr(A, d, maxiter=n, tol=0.0, damp=1e-3),
+                               DEBLEND_ITERS, "deblending LSQR")
+    ft = np.array([0, 30, 45, 100, 101, 170, 200, 230])
+
+    def blend_small(dv):
+        return O.blend_operator(8, 64, ft, 294, device=dv)
+
+    cpu_txt = "; ".join((
+        versus_cpu(blend_small, "blend", exact=True),
+        versus_cpu(lambda dv: O.integration_operator(Space((8, 64), device=dv), axis=1),
+                   "integration", exact=False),
+        versus_cpu(lambda dv: blend_small(dv) @ O.integration_operator(
+            Space((8, 64), device=dv), axis=1), "blend @ integration", exact=False)))
+    log(59, f"deblending {nshots} shots x {nt} samples into T = {T} (firing times of "
+            f"examples/07, seed 0; {B.jet.state['table'].shape[0]} gather rows): "
+            + "; ".join(msgs) + f"; LSQR damp 1e-3, {DEBLEND_ITERS} iterations (the example "
+            f"runs 400): model error {merr:.4f}, blended residual {relres:.4e}, exactly "
+            f"{DEBLEND_ITERS} K1 launches and no other kernel, {ms_it:.3f} ms/iteration "
+            f"(marginal, CUDA events); {busy_txt}; card vs CPU: {cpu_txt}; {peak()}; "
+            f"{time.perf_counter() - t_ph:.1f} s [{smi}]")
+    del A, B, S, res, m_true, d, m_est
+
+    # ---- phase 60: the rest of the packs at gather width ----------------------------
+    t_ph = start()
+    nx = PANEL[0]
+    offsets = 12.5 * np.arange(nx)
+    # a linear mute: sample t of receiver x is kept from 20 + 0.2 |x - nx/2| on
+    mute_mask = (np.arange(GATHER[2])[None, :] >= 20 + 0.2 * np.abs(
+        np.arange(nx) - nx / 2)[:, None]).astype(np.float32)
+
+    def mute(sp):
+        return O.mute_operator(sp, np.broadcast_to(
+            mute_mask[:sp.shape[1], :sp.shape[2]], sp.shape))
+
+    def interp(sp):
+        pos = np.sort(np.random.default_rng(8).uniform(0, sp.shape[1] - 1, sp.shape[1]))
+        return O.interp_operator(sp, pos, axis=1)
+
+    def projection(sp):
+        V = np.random.default_rng(9).standard_normal((8,) + sp.shape).astype(np.float32)
+        return O.projection_operator(V, device=sp.device)
+
+    def complex_of(sp):
+        return Space(sp.shape, torch.complex64, sp.device)
+
+    # (name, constructor on a space, card vs CPU bitwise?, nonlinear?, start keywords)
+    gather_ops = [
+        ("envelope", O.envelope_operator, False, True, {"shift": 2.0}),
+        ("mix (1, 5, 11)", lambda s: O.mix_operator(s, (1, 5, 11)), True, False, {}),
+        ("roughness (1, 5, 11)", lambda s: O.roughness_operator(s, (1, 5, 11)), True, False,
+         {}),
+        ("nim", O.nim_operator, False, True, {"shift": 0.1}),
+        ("difference", O.difference_operator, True, False, {}),
+        ("integration 0.95", lambda s: O.integration_operator(s, 0.95), False, False, {}),
+        ("translation (0, 1.5, 2.25)", lambda s: O.translation_operator(s, (0.0, 1.5, 2.25)),
+         False, False, {}),
+        ("resample x2 down", lambda s: O.resample_operator(s, s.shape[2] // 2), False, False,
+         {}),
+        ("mute", mute, True, False, {}),
+        ("square", O.square_operator, True, True, {}),
+        # PyTorch's float32 sqrt on the CPU is not correctly rounded (the
+        # card's is), so the two differ by an ulp on a few elements
+        ("sqrt", O.sqrt_operator, False, True, {"positive": True}),
+        ("interp (duplicate bins)", interp, True, False, {}),
+    ]
+    panel_ops = [
+        ("dct", O.dct_operator, False, False, {}),
+        ("lmo", lambda s: O.lmo_operator(s, dt, offsets[:s.shape[0]] - offsets[s.shape[0] // 2],
+                                         1.0 / 3000.0), False, False, {}),
+        ("reghost", lambda s: O.reghost_operator(s, dt, 12.5, 15.0), False, False, {}),
+        ("identity", O.identity_operator, True, False, {}),
+        ("pad", lambda s: O.pad_operator(s, [(3, 5), (0, 64)]), True, False, {}),
+        ("restriction", lambda s: O.restriction_operator(
+            s, [(s.shape[0] // 4, 3 * s.shape[0] // 4), (8, s.shape[1] - 8)]), True, False, {}),
+        ("reshape", lambda s: O.reshape_operator(s, (s.shape[0] // 2, 2 * s.shape[1])), True,
+         False, {}),
+        ("transpose", lambda s: O.transpose_operator(s, (1, 0)), True, False, {}),
+        ("flip", lambda s: O.flip_operator(s, (0, 1)), True, False, {}),
+        ("permutation", lambda s: O.permutation_operator(
+            s, np.random.default_rng(10).permutation(s.size)), True, False, {}),
+        ("circshift", lambda s: O.circshift_operator(s, (17, -300)), True, False, {}),
+        ("projection k=8", projection, False, False, {}),
+        ("real", lambda s: O.real_operator(complex_of(s)), True, False, {}),
+        ("imag", lambda s: O.imag_operator(complex_of(s)), True, False, {}),
+    ]
+
+    def radon(nt_, nx_, np_, dv):
+        return O.radon_operator(nt_, np.linspace(-nx_ / 2, nx_ / 2, nx_) * 25.0,
+                                np.linspace(-4e-4, 4e-4, np_), dt, device=dv)
+
+    def phase60():
+        out, small_out = [], []
+        for shape, small_shape, specs in ((GATHER, SMALL, gather_ops),
+                                          (PANEL, SMALL[1:], panel_ops)):
+            for name, make, exact, nonlinear, kw in specs:
+                op = make(Space(shape))
+                if nonlinear:
+                    m0 = (op.dom.rand(g) + 0.5 if kw.get("positive")
+                          else op.dom.randn(g) + kw.get("shift", 0.0))
+                    out.append(gate(op.linearize(m0), 62, name + " tangent") + ", "
+                               + lin_gate(op, m0, name))
+                else:
+                    out.append(gate(op, 62, name))
+                if make is interp:
+                    dd = op.rng.randn(g)
+                    assert torch.equal(op.H(dd), op.H(dd)), "interp adjoint not repeatable"
+                    out[-1] += (f", onto {op.rng.shape[1]} positions, adjoint bitwise on a "
+                                f"repeat ({op.jet.state['table'].shape[0]} gather rows)")
+                del op
+                small_out.append(versus_cpu(
+                    lambda dv, make=make, small_shape=small_shape: make(
+                        Space(small_shape, device=dv)), name, exact, nonlinear, **kw))
+        Rd = radon(2048, 512, 256, dev)
+        out.append(gate(Rd, 63, f"radon nt 2048, 256 slownesses, 512 offsets (phase tensor "
+                                f"{nbytes(Rd.jet.state['phase']) / 1e9:.2f} GB)"))
+        del Rd
+        small_out.append(versus_cpu(lambda dv: radon(64, 16, 8, dv), "radon", exact=False))
+        return out, small_out
+
+    out, small_out = no_kernels(phase60, "phase 60")
+    log(60, f"at {GATHER} and {PANEL} f32: " + "; ".join(out) + f"; card vs CPU at {SMALL} "
+            f"and {SMALL[1:]}: " + "; ".join(small_out) + f"; no kernel launched; {peak()}; "
+            f"{time.perf_counter() - t_ph:.1f} s [{smi}]")
     return launched
 
 
@@ -2638,6 +3057,8 @@ def main() -> int:
         main_path[k] += n
     for k, n in other_physics(smi, c_true, q_true, wkw).items():
         main_path[k] += n
+    for k, n in dsp_path(smi).items():
+        main_path[k] += n
     sources = {"solver": "jets_tpu_torch/csrc/solver_kernels.cu",
                "wave": "jets_tpu_torch/csrc/wave_kernels.cu",
                "vti": "jets_tpu_torch/csrc/vti_kernels.cu",
@@ -2660,7 +3081,7 @@ def main() -> int:
         "fused_q_step": ("wave", "jets_tpu/ops/pallas_wave.py:1425"),
     }
     assert len(replaces) == 15 and all(main_path[k] > 0 for k in replaces), main_path
-    log(57, f"chip_smoke total {time.perf_counter() - t_start:.1f} s, kernel build "
+    log(61, f"chip_smoke total {time.perf_counter() - t_start:.1f} s, kernel build "
             f"included")
     rows = []
     for k, (lib, where) in replaces.items():

@@ -1,11 +1,14 @@
 """jets_tpu_torch — the PyTorch/CUDA port of ``jets_tpu``.
 
 The same matrix-free operator-and-solver framework, for one NVIDIA H100
-(Hopper, ``sm_90a``): spaces with an explicit device, immutable jets and
+(Hopper, ``sm_90a``): dense, symmetric (rfft) and block spaces with an
+explicit device, immutable jets and
 operators, the operator algebra (raw matrices auto-wrapped), block
 operators, the correctness gates, the operator packs of the five BASELINE
 configurations (matrix, convolution, derivative, gradient, stencil and blur
-operators; :mod:`jets_tpu_torch.models.configs`), the seismic flagship, the
+operators; :mod:`jets_tpu_torch.models.configs`), the FFT, DCT, structural,
+signal-processing, causal, wavelet, Radon, interpolation, acquisition and
+elementwise operator packs (:mod:`jets_tpu_torch.ops`), the seismic flagship, the
 Krylov solvers (CG, CGLS, LSQR, LSMR, MINRES, BiCGStab, GMRES, Chebyshev)
 with the normal operator and the Jacobi preconditioner
 (:mod:`jets_tpu_torch.solvers`), the diagonal operator, block spaces, and
@@ -24,7 +27,18 @@ machine that has a card. Every constructor builds on the card unless the
 caller passes ``device="cpu"`` (or another device). This package never
 imports JAX.
 """
-from .core.spaces import Space, space_of, zeros, ones, rand, randn
+from .core.spaces import (
+    Space,
+    SymmetricSpace,
+    MappedSymmetricSpace,
+    symspace,
+    space_of,
+    zeros,
+    ones,
+    rand,
+    randn,
+    randperm,
+)
 from .core.blockspace import BlockSpace, BlockVector
 from .core.jet import (
     Jet,

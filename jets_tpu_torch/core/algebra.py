@@ -256,14 +256,23 @@ def _vec_upstate(m0, state):
 
 def vec(A) -> Operator:
     """The operator over flattened 1-D spaces; a no-op if it is 1-D→1-D
-    over dense spaces. Block spaces are always adapted: a ``BlockVector``
-    is a tuple of blocks, which ``vec`` flattens into one tensor."""
+    over dense or symmetric spaces. Block spaces are always adapted: a
+    ``BlockVector`` is a tuple of blocks, which ``vec`` flattens into one
+    tensor. An n-D symmetric space cannot be flattened: its
+    multiplicity-weighted inner product has no flat-``Space`` equivalent,
+    and dropping the weights would break every adjoint downstream."""
     from .blockspace import BlockSpace
+    from .spaces import MappedSymmetricSpace, SymmetricSpace
 
     A = _wrap(A)
     if (A.dom.ndim == 1 and A.rng.ndim == 1
             and not isinstance(A.dom, BlockSpace) and not isinstance(A.rng, BlockSpace)):
         return A
+    for sp in (A.dom, A.rng):
+        if isinstance(sp, (SymmetricSpace, MappedSymmetricSpace)) and sp.ndim > 1:
+            raise NotImplementedError(
+                "vec() of an operator over an n-D SymmetricSpace would drop "
+                "its multiplicity weights; reshape at the call site instead")
     j = Jet(
         dom=Space((A.dom.size,), A.dom.dtype, A.dom.device),
         rng=Space((A.rng.size,), A.rng.dtype, A.rng.device),

@@ -124,11 +124,13 @@ class Jet:
     def _transpose_apply(self, dd):
         """Adjoint derived from ``df``: the vjp of the linear tangent map at
         a zero primal is ``df^H dd`` (PyTorch's complex vjp convention
-        conjugates, so no wrapping is needed)."""
+        conjugates, so no wrapping is needed). The result is made
+        contiguous (a vjp through an FFT returns a strided view), as the
+        solver kernels take contiguous members only."""
         m0, st = self.m0, dict(self._state)
         _, vjp = torch.func.vjp(lambda dm: self.df(dm, m0, st), self.dom.zeros())
         (out,) = vjp(dd)
-        return out
+        return out.contiguous() if isinstance(out, torch.Tensor) else out
 
     def __repr__(self) -> str:
         return f"Jet({self.dom} -> {self.rng})"

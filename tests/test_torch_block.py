@@ -11,8 +11,8 @@ nonlinear child.
 Tolerances: float64 on both sides; dense matrices and actions at
 ``rtol=1e-12`` (``1e-10`` for the random trees, whose materializations
 sum in other orders), dot-product gates at ``rtol=1e-12`` (trees
-``1e-10``). ``test_vec_preserves_symmetric_space_semantics`` waits for
-``SymmetricSpace`` (ROADMAP queue 1 item 8).
+``1e-10``). ``vec`` leaves a 1-D operator onto a ``SymmetricSpace`` as it
+is and refuses an n-D one, as in tests/test_block_shapes.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -123,6 +123,32 @@ def test_vectorized_block_operator():
     _close(y.numpy(), np.vstack([M1, M2]) @ x)
     _close(y.numpy(), np.asarray(jBv(jnp.asarray(x))))
     _gate(tBv)
+
+
+@pytest.mark.parametrize("shape", [(8,), (4, 8)])
+def test_vec_preserves_symmetric_space_semantics(shape):
+    """``vec`` is a no-op on a 1-D operator onto a symmetric space (its
+    weighted inner product has no flat-``Space`` equivalent) and refuses an
+    n-D one rather than drop the weights, as ``jets_tpu.vec`` does."""
+    from jets_tpu.ops import rfft_operator as j_rfft
+    from jets_tpu_torch.ops import rfft_operator
+
+    jA = j_rfft(jt.Space(shape, jnp.float64))
+    tA = rfft_operator(tt.Space(shape, torch.float64, CPU))
+    if len(shape) > 1:
+        for vec, A in ((jt.vec, jA), (tt.vec, tA)):
+            with pytest.raises(NotImplementedError):
+                vec(A)
+        return
+    assert jt.vec(jA) is jA
+    Av = tt.vec(tA)
+    assert Av is tA and isinstance(Av.rng, tt.SymmetricSpace)
+    m, d = Av.dom.randn(_gen(0)), Av.rng.randn(_gen(1))
+    lhs, rhs = tt.dot_product_test(Av, m, d)
+    assert complex(lhs) == pytest.approx(complex(rhs), rel=1e-12)
+    jl, jr = jt.dot_product_test(jA, jnp.asarray(m.numpy()), jnp.asarray(d.numpy()))
+    assert complex(lhs) == pytest.approx(complex(jl), rel=1e-12)
+    assert complex(rhs) == pytest.approx(complex(jr), rel=1e-12)
 
 
 def test_dot_product_test_masks():

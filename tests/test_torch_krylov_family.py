@@ -11,8 +11,8 @@ takes ``sqrt(a² + b²)``, and the two sum their inner products in other
 orders); against the dense solve at the ``atol`` of tests/test_solvers.py.
 A resumed run equals the continuous run bit for bit (the same operations
 in the same order), and no solver writes into ``b``, ``x0`` or ``state=``.
-``test_gmres_complex_on_fft_composite`` waits for ``fft.py`` (ROADMAP
-queue 1 item 8).
+GMRES also runs on the FFT composite ``F^H D F + 2I`` of
+tests/test_solvers.py, over ``fft_operator`` and ``identity_operator``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -348,3 +348,25 @@ def test_complex_hermitian_family_matches_jax(name):
                   maxiter=300, tol=1e-14)
     np.testing.assert_allclose(rt.x.numpy(), np.linalg.solve(H, b), atol=1e-8)
     assert _rel(rt.x.numpy(), rj.x) <= 1e-10
+
+
+def test_gmres_complex_on_fft_composite():
+    """GMRES on a complex-domain operator composite, ``A = F^H D F + 2I``
+    with the unitary FFT ``F`` and a complex diagonal ``D``, on the same
+    numpy draws in both packages."""
+    from jets_tpu.ops import fft_operator as j_fft
+    from jets_tpu.ops import identity_operator as j_identity
+    from jets_tpu_torch.ops import fft_operator, identity_operator
+
+    rng = np.random.default_rng(4)
+    dvals = 0.5 * (rng.standard_normal(32) + 1j * rng.standard_normal(32)) / np.sqrt(2)
+    x_true = (rng.standard_normal(32) + 1j * rng.standard_normal(32)) / np.sqrt(2)
+    jsp, tsp = jt.Space((32,), jnp.complex128), tt.Space((32,), torch.complex128, CPU)
+    jF, tF = j_fft(jsp), fft_operator(tsp)
+    jA = (jF.H @ j_diagonal(jnp.asarray(dvals)) @ jF) + 2.0 * j_identity(jsp)
+    tA = (tF.H @ diagonal_operator(dvals, device=CPU) @ tF) + 2.0 * identity_operator(tsp)
+    b = np.asarray(jA(jnp.asarray(x_true)))
+    np.testing.assert_allclose(tA(torch.from_numpy(x_true)).numpy(), b, rtol=1e-12, atol=1e-12)
+    rj, rt = _run(j_gmres, gmres, jA, tA, b, maxiter=96, restart=16, tol=1e-13)
+    _same_as_jax(rj, rt)
+    np.testing.assert_allclose(rt.x.numpy(), x_true, atol=1e-8)

@@ -1,8 +1,11 @@
 """The port stands alone: it never imports JAX, and importing it (and
 solving with LSQR, CG or LSMR, taking a stored-adjoint isotropic, VTI, TTI,
 constant-Q or IsoDenQ wave gradient, modelling with off-grid acquisition,
-or solving BASELINE config 3 with CGLS and config 1's operator with GMRES,
-on the CPU) needs neither nvcc nor triton nor a built kernel library."""
+solving BASELINE config 3 with CGLS and config 1's operator with GMRES,
+importing every module of the symmetric spaces and the operator packs, and
+inverting the DSP chain and the blending model with LSQR, on the CPU, with
+``jax``, ``jaxlib`` and ``jets_tpu`` blocked from import) needs neither
+nvcc nor triton nor a built kernel library."""
 import os
 import pathlib
 import re
@@ -14,6 +17,8 @@ PKG = ROOT / "jets_tpu_torch"
 
 _SCRIPT = r"""
 import sys
+for name in ("jax", "jaxlib", "jets_tpu"):
+    sys.modules[name] = None  # any import of these raises ImportError
 import torch
 import jets_tpu_torch as tt
 from jets_tpu_torch import kernels
@@ -102,8 +107,27 @@ Fo = offgrid_wave_propagator((6, 8, 16), src_pos=(3.3, 4.2, 8.5), rcv_depth=2.5,
                              nt=12, dt=6e-4, sponge_width=2, device="cpu")
 do = Fo(c)
 assert do.shape == (12, 2, 3) and bool(torch.isfinite(do).all()) and bool(do.abs().max() > 0)
+import importlib
+for mod in ("core.spaces", "ops.fft", "ops.transforms", "ops.dsp", "ops.causal",
+            "ops.wavelet", "ops.radon", "ops.interp", "ops.acquisition", "ops.elementwise"):
+    importlib.import_module("jets_tpu_torch." + mod)
+from jets_tpu_torch.ops import (bandpass_operator, blend_operator, integration_operator,
+                                rfft_operator, shift_operator, taper_operator)
+sp = tt.Space((4, 64), device="cpu")
+Ad = shift_operator(sp, 3.5 * 0.004, dt=0.004) @ bandpass_operator(sp, 0.004, 8.0, 45.0,
+                                                                   f_taper=4.0) @ taper_operator(
+    sp, (0, 8))
+dd = Ad(sp.ones())
+rd = lsqr(Ad, dd, maxiter=5, tol=0.0)
+assert rd.iterations == 5 and bool(torch.isfinite(rd.x).all())
+R = rfft_operator(sp)
+assert isinstance(R.rng, tt.SymmetricSpace) and R.H(R(sp.ones())).shape == (4, 64)
+Bl = blend_operator(4, 16, [0, 5, 20, 30], 46, device="cpu") @ integration_operator(
+    tt.Space((4, 16), device="cpu"))
+assert lsqr(Bl, Bl(torch.ones(4, 16)), maxiter=3, tol=0.0).iterations == 3
 assert kernels._libs == {}, "the CPU path loaded a kernel library"
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "triton"))
+bad = sorted(m for m, v in sys.modules.items()
+             if v is not None and m.split(".")[0] in ("jax", "jaxlib", "triton"))
 assert not bad, bad
 print("OK")
 """
