@@ -83,9 +83,21 @@ gather width (envelope, mix, roughness, nim, difference, integration,
 translation, resampling, mute, square, sqrt, interpolation with a bitwise
 repeat of its adjoint, DCT, LMO, ghost, Radon with its 1.07 GiB phase
 tensor, and the structural transforms and projection), each against the
-CPU at a small shape; K1 runs only in the two LSQR solves. Each path runs
-with the kernels' launch counts set to 0 just before it and read just
-after. Every phase asserts; a failure
+CPU at a small shape; K1 runs only in the two LSQR solves — and the
+eleventh, ``remat_blocks`` under the ``"vmap"`` shot stacks: 4 shots of
+``multishot_wave_operator`` at 256³, nt=120, remat 12 against 1 (traces,
+autograd gradients and derived adjoints bitwise, the peak device memory,
+no wave kernel launched), against the same shots in map mode at remat 12
+(K4), and the VTI and TTI vmap stacks at (32, 64, 128) — and the twelfth,
+the ``utils`` layer: on the 3-D flagship, an LSQR checkpoint saved from the
+card, loaded back and resumed bitwise an uninterrupted run with its
+``tree_hash`` checked, ``checked(A)`` and its NaN guard, a ``trace`` of 5
+hooked iterations holding exactly 5 K1 kernel events, the native CRC32C,
+codec and loader libraries; snapshots of the 256³ K4 forward in a disk
+``SnapshotStore`` at 12 bits (the native bytes equal the numpy codec's),
+and the flagship's data streamed to the card by ``ShotGatherLoader``. Each
+path runs with the kernels' launch counts set to 0 just before it and read
+just after. Every phase asserts; a failure
 raises and exits non-zero. Every entry point runs on the card by default;
 the CPU runs ask for ``device="cpu"``.
 The last lines are a JSON object of the kernels (route, source, launches
@@ -1641,6 +1653,341 @@ def dsp_path(smi):
     return launched
 
 
+def _counts_all():
+    """Every kernel's launches (solver and wave) since the last reset, zeros
+    left out."""
+    from jets_tpu_torch.ops import cuda_solver as cs
+    return {k: n for k, n in {**cs.launch_counts(), **_counts()}.items() if n}
+
+
+def _reset_all():
+    from jets_tpu_torch.ops import cuda_solver as cs
+    cs.reset_launch_counts()
+    _reset_counts()
+
+
+def _grad_and_adjoint(F, m, d_obs, func_vjp=False):
+    """The autograd gradient of ``0.5||F(m) - d_obs||^2`` over every block of
+    ``m`` and the derived adjoint ``F.linearize(m).H(F(m) - d_obs)`` (and,
+    with ``func_vjp``, ``torch.func.vjp`` of ``F`` at the same residual),
+    each with its peak device memory above the start (GiB) and its seconds:
+    ``(traces, grads, adjoint blocks, (peak_g, peak_a[, peak_v]), (t_g,
+    t_a[, t_v])[, vjp blocks])``."""
+    from jets_tpu_torch import BlockVector
+
+    def run(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 2**30, \
+            time.perf_counter() - t0
+
+    def grad():
+        leaves = [t.clone().requires_grad_() for t in _blocks(m)]
+        mm = BlockVector(leaves, m.space) if isinstance(m, BlockVector) else leaves[0]
+        out = F(mm)
+        r_ = out - d_obs
+        return out.detach(), torch.autograd.grad(0.5 * torch.sum(r_ * r_), leaves)
+
+    (out, g), peak_g, t_g = run(grad)
+    a, peak_a, t_a = run(lambda: _blocks(F.linearize(m).H(out - d_obs)))
+    if not func_vjp:
+        return out, g, a, (peak_g, peak_a), (t_g, t_a)
+    v, peak_v, t_v = run(lambda: _blocks(torch.func.vjp(F, m)[1](out - d_obs)[0]))
+    return out, g, a, (peak_g, peak_a, peak_v), (t_g, t_a, t_v), v
+
+
+def vmap_remat(smi, c_true, wkw):
+    """Phase 62: ``remat_blocks`` under the ``"vmap"`` shot stacks at full
+    width. ``multishot_wave_operator`` at 256^3 f32, ``shot_map="vmap"``, 4
+    shots, nt=120, ``remat_blocks`` 12 against 1: the autograd gradient of
+    ``0.5||F(c) - d||^2`` and the derived adjoint ``linearize(c).H(r)`` (the
+    ``_Segment`` route), traces bitwise, gradients and adjoints bitwise or
+    within 1e-6, the remat-12 peak below the remat-1 peak, no wave kernel
+    launched (the vmap stack runs the plain step), and the same 4 shots in
+    ``shot_map="map"`` at remat 12 (the checkpoint route, its segments
+    recomputing through K4) within a stated tolerance; then the VTI and TTI
+    vmap stacks at (32, 64, 128), nt=24, 2 shots, remat 1 against 4,
+    bitwise. Counts from 0; returns K4's launches (the observed data and
+    the map-mode reference)."""
+    from jets_tpu_torch import BlockVector
+    from jets_tpu_torch.ops.wave import (multishot_tti_wave_operator,
+                                         multishot_vti_wave_operator,
+                                         multishot_wave_operator)
+
+    dev = c_true.device
+    t_ph = time.perf_counter()
+    _reset_all()
+    wshape = tuple(c_true.shape)
+    nt, nz, ny, nx = 120, *wshape
+    srcs = [int(np.ravel_multi_index((nz // 2, ny // 2, nx * k // 8), wshape))
+            for k in (2, 3, 5, 6)]
+    kw = dict(nt=nt, **wkw)
+    d_obs = multishot_wave_operator(wshape, srcs, shot_map="map", **kw)(c_true)
+    assert _counts_all() == {"fused_leapfrog_step": 4 * nt}, _counts_all()
+    c0 = torch.full(wshape, 1500.0, device=dev)
+    runs = {}
+    for rb in (1, 12):
+        F = multishot_wave_operator(wshape, srcs, shot_map="vmap", remat_blocks=rb, **kw)
+        before = _counts_all()
+        runs[rb] = _grad_and_adjoint(F, c0, d_obs, func_vjp=True)
+        assert _counts_all() == before, f"the vmap stack launched {_counts_all()}"
+        del F
+    (o1, g1, a1, p1, t1, v1), (o12, g12, a12, p12, t12, v12) = runs[1], runs[12]
+    msgs = [same(o12, o1, "traces")]
+    for name, x, y in (("gradient", g12[0], g1[0]), ("derived adjoint", a12[0], a1[0]),
+                       ("torch.func.vjp", v12[0], v1[0]),
+                       ("adjoint vs gradient", a12[0], g12[0]),
+                       ("torch.func.vjp vs gradient", v12[0], g12[0])):
+        msgs.append(agree(x, y, name, 1e-6))
+    assert all(x < y for x, y in zip(p12, p1)), f"remat peaks {p12} not below {p1}"
+    # the map-mode stack at remat 12: checkpointed segments recomputing on K4
+    Fm = multishot_wave_operator(wshape, srcs, shot_map="map", remat_blocks=12, **kw)
+    before = _counts_all()
+    om, gm, am, pm, tm_ = _grad_and_adjoint(Fm, c0, d_obs)
+    n_map = {k: v - before.get(k, 0) for k, v in _counts_all().items()}
+    assert n_map == {"fused_leapfrog_step": 2 * 2 * 4 * nt}, n_map  # gradient + adjoint
+    msgs.append(agree(o12, om, "vmap vs map traces", 1e-6))
+    msgs.append(agree(g12[0], gm[0], "vmap vs map gradient", 1e-5))
+    msgs.append(agree(a12[0], am[0], "vmap vs map adjoint", 1e-5))
+    del Fm, o1, g1, a1, v1, o12, g12, a12, v12, om, gm, am, d_obs
+    log(62, f"multishot_wave_operator {wshape} f32, vmap, 4 shots, nt={nt}, remat_blocks 12 "
+            "vs 1, gradient of 0.5||F(c) - d||^2, linearize(c).H(r) and torch.func.vjp: "
+            + "; ".join(msgs[:6])
+            + "; no wave kernel launched; peak device memory above the start (GiB) and "
+            "seconds, remat 1 vs 12: " + ", ".join(
+                f"{name} {p1[i]:.2f} vs {p12[i]:.2f} GiB, {t1[i]:.2f} vs {t12[i]:.2f} s"
+                for i, name in enumerate(("gradient", "derived adjoint", "torch.func.vjp")))
+            + f"; map mode at remat 12 (K4 {n_map['fused_leapfrog_step']} launches, peak "
+            f"{pm[0]:.2f} GiB, {tm_[0]:.2f} s): " + "; ".join(msgs[6:]) + f" [{smi}]")
+    # VTI and TTI vmap stacks at phase 49's small grid, (32, 64, 128) at 256^3
+    cs_ = c_true[::8, ::4, ::2].contiguous()
+    sshape = tuple(cs_.shape)
+    ssrc = int(np.ravel_multi_index(tuple(n // 2 for n in sshape), sshape))
+    skw = dict(nt=24, dt=wkw["dt"], dx=wkw["dx"], freq=wkw["freq"], sponge_width=6,
+               rcv_idx=[int(np.ravel_multi_index((sshape[0] // 2, sshape[1] // 2, x), sshape))
+                        for x in range(sshape[2])])
+
+    def full(v):
+        return torch.full(sshape, v, device=dev)
+
+    small = []
+    for name, ctor, extra in (
+            ("VTI", multishot_vti_wave_operator, (0.1, 0.05)),
+            ("TTI", multishot_tti_wave_operator, (0.1, 0.05, 0.2, 0.7))):
+        outs = []
+        for rb in (1, 4):
+            F = ctor(sshape, [ssrc, ssrc + 16], shot_map="vmap", remat_blocks=rb, **skw)
+            m = BlockVector((cs_, *(full(v) for v in extra)), F.dom)
+            before = _counts_all()
+            outs.append(_grad_and_adjoint(F, m, torch.zeros(F.rng.shape, device=dev)))
+            assert _counts_all() == before, f"{name} vmap launched {_counts_all()}"
+        (oa, ga, aa, pa, _), (ob, gb, ab, pb, _) = outs
+        assert torch.equal(oa, ob), f"{name} remat traces differ"
+        for i, (x, y, u, v) in enumerate(zip(ga, gb, aa, ab)):
+            live(x, f"{name} gradient {i}")
+            assert torch.equal(x, y) and torch.equal(u, v), f"{name} block {i} not bitwise"
+        small.append(f"{name} traces, {len(ga)} gradient and adjoint blocks bitwise, peak "
+                     f"{pa[0]:.3f} vs {pb[0]:.3f} GiB")
+    log(62, f"vmap stacks at {sshape}, nt=24, 2 shots, remat 1 vs 4, no wave kernel "
+            "launched: " + "; ".join(small)
+            + f"; phase 62 in {time.perf_counter() - t_ph:.1f} s [{smi}]")
+    return _counts_all()
+
+
+def _trace_kernel(name):
+    """The kernel function of a trace event's name, mangled (``kernel_of``)
+    or demangled (``void ns::name<...>(...)``)."""
+    if name.startswith("_Z"):
+        return kernel_of(name)[0]
+    head = re.sub(r"^void\s+", "", name).replace("(anonymous namespace)::", "")
+    return re.split(r"[<(]", head)[0].split("::")[-1].strip()
+
+
+def utils_path(smi, c_true, wkw, flagship=((256, 256, 256), 16, 4096)):
+    """Phases 63-64: the ``utils`` layer on the card. Phase 63, on phase 2's
+    3-D flagship (256^3, 16 shots, 4096 receivers; K1 on the LSQR route,
+    K3 on the adjoint tail, K2 on the hooked one): LSQR for 10 iterations,
+    ``save_checkpoint`` of the card state, ``load_checkpoint`` onto the card
+    and 10 more, bitwise an uninterrupted 20-iteration run, ``tree_hash``
+    of the card state equal to its CPU copy's and to the file's CRC32C;
+    ``checked(A, "A")`` bitwise ``A`` and raising on a NaN, its overhead
+    per apply; ``trace`` around 5 hooked LSQR iterations, its Chrome trace
+    holding exactly 5 K1 kernel events; the native CRC32C, codec and loader
+    libraries built and loaded. Phase 64: the 256^3 iso forward on K4 for
+    120 steps with every 10th snapshot appended to a disk ``SnapshotStore``
+    at 12 bits (one snapshot's bytes equal the numpy codec's, each read-back
+    within 2e-3 of its max at a ratio > 2.6), and the flagship's data
+    streamed to the card in blocks of 4 shots by
+    ``ShotGatherLoader(device_put=True)``, the blockwise ``A^H(A m - d)``
+    against the in-memory one. Counts from 0; returns the launches."""
+    import os
+    import shutil
+    import tempfile
+
+    from jets_tpu_torch import utils
+    from jets_tpu_torch.models.seismic import (make_seismic_problem,
+                                               seismic_operator_from_arrays)
+    from jets_tpu_torch.ops import cuda_wave as cw
+    from jets_tpu_torch.ops import wave as W
+    from jets_tpu_torch.solvers import lsqr
+    from jets_tpu_torch.utils import compression, hashing
+    from jets_tpu_torch.utils.dataloader import ShotGatherLoader, ShotGatherStore
+
+    dev = c_true.device
+    t_ph = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_utils_")
+    try:
+        # ---- phase 63: checkpoint/resume, guards, profiling on the flagship ----
+        grid3, nshots3, nrecv = flagship
+        A, m_true, d = make_seismic_problem(grid3, nshots3, nrecv, seed=0, noise=0.05)
+        _reset_all()
+        r10 = lsqr(A, d, maxiter=10, tol=0.0)
+        path = os.path.join(tmp, "lsqr_state.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = utils.save_checkpoint(path, r10.state, meta={"iteration": 10})
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        st, meta = utils.load_checkpoint(path, like=r10.state)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        assert st.x.device == r10.state.x.device == dev and meta["iteration"] == 10
+        cpu_state = type(r10.state)(*(f.cpu() if isinstance(f, torch.Tensor) else f
+                                      for f in r10.state))
+        h_card, h_cpu = utils.tree_hash(r10.state), utils.tree_hash(cpu_state)
+        assert h_card == h_cpu == meta["crc32c"] == h, (h_card, h_cpu, meta, h)
+        resumed = lsqr(A, d, maxiter=20, tol=0.0, state=st)
+        r20 = lsqr(A, d, maxiter=20, tol=0.0)
+        msg_resume = same(resumed.x, r20.x, "resumed x")
+        assert torch.equal(resumed.history[10:], r20.history[10:]) and \
+            torch.equal(r10.history, r20.history[:10]), "resumed history not bitwise"
+        n_resume = _counts_all()
+        assert n_resume.get("xw_update") == 40, n_resume
+        CA = utils.checked(A, "A")
+        m = 0.5 * m_true
+        msg_guard = same(CA(m), A(m), "checked(A)(m)")
+        m_nan = m.clone()  # one NaN where the model reaches the data
+        hot = int(torch.argmax(A.H(torch.ones(A.rng.shape, device=dev)).abs()))
+        m_nan.view(-1)[hot] = float("nan")
+        try:
+            CA(m_nan)
+            raise AssertionError("checked(A) let a NaN through")
+        except FloatingPointError as e:
+            # a linear operator's apply is its tangent, as in the JAX package
+            assert str(e) == "non-finite output of A.tangent", str(e)
+        ms_plain, ms_checked = cuda_ms(lambda: A(m), 20), cuda_ms(lambda: CA(m), 20)
+        A_hook = seismic_operator_from_arrays(grid3, nshots3, nrecv,
+                                              wr=A.jet.state["bstate"]["wr"],
+                                              epilogue_hook=True)
+        logdir = os.path.join(tmp, "trace")
+        before = _counts_all()
+        with utils.trace(logdir):
+            lsqr(A_hook, d, maxiter=5, tol=0.0)
+        n_traced = {k: v - before.get(k, 0) for k, v in _counts_all().items()
+                    if v != before.get(k, 0)}
+        assert n_traced.get("xw_update") == 5 and n_traced.get("lap3d_axpy_norm2") == 5, \
+            n_traced
+        files = os.listdir(logdir)
+        assert len(files) == 1 and files[0].endswith(".json"), files
+        with open(os.path.join(logdir, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+        kernels_seen = {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                k = _trace_kernel(e["name"])
+                kernels_seen[k] = kernels_seen.get(k, 0) + 1
+        assert kernels_seen.get("xw_update_kernel") == 5, kernels_seen
+        loader_probe = ShotGatherLoader(ShotGatherStore.create(
+            os.path.join(tmp, "probe.bin"), np.zeros((1, 4), np.float32)))
+        native = {"crc32c": hashing.native(), "codec": compression.native(),
+                  "loader": loader_probe.native}
+        assert all(native.values()), native
+        log(63, f"flagship {grid3} x {nshots3} shots x {nrecv} rcv: LSQR 10 + checkpoint "
+                f"({os.path.getsize(path) / 2**20:.1f} MiB, save {1e3 * t_save:.1f} ms, load "
+                f"to the card {1e3 * t_load:.1f} ms) + 10 resumed: {msg_resume}, history "
+                f"bitwise; tree_hash card = CPU copy = file CRC32C {h:#010x}; {msg_guard}, "
+                f"a NaN raises 'non-finite output of A.tangent'; A apply {ms_plain:.3f} ms, "
+                f"checked {ms_checked:.3f} ms (+{ms_checked - ms_plain:.3f} ms); trace of 5 "
+                f"hooked LSQR iterations: {len(events)} events, kernels {kernels_seen} "
+                f"(K1 5 = the counters {n_traced}); native libraries {native} [{smi}]")
+        # ---- phase 64: snapshots of the K4 forward; shot streaming ---------------
+        wshape = tuple(c_true.shape)
+        nt, dt, dx = 120, wkw["dt"], wkw["dx"]
+        c2 = W._c2dt2(c_true, dt, dx)
+        spz, spy, spx = W._factors_1d(W._make_sponge(wshape, wkw["sponge_width"]))
+        spz, spy, spx = spz.to(dev), spy.to(dev), spx.to(dev)
+        wav = W._ricker(nt, dt, wkw["freq"]).to(dev)
+        amp = torch.tensor(dt * dt, device=dev)
+        src = int(np.ravel_multi_index(tuple(n // 2 for n in wshape), wshape))
+        up, u = torch.zeros(wshape, device=dev), torch.zeros(wshape, device=dev)
+        store = compression.SnapshotStore(wshape, bits=12, path=os.path.join(tmp, "snaps"))
+        before = _counts_all()
+        kept, host_ms = [], []
+        for k in range(nt):
+            up = cw.fused_leapfrog_step(up, u, c2, spz, spy, spx, wav[k], src, amp,
+                                        order=2, out=up)
+            up, u = u, up
+            if (k + 1) % 10 == 0:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                store.append(u)
+                host_ms.append(1e3 * (time.perf_counter() - t0))
+                kept.append(u.to("cpu", copy=True))
+        n_snap = {k: v - before.get(k, 0) for k, v in _counts_all().items()
+                  if v != before.get(k, 0)}
+        assert n_snap == {"fused_leapfrog_step": nt}, n_snap
+        store.close()
+        last = kept[-1].numpy()
+        assert compression.compress_array(last, 12) == compression._compress_np(
+            last.ravel(), 12), "native snapshot bytes differ from the numpy codec's"
+        ro = compression.SnapshotStore.open(os.path.join(tmp, "snaps"))
+        errs = []
+        for i, snap in enumerate(kept):
+            ref = snap.numpy()
+            err_i = float(np.max(np.abs(ro.read(i) - ref))) / float(np.max(np.abs(ref)))
+            assert err_i < 2e-3, f"snapshot {i}: max error {err_i} of its max"
+            errs.append(err_i)
+        assert ro.ratio > 2.6, ro.ratio
+        # the flagship's data, streamed in blocks of 4 shots
+        spath = os.path.join(tmp, "shots.bin")
+        ShotGatherStore.create(spath, d)
+        m = 0.5 * m_true
+        pred = A(m)
+        before = _counts_all()
+        g_mem = A.H(pred - d)
+        t0 = time.perf_counter()
+        blocks = list(ShotGatherLoader(ShotGatherStore(spath), batch_shots=4,
+                                       device_put=True))
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        assert all(b.device == dev for _, b in blocks)
+        g_blk = torch.zeros_like(g_mem)
+        for idx, block in blocks:
+            r = torch.zeros_like(pred)
+            r[4 * idx:4 * idx + 4] = pred[4 * idx:4 * idx + 4] - block
+            g_blk = g_blk + A.H(r)
+        n_stream = {k: v - before.get(k, 0) for k, v in _counts_all().items()
+                    if v != before.get(k, 0)}
+        msg_stream = agree(g_blk, g_mem, "blockwise A^H(A m - d)", 1e-5)
+        log(64, f"K4 forward {wshape}, nt={nt} (K4 {nt} launches), every 10th snapshot to a "
+                f"disk SnapshotStore at 12 bits: {len(kept)} snapshots, bytes of the last "
+                f"= the numpy codec's, read-back max error / max {min(errs):.3e}-"
+                f"{max(errs):.3e} (< 2e-3), ratio {ro.ratio:.4f} (> 2.6), host ms per "
+                f"snapshot (D2H + compress + write) {min(host_ms):.1f}-{max(host_ms):.1f}; "
+                f"the flagship's d ({tuple(d.shape)}, {d.numel() * 4 / 2**20:.2f} MiB) "
+                f"streamed in {len(blocks)} blocks of 4 shots at "
+                f"{d.numel() * 4 / 2**20 / t_load:.1f} MiB/s: {msg_stream} (adjoint "
+                f"launches {n_stream}); phases 63-64 in {time.perf_counter() - t_ph:.1f} s "
+                f"[{smi}]")
+        return _counts_all()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -3058,6 +3405,10 @@ def main() -> int:
     for k, n in other_physics(smi, c_true, q_true, wkw).items():
         main_path[k] += n
     for k, n in dsp_path(smi).items():
+        main_path[k] += n
+    for k, n in vmap_remat(smi, c_true, wkw).items():
+        main_path[k] += n
+    for k, n in utils_path(smi, c_true, wkw).items():
         main_path[k] += n
     sources = {"solver": "jets_tpu_torch/csrc/solver_kernels.cu",
                "wave": "jets_tpu_torch/csrc/wave_kernels.cu",

@@ -38,6 +38,7 @@ from .core.spaces import (
     rand,
     randn,
     randperm,
+    reshape,
 )
 from .core.blockspace import BlockSpace, BlockVector
 from .core.jet import (

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 __all__ = ["Space", "SymmetricSpace", "MappedSymmetricSpace", "symspace", "space_of",
-           "zeros", "ones", "rand", "randn", "randperm", "resolve_device"]
+           "zeros", "ones", "rand", "randn", "randperm", "reshape", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -419,6 +419,11 @@ def zeros(space: Space) -> torch.Tensor:
 
 def ones(space: Space) -> torch.Tensor:
     return space.ones()
+
+
+def reshape(x, space: Space) -> torch.Tensor:
+    """``x`` as a member of ``space`` (:meth:`Space.reshape`)."""
+    return space.reshape(x)
 
 
 def rand(generator: torch.Generator, space: Space) -> torch.Tensor:

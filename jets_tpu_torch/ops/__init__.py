@@ -35,18 +35,24 @@ from .transforms import (circshift_operator, dct_operator, flip_operator, identi
                          imag_operator, pad_operator, permutation_operator,
                          projection_operator, real_operator, reshape_operator,
                          restriction_operator, transpose_operator)
-from .wave import (cpml_wave_propagator, offgrid_wave_propagator, q_wave_propagator,
-                   vd_wave_propagator, vdq_wave_propagator)
+from .wave import (born_operator, cpml_wave_propagator, multishot_tti_wave_operator,
+                   multishot_vti_wave_operator, multishot_wave_operator,
+                   offgrid_wave_propagator, q_wave_propagator, tti_wave_propagator,
+                   vd_wave_propagator, vdq_wave_propagator, vti_wave_propagator,
+                   wave_propagator)
 from .wavelet import WAVELETS, wavelet_operator
 
 __all__ = ["WAVELETS", "atan_operator", "bandpass_operator", "blend_operator",
-           "blur2d_operator", "circshift_operator", "conv1d_operator", "convnd_operator",
+           "blur2d_operator", "born_operator", "circshift_operator", "conv1d_operator",
+           "convnd_operator",
            "cos_operator", "cpml_wave_propagator", "dct_operator", "derivative_operator",
            "diagonal_operator", "difference_operator", "envelope_operator", "exp_operator",
            "fft_operator", "flip_operator", "gradient_operator", "identity_operator",
            "imag_operator", "integration_operator", "interp_operator", "kaiser_sinc_matrix",
            "laplacian_nd", "laplacian_operator", "lmo_operator", "log_operator",
-           "matrix_operator", "mix_operator", "mute_operator", "nim_operator",
+           "matrix_operator", "mix_operator", "multishot_tti_wave_operator",
+           "multishot_vti_wave_operator", "multishot_wave_operator", "mute_operator",
+           "nim_operator",
            "nonlinear_elementwise", "offgrid_wave_propagator", "pad_operator",
            "permutation_operator", "power_operator", "projection_operator",
            "q_wave_propagator", "radon_operator", "real_operator", "reghost_operator",
@@ -55,4 +61,5 @@ __all__ = ["WAVELETS", "atan_operator", "bandpass_operator", "blend_operator",
            "sin_operator", "sinc_point_sampling_operator", "sinc_sampling_operator",
            "sqrt_operator", "square_operator", "stencil_operator", "tanh_operator",
            "taper_operator", "translation_operator", "transpose_operator",
-           "vd_wave_propagator", "vdq_wave_propagator", "wavelet_operator"]
+           "tti_wave_propagator", "vd_wave_propagator", "vdq_wave_propagator",
+           "vti_wave_propagator", "wave_propagator", "wavelet_operator"]

@@ -65,19 +65,21 @@ iteration on the TPU to avoid carry copies; a Python loop rotates
 writes ``u_next`` into ``u_prev``'s buffer on sweeps that no autodiff
 transform watches.
 
-``remat_blocks > 1`` groups the time loop into that many segments, each
-under :func:`torch.utils.checkpoint.checkpoint` (non-reentrant) while an
-autograd tape records the model: the backward keeps the carries at the
+``remat_blocks > 1`` groups the time loop into that many segments while
+an autograd tape records the model: the backward keeps the carries at the
 segment boundaries and recomputes each segment's steps, through the same
-kernels, instead of keeping every step's saved tensors. The traces are the
-same bits. Every derived adjoint runs by :func:`torch.autograd.grad`
+kernels, instead of keeping every step's saved tensors. Each segment runs
+under :func:`torch.utils.checkpoint.checkpoint` (non-reentrant), or, under
+the ``"vmap"`` multishot stacks' ``torch.func.vmap``, where the checkpoint
+does not run, as a :class:`_Segment` autograd Function that recomputes
+under ``torch.func.vjp``. The traces are the same bits, and so are the
+gradients. Every derived adjoint runs by :func:`torch.autograd.grad`
 (:func:`_vjp_by_autograd`), since ``torch.func.vjp`` refuses checkpointed
-segments; the ``"vmap"`` multishot stacks refuse ``remat_blocks > 1``,
-since the checkpoint does not run under ``torch.func.vmap``.
+segments: per shot in ``"map"`` mode, over the whole vmapped stack in
+``"vmap"`` mode.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``wavefield_sharding`` and ``mesh=`` (item 18), and
-``remat_blocks > 1`` with ``shot_map="vmap"`` (item 20).
+item): ``wavefield_sharding`` and ``mesh=`` (item 18).
 """
 from __future__ import annotations
 
@@ -146,34 +148,105 @@ def _remat_segments(nt: int, remat_blocks: int) -> int:
     return max(int(remat_blocks), 1)
 
 
-def _time_loop(step, carry, wavelet, remat_blocks: int, tape: bool):
-    """Receiver traces ``(nt, nrcv)`` of ``step(carry, s_t) -> (carry,
-    rec)`` run over the wavelet. With more than one segment
+class _Segment(torch.autograd.Function):
+    """One segment of a time loop under ``torch.func.vmap`` (the shot
+    stacks' remat route, where :func:`torch.utils.checkpoint.checkpoint`
+    does not run): ``run(carry, xs, params, consts) -> (traces, carry)``
+    over the flat carry leaves, the model's coefficient tensors ``params``
+    and every other tensor the steps read, ``consts`` (the sponge, the
+    shot's source mask, scalars made in the propagation: a tensor that
+    ``vmap`` batches or ``torch.func.vjp`` tracks must come in as an input,
+    not by closure). The forward runs the segment's steps without a tape
+    and saves only its inputs; the backward recomputes the segment under
+    :func:`torch.func.vjp` and pulls the cotangents of the traces and of the
+    output carry back to the input carry and ``params``. The outputs also
+    pass ``params`` through (as views), so the next segment's cotangent of
+    them reaches this backward first and each coefficient's gradient sums
+    its steps in the order autograd sums them through the straight loop:
+    the same bits."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(run, n, k, xs, *tensors):
+        carry, params, consts = tensors[:n], tensors[n:n + k], tensors[n + k:]
+        recs, carry = run(carry, xs, params, consts)
+        return (recs, *carry, *(p.view_as(p) for p in params))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        run, n, k, xs, *tensors = inputs
+        ctx.save_for_backward(xs, *tensors)
+        ctx.run, ctx.n, ctx.k = run, n, k
+
+    @staticmethod
+    def backward(ctx, d_recs, *d_out):
+        xs, *tensors = ctx.saved_tensors
+        n, k = ctx.n, ctx.k
+        consts = tuple(tensors[n + k:])
+
+        def seg(carry, params):
+            recs, out = ctx.run(carry, xs, params, consts)
+            return recs, out, params
+
+        _, pull = torch.func.vjp(seg, tuple(tensors[:n]), tuple(tensors[n:n + k]))
+        d_carry, d_params = pull((d_recs, tuple(d_out[:n]), tuple(d_out[n:])))
+        return (None, None, None, None, *d_carry, *d_params, *(None,) * len(consts))
+
+
+def _friction(og, ig):
+    """The static-Q factors as step arguments: none without friction."""
+    return () if og is None else (og, ig)
+
+
+def _time_loop(step, carry, wavelet, remat_blocks: int, tape: bool, params=(),
+               consts=(), vmapped: bool = False):
+    """Receiver traces ``(nt, nrcv)`` of ``step(carry, s_t, params, consts)
+    -> (carry, rec)`` run over the wavelet, ``params`` being the model's
+    coefficient tensors the step reads and ``consts`` the shot's other
+    tensors (see :class:`_Segment`). With more than one segment
     (:func:`_remat_segments`) and ``tape`` (an autograd tape records the
     model), each segment runs under non-reentrant
     :func:`torch.utils.checkpoint.checkpoint`, the carry crossing its
     boundary and its traces coming out: the backward keeps the boundary
-    carries and recomputes a segment's steps when it reaches them. The
-    traces are the same bits either way. Without a tape (and under
-    ``torch.func.jvp``, whose forward mode stores nothing) the loop runs
-    straight."""
+    carries and recomputes a segment's steps when it reaches them. Under
+    the shot stacks' ``torch.func.vmap`` (``vmapped``), where the checkpoint
+    does not run, each segment is a :class:`_Segment` instead, with the same
+    memory and the same bits. The traces are the same bits either way.
+    Without a tape (and under ``torch.func.jvp``, whose forward mode stores
+    nothing) the loop runs straight."""
     nt = int(wavelet.shape[0])
     blocks = _remat_segments(nt, remat_blocks)
 
-    def segment(carry, xs):
+    def segment(carry, xs, params, consts):
         recs = []
         for s_t in xs:
-            carry, rec = step(carry, s_t)
+            carry, rec = step(carry, s_t, params, consts)
             recs.append(rec)
         return carry, torch.stack(recs)
 
     if blocks == 1 or not tape:
-        return segment(carry, wavelet)[1]
+        return segment(carry, wavelet, params, consts)[1]
     blk = nt // blocks
     parts = []
+    if vmapped:
+        leaves, spec = pytree.tree_flatten(carry)
+        n, k = len(leaves), len(params)
+
+        def run(leaves, xs, params, consts):
+            carry, recs = segment(pytree.tree_unflatten(list(leaves), spec), xs, params,
+                                  consts)
+            return recs, tuple(pytree.tree_leaves(carry))
+
+        for b in range(blocks):
+            recs, *rest = _Segment.apply(run, n, k, wavelet[b * blk:(b + 1) * blk],
+                                         *leaves, *params, *consts)
+            leaves, params = rest[:n], tuple(rest[n:])
+            parts.append(recs)
+        return torch.cat(parts)
     for b in range(blocks):
-        carry, recs = checkpoint(segment, carry, wavelet[b * blk:(b + 1) * blk],
-                                 use_reentrant=False)
+        carry, recs = checkpoint(segment, carry, wavelet[b * blk:(b + 1) * blk], params,
+                                 consts, use_reentrant=False)
         parts.append(recs)
     return torch.cat(parts)
 
@@ -394,14 +467,24 @@ class _LeapfrogStep(torch.autograd.Function):
         return d_up, d_u, d_c2, d_st, None, None, None, None, None, None
 
 
+def _gather(u, idx, vmapped: bool):
+    """The flat entries ``idx`` of ``u``: ``index_select``, or under
+    ``torch.func.vmap`` indexing, since ``index_select`` batches as a
+    ``gather``, which saves the whole field for its backward (one more grid
+    per shot and step on the tape) where indexing saves the index only."""
+    return u.reshape(-1)[idx] if vmapped else u.reshape(-1).index_select(0, idx)
+
+
 def _field_loop(step, nfields: int, shape, dtype, dev, src_wavelet, rcv_idx,
-                inplace: bool, remat_blocks: int, tape: bool, extract=None):
+                inplace: bool, remat_blocks: int, tape: bool, extract=None, params=(),
+                consts=(), vmapped: bool = False):
     """The traces of the first field of ``step(prev_0, cur_0, prev_1, cur_1,
-    ..., s_t) -> next_0`` (or a tuple ``(next_0, next_1, ...)`` of
-    ``nfields`` fields) run from zero fields, each field's pair rotating
-    ``(prev, cur) -> (cur, next)``: in place when ``inplace`` (``step`` then
-    may write each ``next`` into its ``prev``'s buffer), else through
-    :func:`_time_loop`. Each step's trace is the field gathered at the flat
+    ..., s_t, *params, *consts) -> next_0`` (or a tuple ``(next_0, next_1,
+    ...)`` of ``nfields`` fields) run from zero fields, each field's pair
+    rotating ``(prev, cur) -> (cur, next)``: in place when ``inplace``
+    (``step`` then may write each ``next`` into its ``prev``'s buffer), else
+    through :func:`_time_loop` (``params``, ``consts`` and ``vmapped`` as it
+    takes them). Each step's trace is the field gathered at the flat
     indices ``rcv_idx`` (in place: into a preallocated trace tensor) or, with
     ``extract``, ``extract(field)`` of any shape."""
     def advance(carry, nxt):
@@ -409,22 +492,23 @@ def _field_loop(step, nfields: int, shape, dtype, dev, src_wavelet, rcv_idx,
         return tuple(x for i, n in enumerate(nxt) for x in (carry[2 * i + 1], n)), nxt[0]
 
     def record(u):
-        return u.reshape(-1).index_select(0, rcv_idx) if extract is None else extract(u)
+        return _gather(u, rcv_idx, vmapped) if extract is None else extract(u)
 
     carry = tuple(torch.zeros(shape, dtype=dtype, device=dev) for _ in range(2 * nfields))
     if not inplace:
-        def body(carry, s_t):
-            carry, first = advance(carry, step(*carry, s_t))
+        def body(carry, s_t, params, consts):
+            carry, first = advance(carry, step(*carry, s_t, *params, *consts))
             return carry, record(first)
 
-        return _time_loop(body, carry, src_wavelet, remat_blocks, tape)
+        return _time_loop(body, carry, src_wavelet, remat_blocks, tape, params, consts,
+                          vmapped)
     nt = int(src_wavelet.shape[0])
     _remat_segments(nt, remat_blocks)  # the same warning on every path
     traces = (None if extract is not None
               else torch.empty((nt, int(rcv_idx.shape[0])), dtype=dtype, device=dev))
     recs = []
     for k in range(nt):
-        carry, first = advance(carry, step(*carry, src_wavelet[k]))
+        carry, first = advance(carry, step(*carry, src_wavelet[k], *params, *consts))
         if traces is None:  # custom extractors run on the plain steps' fresh fields
             recs.append(extract(first))
         else:
@@ -434,7 +518,8 @@ def _field_loop(step, nfields: int, shape, dtype, dev, src_wavelet, rcv_idx,
 
 def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
                remat_blocks: int = 1, order: int = 2, src_mask=None, extract=None,
-               fused=None, wavefield_sharding=None, inplace: bool = False):
+               fused=None, wavefield_sharding=None, inplace: bool = False,
+               vmap_tape: Optional[bool] = None):
     """Leapfrog time stepping; returns receiver traces ``(nt, nrcv)``.
 
     ``fused`` selects the kernel route (see :func:`_kernel_route`).
@@ -447,7 +532,10 @@ def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
     included) and ``extract`` (``u -> trace``) replace the on-grid point
     source and the receiver gather (the off-grid geometry of
     :func:`offgrid_wave_propagator`); either one takes the plain step, as no
-    kernel takes them.
+    kernel takes them. ``vmap_tape`` is set by the ``"vmap"`` shot stacks
+    (:func:`_multishot_operator`): whether a tape records the stacked model,
+    which a batched tensor inside ``torch.func.vmap`` does not show; the
+    loop's segments then run as :class:`_Segment`.
     """
     if wavefield_sharding is not None:
         raise _not_ported("wavefield_sharding", "18")
@@ -456,8 +544,9 @@ def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
     amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
     custom = src_mask is not None or extract is not None
     kernel = _kernel_route(fused, c, sponge, order, _ON_GRID_ONLY if custom else None)
-    tape = _records(c)
+    tape = _records(c) if vmap_tape is None else vmap_tape
     inplace = inplace and not tape
+    params = consts = ()
 
     if kernel:
         spz, sy, sx = _factors_1d(sponge)
@@ -474,11 +563,12 @@ def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
         S = _sponge_full(sponge)
         mask = cuda_wave.source_mask(shape, src_idx, amp) if src_mask is None else src_mask
 
-        def step(up, uu, s_t):
-            return cuda_wave.leapfrog_plain(up, uu, c2dt2, S, s_t, mask, order)
+        def step(up, uu, s_t, c2, S, mask):
+            return cuda_wave.leapfrog_plain(up, uu, c2, S, s_t, mask, order)
 
+        params, consts = (c2dt2,), (S, mask)
     return _field_loop(step, 1, shape, dtype, dev, src_wavelet, rcv_idx, inplace,
-                       remat_blocks, tape, extract)
+                       remat_blocks, tape, extract, params, consts, vmap_tape is not None)
 
 
 def _adjoint_stored(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
@@ -738,9 +828,15 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
     on): the shots' source indices (and window corners) are the stacked
     block state, everything else is shared. ``shot_map="map"`` runs the
     shots one after another with ``fused=None`` (the kernels where they
-    apply), ``"vmap"`` as one ``torch.func.vmap`` of the plain step, which
-    refuses ``remat_blocks > 1`` (PyTorch's checkpoint does not run under
-    ``vmap``).
+    apply), each shot's derived adjoint by :func:`_vjp_by_autograd`;
+    ``"vmap"`` runs them as one ``torch.func.vmap`` of the plain step, its
+    derived adjoint :func:`_vjp_by_autograd` of the whole vmapped forward.
+    While a tape records the model (which a batched tensor does not show, so
+    the stack tells each shot's loop through ``vmap_tape``), the vmap stack
+    hands every shot its own expanded copy of the model: a coefficient's
+    gradient then sums each shot's steps, then the shots, both in the
+    straight loop and in the :class:`_Segment` segments of
+    ``remat_blocks > 1``, which therefore give the same bits.
     ``windows=(window_shape, corners)`` runs each shot in its window of the
     model (:func:`_windowing`)."""
     dtype = gsp.dtype
@@ -752,10 +848,6 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
     rt = (_resample_transpose(resample, (nt, nrcv), dtype)
           if resample is not None else None)
     is_map = shot_map == "map"
-    if shot_map == "vmap" and remat_blocks > 1:
-        raise _not_ported("remat_blocks > 1 with shot_map='vmap' (PyTorch's checkpoint "
-                          "does not run under torch.func.vmap; shot_map='map' takes it)",
-                          "20")
     cfg = dict(dt=dt, dx=dx, order=order, fused=None if is_map else False)
     bstate = {"src": src}
     take = place = None
@@ -767,10 +859,10 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
     def local(m, corner):
         return m if take is None else take(m, corner)
 
-    def shot_f(m, s, corner, st, inplace):
+    def shot_f(m, s, corner, st, inplace, **vmap_tape):
         traces = propagate(local(m, corner), st["wavelet"], s, st["rcv"], inplace=inplace,
                            remat_blocks=remat_blocks, **{k: st[k] for k in boundary},
-                           **cfg)
+                           **cfg, **vmap_tape)
         return resample(traces) if resample is not None else traces
 
     def per_shot(fn, bs, *stacked):
@@ -780,13 +872,28 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
         if is_map:
             return fn(bs["src"][0], None if corners is None else corners[0],
                       *(t[0] for t in stacked))
+        src_b = bs["src"].to(gsp.device)  # the batched source index meets the grid
         if corners is None:
-            return torch.func.vmap(lambda s, *r: fn(s, None, *r))(bs["src"], *stacked)
-        return torch.func.vmap(fn)(bs["src"], corners, *stacked)
+            return torch.func.vmap(lambda s, *r: fn(s, None, *r))(src_b, *stacked)
+        return torch.func.vmap(fn)(src_b, corners, *stacked)
 
     def child(m, bs, inplace):
-        out = per_shot(lambda s, cr: shot_f(m, s, cr, bs, inplace and is_map), bs)
-        return out[None] if is_map else out
+        if is_map:
+            return per_shot(lambda s, cr: shot_f(m, s, cr, bs, inplace), bs)[None]
+        leaves, spec = pytree.tree_flatten(m)
+        tape = _records(*leaves)
+        if tape:  # each shot its own copy of the model (see the docstring)
+            n = int(bs["src"].shape[0])
+            leaves = [t.expand(n, *t.shape) for t in leaves]
+
+        def fn(s, cr, *ls):
+            return shot_f(pytree.tree_unflatten(list(ls), spec), s, cr, bs, False,
+                          vmap_tape=tape)
+
+        corners = bs.get("corner")
+        return torch.func.vmap(fn, in_dims=(0, None if corners is None else 0)
+                               + (0 if tape else None,) * len(leaves))(
+            bs["src"].to(gsp.device), corners, *leaves)
 
     def f(m, bs):
         return child(m, bs, True)
@@ -795,7 +902,7 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
         _, tangent = torch.func.jvp(lambda m: child(m, bs, False), (m0,), (dm,))
         return tangent
 
-    dft = None
+    dft = stack_dft = None
     if store_adjoint is not None:
         def shot_dft(s, corner, d, m0, st):
             if rt is not None:
@@ -814,6 +921,9 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
             out = per_shot(lambda s, cr, d: _vjp_by_autograd(
                 lambda m: shot_f(m, s, cr, bs, False), m0, d), bs, d_b)
             return tmap(lambda t: t[None], out)
+    else:
+        def stack_dft(dd, m0, bs):
+            return _vjp_by_autograd(lambda m: child(m, bs, False), m0, dd)
 
     return stacked_block_operator(
         nblocks=int(src.shape[0]),
@@ -826,6 +936,7 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
         f=f,
         df=df,
         dft=dft,
+        stack_dft=stack_dft,
         shot_map=shot_map,
     )
 
@@ -871,7 +982,8 @@ def multishot_wave_operator(
     ``store_adjoint`` switches the per-shot adjoint to the stored-history
     sweep, summed over shots; without it the adjoint is derived: per shot
     (:func:`_vjp_by_autograd` of the shot) in ``map`` mode, over the whole
-    stack in ``vmap`` mode. ``remat_blocks > 1`` needs ``map`` mode.
+    vmapped stack in ``vmap`` mode. ``remat_blocks`` segments the time loop
+    in both modes (see the module docstring).
 
     **Ginsu windows** (per-shot model subsetting): ``window_shape`` (one
     shape for every shot) and ``window_corners`` ``(nshots, ndim)``; each
@@ -981,12 +1093,12 @@ def _cpml_profiles(shape, width, dt, dx, cmax, f0, R=1e-3, dtype=torch.float32,
 
 def _propagate_cpml(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, a_prof, b_prof,
                     order: int = 2, remat_blocks: int = 1, fused=None,
-                    inplace: bool = False):
+                    inplace: bool = False, vmap_tape: Optional[bool] = None):
     """Leapfrog stepping with CPML memory-field boundaries; returns the
     receiver traces ``(nt, nrcv)``. The carry is ``(u_prev, u, psi_0..,
     zeta_0..)``; each step is the JAX package's XLA step, tree for tree.
     Plain only (``fused`` and ``inplace`` are accepted and ignored);
-    ``remat_blocks`` as for :func:`_propagate`."""
+    ``remat_blocks`` and ``vmap_tape`` as for :func:`_propagate`."""
     shape, dtype, dev, nd = c.shape, c.dtype, c.device, c.ndim
     c2dt2 = (c * c) * (dt * dt)
     inv_dx2 = torch.tensor(1.0 / (dx * dx), dtype=dtype, device=dev)
@@ -994,7 +1106,9 @@ def _propagate_cpml(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, a_prof, b_prof,
     mask = cuda_wave.source_mask(shape, src_idx, torch.tensor(dt * dt, dtype=dtype,
                                                               device=dev))
 
-    def body(carry, s_t):
+    def body(carry, s_t, params, consts):
+        (c2,), (inv_dx, inv_dx2, mask) = params, consts[:3]
+        a_prof, b_prof = consts[3:3 + nd], consts[3 + nd:]
         u_prev, u, psis, zetas = carry
         new_psis, new_zetas, lap = [], [], None
         for ax in range(nd):
@@ -1007,16 +1121,18 @@ def _propagate_cpml(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, a_prof, b_prof,
             new_zetas.append(zeta)
             term = d2 + dpsi + zeta
             lap = term if lap is None else lap + term
-        u_next = 2.0 * u - u_prev + c2dt2 * lap + s_t * mask
+        u_next = 2.0 * u - u_prev + c2 * lap + s_t * mask
         return ((u, u_next, tuple(new_psis), tuple(new_zetas)),
-                u_next.reshape(-1).index_select(0, rcv_idx))
+                _gather(u_next, rcv_idx, vmap_tape is not None))
 
     def zero():
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     carry = (zero(), zero(), tuple(zero() for _ in range(nd)),
              tuple(zero() for _ in range(nd)))
-    return _time_loop(body, carry, src_wavelet, remat_blocks, _records(c))
+    return _time_loop(body, carry, src_wavelet, remat_blocks,
+                      _records(c) if vmap_tape is None else vmap_tape, (c2dt2,),
+                      (inv_dx, inv_dx2, mask, *a_prof, *b_prof), vmap_tape is not None)
 
 
 def cpml_wave_propagator(
@@ -1549,9 +1665,10 @@ def _static_q(q, dt: float, f0: float, grid_shape, dtype):
 
 def _propagate_vti(c, eps, delta, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
                    order: int = 2, fused=None, inplace: bool = False,
-                   remat_blocks: int = 1, og=None, ig=None):
+                   remat_blocks: int = 1, og=None, ig=None,
+                   vmap_tape: Optional[bool] = None):
     """Coupled VTI leapfrog; returns the p-field receiver traces
-    ``(nt, nrcv)``. ``fused``, ``inplace`` and ``remat_blocks`` as for
+    ``(nt, nrcv)``. ``fused``, ``inplace``, ``remat_blocks`` and ``vmap_tape`` as for
     :func:`_propagate`: on the kernel route the step is K8, in place on
     sweeps no transform watches and inside :class:`_VtiStep` otherwise.
     The static-Q friction factors ``og``, ``ig`` (:func:`_static_q`) take
@@ -1561,8 +1678,9 @@ def _propagate_vti(c, eps, delta, src_wavelet, src_idx, rcv_idx, *, dt, dx, spon
     amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
     kernel = _kernel_route(fused, c, sponge, order,
                            None if og is None else _NO_STATIC_Q["VTI"])
-    tape = _records(c, eps, delta)
+    tape = _records(c, eps, delta) if vmap_tape is None else vmap_tape
     inplace = inplace and not tape
+    params = consts = ()
 
     if kernel:
         spz, sy, sx = _factors_1d(sponge)
@@ -1580,12 +1698,13 @@ def _propagate_vti(c, eps, delta, src_wavelet, src_idx, rcv_idx, *, dt, dx, spon
         S = _sponge_full(sponge)
         mask = cuda_wave.source_mask(shape, src_idx, amp)
 
-        def step(pp, p, qp, q, s_t):
+        def step(pp, p, qp, q, s_t, C, ah, av, S, inv_dx2, mask, *ogig):
             return cuda_vti.vti_plain(pp, p, qp, q, C, ah, av, S, inv_dx2, s_t, mask,
-                                      order, og, ig)
+                                      order, *ogig)
 
+        params, consts = (C, ah, av), (S, inv_dx2, mask, *_friction(og, ig))
     return _field_loop(step, 2, shape, dtype, dev, src_wavelet, rcv_idx, inplace,
-                       remat_blocks, tape)
+                       remat_blocks, tape, None, params, consts, vmap_tape is not None)
 
 
 def _adjoint_stored_vti(c, eps, delta, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx,
@@ -1937,9 +2056,10 @@ class _TtiStep(_PlainRuleStep):
 
 def _propagate_tti3d(c, eps, delta, theta, phi, src_wavelet, src_idx, rcv_idx, *, dt,
                      dx, sponge, order: int = 2, fused=None, inplace: bool = False,
-                     coeff16: bool = False, remat_blocks: int = 1, og=None, ig=None):
+                     coeff16: bool = False, remat_blocks: int = 1, og=None, ig=None,
+                     vmap_tape: Optional[bool] = None):
     """Coupled 3-D TTI leapfrog; returns the p-field receiver traces
-    ``(nt, nrcv)``. ``fused``, ``inplace``, ``remat_blocks`` and the
+    ``(nt, nrcv)``. ``fused``, ``inplace``, ``remat_blocks``, ``vmap_tape`` and the
     static-Q factors ``og``, ``ig`` as for :func:`_propagate_vti`:
     on the kernel route the step is K11 on the streamed fields ``kc``, in
     place on sweeps no transform watches and inside :class:`_TtiStep`
@@ -1950,8 +2070,9 @@ def _propagate_tti3d(c, eps, delta, theta, phi, src_wavelet, src_idx, rcv_idx, *
     amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
     kernel = _kernel_route(fused, c, sponge, order,
                            None if og is None else _NO_STATIC_Q["TTI"])
-    tape = _records(c, eps, delta, theta, phi)
+    tape = _records(c, eps, delta, theta, phi) if vmap_tape is None else vmap_tape
     inplace = inplace and not tape
+    params = consts = ()
 
     if kernel:
         spz, sy, sx = _factors_1d(sponge)
@@ -1969,17 +2090,21 @@ def _propagate_tti3d(c, eps, delta, theta, phi, src_wavelet, src_idx, rcv_idx, *
         S = _sponge_full(sponge)
         mask = cuda_wave.source_mask(shape, src_idx, amp)
 
-        def step(pp, p, qp, q, s_t):
+        def step(pp, p, qp, q, s_t, C, ah, av, nz, ny, nx, S, inv_dx2, inv_dx, mask,
+                 *ogig):
             return cuda_tti.tti_plain(pp, p, qp, q, C, ah, av, nz, ny, nx, S, inv_dx2,
-                                      inv_dx, s_t, mask, order, og, ig)
+                                      inv_dx, s_t, mask, order, *ogig)
 
+        params = (C, ah, av, nz, ny, nx)
+        consts = (S, inv_dx2, inv_dx, mask, *_friction(og, ig))
     return _field_loop(step, 2, shape, dtype, dev, src_wavelet, rcv_idx, inplace,
-                       remat_blocks, tape)
+                       remat_blocks, tape, None, params, consts, vmap_tape is not None)
 
 
 def _propagate_tti(c, eps, delta, theta, src_wavelet, src_idx, rcv_idx, *, dt, dx,
                    sponge, order: int = 2, fused=None, inplace: bool = False,
-                   remat_blocks: int = 1, og=None, ig=None):
+                   remat_blocks: int = 1, og=None, ig=None,
+                   vmap_tape: Optional[bool] = None):
     """The 2-D tilt (θ in the x-z plane): ``H = cos²θ·∂xx + sin²θ·∂zz −
     sin2θ·∂xz``, ``V = sin²θ·∂xx + cos²θ·∂zz + sin2θ·∂xz`` with ``∂xz =
     d1_x(d1_z(u))``, with the static-Q factors ``og``, ``ig`` as
@@ -1994,25 +2119,30 @@ def _propagate_tti(c, eps, delta, theta, src_wavelet, src_idx, rcv_idx, *, dt, d
     amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
     mask = cuda_wave.source_mask(shape, src_idx, amp)
 
-    def dxz(u):
-        return d1_axis(d1_axis(u, 0, inv_dx, order), 1, inv_dx, order)
+    def step(pp, p, qp, q, s_t, C, ah, av, ct2, st2, s2t, sponge, inv_dx2, inv_dx, mask,
+             *ogig):
+        def dxz(u):
+            return d1_axis(d1_axis(u, 0, inv_dx, order), 1, inv_dx, order)
 
-    def step(pp, p, qp, q, s_t):
         pxx, pzz = d2_axis(p, 1, inv_dx2, order), d2_axis(p, 0, inv_dx2, order)
         qxx, qzz = d2_axis(q, 1, inv_dx2, order), d2_axis(q, 0, inv_dx2, order)
         Hp = ct2 * pxx + st2 * pzz - s2t * dxz(p)
         Vq = st2 * qxx + ct2 * qzz + s2t * dxz(q)
-        if og is None:
+        if not ogig:
             e_p = (2.0 * p - pp) + C * (ah * Hp + av * Vq)
             e_q = (2.0 * q - qp) + C * (av * Hp + Vq)
         else:
+            og, ig = ogig
             e_p = ((2.0 * p - og * pp) + C * (ah * Hp + av * Vq)) * ig
             e_q = ((2.0 * q - og * qp) + C * (av * Hp + Vq)) * ig
         s = s_t * mask
         return e_p * sponge + s, e_q * sponge + s
 
+    tape = _records(c, eps, delta, theta) if vmap_tape is None else vmap_tape
     return _field_loop(step, 2, shape, dtype, dev, src_wavelet, rcv_idx, False,
-                       remat_blocks, _records(c, eps, delta, theta))
+                       remat_blocks, tape, None, (C, ah, av, ct2, st2, s2t),
+                       (sponge, inv_dx2, inv_dx, mask, *_friction(og, ig)),
+                       vmap_tape is not None)
 
 
 def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet, src_idx, rcv_idx,

@@ -99,8 +99,11 @@ def stacked_block_operator(
     ``sstate``: shared tensors, merged into every kernel's state; keys must
     not collide with ``bstate``. ``df``/``f``/``dft`` are batched child
     kernels (see the module docstring); ``dft=None`` and ``stack_dft=None``
-    derive the adjoint with ``torch.func.vjp``: of the whole stacked
-    forward (``vmap``), or of each block's tangent in turn (``map``). The range is ``(nblocks,) + rng_block.shape``.
+    derive the adjoint with ``torch.func.vjp`` of the tangent: of the whole
+    stack (``vmap``), or of each block's in turn (``map``). The wave stacks
+    give their own (``ops/wave._multishot_operator``: autograd of the
+    forward, which their remat segments need). The range is
+    ``(nblocks,) + rng_block.shape``.
     ``mesh`` must be None: sharding over devices is not ported yet.
     """
     if mesh is not None:

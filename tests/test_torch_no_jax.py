@@ -3,7 +3,9 @@ solving with LSQR, CG or LSMR, taking a stored-adjoint isotropic, VTI, TTI,
 constant-Q or IsoDenQ wave gradient, modelling with off-grid acquisition,
 solving BASELINE config 3 with CGLS and config 1's operator with GMRES,
 importing every module of the symmetric spaces and the operator packs, and
-inverting the DSP chain and the blending model with LSQR, on the CPU, with
+inverting the DSP chain and the blending model with LSQR, hashing,
+checkpointing, compressing and streaming through ``jets_tpu_torch.utils``
+(whose native libraries build with g++), on the CPU, with
 ``jax``, ``jaxlib`` and ``jets_tpu`` blocked from import) needs neither
 nvcc nor triton nor a built kernel library."""
 import os
@@ -125,6 +127,23 @@ assert isinstance(R.rng, tt.SymmetricSpace) and R.H(R(sp.ones())).shape == (4, 6
 Bl = blend_operator(4, 16, [0, 5, 20, 30], 46, device="cpu") @ integration_operator(
     tt.Space((4, 16), device="cpu"))
 assert lsqr(Bl, Bl(torch.ones(4, 16)), maxiter=3, tol=0.0).iterations == 3
+import tempfile
+from jets_tpu_torch import utils
+tmp = tempfile.mkdtemp()
+st = lsqr(A, d, maxiter=3, tol=0.0).state
+h = utils.save_checkpoint(tmp + "/st.npz", st)
+st2, meta = utils.load_checkpoint(tmp + "/st.npz", like=st)
+assert h == meta["crc32c"] == utils.tree_hash(st2) and utils.crc32c(b"123456789") == 0xE3069283
+store = utils.SnapshotStore((6, 8, 16), bits=12, path=tmp + "/snaps.bin")
+store.append(c)
+store.close()
+assert float(abs(utils.SnapshotStore.open(tmp + "/snaps.bin").read(0) - 1500.0).max()) < 1.0
+sg = utils.ShotGatherStore.create(tmp + "/shots.bin", torch.arange(32.0).reshape(4, 8))
+blocks = [b for _, b in utils.ShotGatherLoader(sg, batch_shots=2, device_put=True,
+                                                device="cpu")]
+assert torch.equal(torch.cat(blocks), torch.arange(32.0).reshape(4, 8))
+ma = A.dom.ones()
+assert torch.equal(utils.checked(A, "A")(ma), A(ma))
 assert kernels._libs == {}, "the CPU path loaded a kernel library"
 bad = sorted(m for m, v in sys.modules.items()
              if v is not None and m.split(".")[0] in ("jax", "jaxlib", "triton"))

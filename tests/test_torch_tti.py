@@ -480,8 +480,12 @@ def test_what_is_not_ported_names_its_roadmap_item():
     assert torch.equal(F4(m), tw.tti_wave_propagator((12, 12), nt=6, device=CPU)(m))
     with pytest.raises(NotImplementedError, match="queue 1 item 18"):
         tw.multishot_tti_wave_operator((20, 20), [5, 9], mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 item 20"):
-        tw.multishot_tti_wave_operator((20, 20), [5, 9], nt=4, remat_blocks=2, device=CPU)
+    Fv = tw.multishot_tti_wave_operator((20, 20), [5, 9], nt=4, remat_blocks=2,
+                                        device=CPU)  # vmap takes remat segments
+    mv = tt.BlockVector((torch.full((20, 20), 1500.0), torch.full((20, 20), 0.1),
+                         torch.full((20, 20), 0.05), torch.full((20, 20), 0.3)), Fv.dom)
+    assert torch.equal(Fv(mv), tw.multishot_tti_wave_operator((20, 20), [5, 9], nt=4,
+                                                              device=CPU)(mv))
     Fm = tw.multishot_tti_wave_operator((20, 20), [5, 9], nt=4, remat_blocks=2,
                                         shot_map="map", device=CPU)
     assert Fm.rng.shape == (2, 4, 128)

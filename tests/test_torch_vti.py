@@ -349,8 +349,12 @@ def test_validation_and_what_is_not_ported():
         tw.vti_wave_propagator(SHAPE2, wavefield_sharding=object(), device=CPU)
     with pytest.raises(NotImplementedError, match="queue 1 item 18"):
         tw.multishot_vti_wave_operator((20, 20), [5, 9], mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 item 20"):
-        tw.multishot_vti_wave_operator((20, 20), [5, 9], nt=4, remat_blocks=2, device=CPU)
+    Fv = tw.multishot_vti_wave_operator((20, 20), [5, 9], nt=4, remat_blocks=2,
+                                        device=CPU)  # vmap takes remat segments
+    mv = tt.BlockVector((torch.full((20, 20), 1500.0), torch.full((20, 20), 0.1),
+                         torch.full((20, 20), 0.05)), Fv.dom)
+    assert torch.equal(Fv(mv), tw.multishot_vti_wave_operator((20, 20), [5, 9], nt=4,
+                                                              device=CPU)(mv))
     Fm = tw.multishot_vti_wave_operator((20, 20), [5, 9], nt=4, remat_blocks=2,
                                         shot_map="map", device=CPU)
     assert Fm.rng.shape == (2, 4, 128)

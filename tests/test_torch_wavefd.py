@@ -495,10 +495,10 @@ def test_remat_on_the_kernel_route(kind):
 
 
 def test_remat_multishot_derived_adjoint():
-    """Map-mode multishot with remat_blocks > 1 derives each shot's adjoint
-    through its segments: the same as without segments, as vmap mode's, and
-    as JAX's. vmap mode refuses segments (PyTorch's checkpoint does not run
-    under torch.func.vmap) and says so."""
+    """Multishot with remat_blocks > 1 derives the adjoint through its
+    segments, in map mode per shot and in vmap mode over the whole stack:
+    the same as without segments (vmap: the same bits), as the other mode's,
+    and as JAX's."""
     grid, srcs = (20, 20), [20 * 6 + 6, 20 * 13 + 12]
     kw = dict(nt=24, dt=0.0008, dx=10.0, freq=18.0, sponge_width=4)
     Mj = jw.multishot_wave_operator(grid, srcs, remat_blocks=4, dtype=jnp.float64, **kw)
@@ -506,16 +506,14 @@ def test_remat_multishot_derived_adjoint():
     dd = np.random.default_rng(9).standard_normal((2, 24, 128))
     gj = Mj.linearize(jnp.asarray(c)).H(jnp.asarray(dd))
     outs = []
-    with pytest.raises(NotImplementedError, match="queue 1 item 20"):
-        tw.multishot_wave_operator(grid, srcs, remat_blocks=4, shot_map="vmap", dtype=F64,
-                                   device=CPU, **kw)
-    for shot_map, remat in (("map", 4), ("map", 1), ("vmap", 1)):
+    for shot_map, remat in (("map", 4), ("map", 1), ("vmap", 4), ("vmap", 1)):
         Mt = _carried(tw.multishot_wave_operator(grid, srcs, remat_blocks=remat,
                                                  shot_map=shot_map, dtype=F64,
                                                  device=CPU, **kw), Mj)
         outs.append(Mt.linearize(_T(c)).H(_T(dd)).numpy())
         _close(outs[-1], gj)
     _close(outs[0], outs[1], rtol=1e-13)
+    np.testing.assert_array_equal(outs[2], outs[3])
 
 
 @pytest.mark.parametrize("kind", ["iso", "vti", "tti"])
