@@ -95,9 +95,17 @@ card, loaded back and resumed bitwise an uninterrupted run with its
 hooked iterations holding exactly 5 K1 kernel events, the native CRC32C,
 codec and loader libraries; snapshots of the 256³ K4 forward in a disk
 ``SnapshotStore`` at 12 bits (the native bytes equal the numpy codec's),
-and the flagship's data streamed to the card by ``ShotGatherLoader``. Each
-path runs with the kernels' launch counts set to 0 just before it and read
-just after. Every phase asserts; a failure
+and the flagship's data streamed to the card by ``ShotGatherLoader`` —
+and the thirteenth, distribution (``jets_tpu_torch.parallel``): at world
+size 1 on NCCL in this process, the 3-D flagship's LSQR, configs 4 and 5,
+the 16-shot isotropic int8 multishot gradient and the VTI and TTI
+multishots with ``mesh=``, and the z-slab propagator in one slab, each
+bitwise its ``mesh=None`` run; then 2 ranks on the one card over gloo
+(this script run as ``--rank r 2 dir`` in two subprocesses under a hard
+time limit): the flagship's LSQR with 8 shots a rank, the z-slab forward
+and int8 gradient in 2 slabs of 128 planes, bitwise the unsharded K4 run,
+and the 16-shot multishot gradient. Each path runs with the kernels'
+launch counts set to 0 just before it and read just after. Every phase asserts; a failure
 raises and exits non-zero. Every entry point runs on the card by default;
 the CPU runs ask for ``device="cpu"``.
 The last lines are a JSON object of the kernels (route, source, launches
@@ -315,10 +323,14 @@ SOLVER_SHAPES_TEXT = ("256^3, 2048^2, 128x128x64, 128^2, 1000 and 1000003 "
 # versions, one list per kernel family: the 256^3 flagship first, then every
 # other shape that the FWI phases give the kernels (phase 45's Ginsu windows
 # and those of its card-vs-CPU check, phase 46's windows, phase 49's remat
-# grid) and, for K11-K13, two ragged shapes. The FWI phases assert that the
-# shapes they run are listed here.
+# grid), the halo-extended z-slabs of phases 65-66 (the 256^3 grid in one
+# and in two slabs, an order-2 halo plane on each side; K4 there also with no
+# source, -1, as on the ranks that do not hold it) and, for K11-K13, two
+# ragged shapes. The FWI and distribution phases assert that the shapes they
+# run are listed here.
+SLAB_SHAPES = ((258, 256, 256), (130, 256, 256))
 ISO_SHAPES = ((256, 256, 256), (256, 128, 128), (32, 32, 32), (48, 32, 32),
-              (32, 64, 128))  # K4, K5
+              (32, 64, 128)) + SLAB_SHAPES  # K4, K5
 VTI_SHAPES = ((256, 256, 256), (32, 64, 128))  # K8, K9, K10
 TTI_SHAPES = ((256, 256, 256), (37, 45, 70), (5, 19, 33), (32, 64, 128))  # K11-K13
 Q_SHAPES = ((256, 256, 256), (32, 64, 128))  # K14
@@ -344,6 +356,13 @@ CONFIGS = (
     (43, "config5_seismic3d_pod", 30, 0.3, None, (10, 30),
      lambda it: {"xw_update": it, "laplacian3d": it + 1}),
 )
+
+
+# the configurations phase 65 runs with mesh=: phase, solver budget, threshold
+MESH_CONFIGS = {name: (phase, maxiter, threshold)
+                for phase, name, maxiter, threshold, *_ in CONFIGS
+                if name in ("config4_distributed_lsqr", "config5_seismic3d_pod")}
+BASELINE_X = {}  # the solutions of phases 42-43
 
 
 def baseline_configs(smi):
@@ -386,6 +405,8 @@ def baseline_configs(smi):
         gate = abs(float(lhs) - float(rhs)) / abs(float(rhs))
         gate_tol = 1e-4 if single else 1e-8
         assert gate <= gate_tol, f"{name}: dot-product gate rel {gate}"
+        if name in MESH_CONFIGS:
+            BASELINE_X[name] = res.x  # phase 65 holds the mesh runs to these bits
         del res, A
         Ac, solve, dc, _ = builder(device="cpu", **kw)
         Ag, _, dg, _ = builder(**kw)
@@ -1988,6 +2009,368 @@ def utils_path(smi, c_true, wkw, flagship=((256, 256, 256), 16, 4096)):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# The distribution phases: the 3-D flagship, the 16-shot isotropic
+# multishot of phase 12 (its sources along x at (128, 128, 16 + 14k)), the
+# ranks of phase 66 and their hard limit (seconds; every collective of their
+# group has half of it).
+FLAGSHIP = ((256, 256, 256), 16, 4096)
+MSRC = np.ravel_multi_index((np.full(16, 128), np.full(16, 128), 16 + 14 * np.arange(16)),
+                            (256, 256, 256))
+RANKS, RANK_TIMEOUT = 2, 480.0
+
+
+def _wall_ms(fn, mesh=None):
+    """Host milliseconds of ``fn`` from a synchronised start (every rank of
+    ``mesh`` at a barrier) to its synchronised end."""
+    import torch.distributed as dist
+
+    if mesh is not None:
+        dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def _add(into, counts):
+    for k, n in counts.items():
+        into[k] = into.get(k, 0) + n
+
+
+def distribution(smi, c_true, src0, wkw, flagship_ref):
+    """Phases 65-66: the distribution layer (``jets_tpu_torch.parallel``).
+
+    Phase 65, world size 1 on NCCL in this process (``make_block_mesh()``):
+    the 3-D flagship's LSQR (50 iterations) with ``mesh=``, x and history
+    bitwise phase 3's; configs 4 and 5 with ``mesh=`` through
+    ``run_config``, under their thresholds and bitwise phases 42-43; the
+    16-shot isotropic int8 multishot gradient at 256^3, nt 220, map mode
+    (K4, K5) with and without ``mesh=``, bitwise; VTI and TTI 2-shot map
+    multishots at (32, 64, 128), forward and int8 gradient, bitwise; the
+    z-slab propagator at 256^3 in one slab, traces bitwise the unsharded K4
+    route's, and its int8 gradient against the unsharded K4/K5 one.
+
+    Phase 66, 2 ranks on the one card over gloo (this script run as
+    ``--rank r 2 dir``, each a subprocess under a hard time limit): the
+    flagship LSQR (8 shots per rank), the replicas' ``tree_hash`` equal and
+    x against phase 65's; the z-slab forward in 2 slabs of 128 planes at nt
+    220 (host-staged halos), traces bitwise the unsharded K4 run's, and its
+    int8 gradient; the 16-shot multishot gradient against phase 65's; ms
+    per LSQR iteration, µs per slab step, the all_reduce and halo times,
+    and a profiler trace's all_reduce and halo spans. Counts from 0;
+    returns the launches, the ranks' included."""
+    import os
+    import shutil
+    import tempfile
+
+    from jets_tpu_torch import BlockVector
+    from jets_tpu_torch.models import configs
+    from jets_tpu_torch.models.seismic import make_seismic_problem
+    from jets_tpu_torch.ops.wave import (multishot_tti_wave_operator,
+                                         multishot_vti_wave_operator,
+                                         multishot_wave_operator, wave_propagator)
+    from jets_tpu_torch.parallel.sharded import block_sharding, make_block_mesh
+    from jets_tpu_torch.solvers import lsqr
+
+    dev = c_true.device
+    wshape = tuple(c_true.shape)
+    t_ph = time.perf_counter()
+    launched = {}
+
+    # ---- phase 65: world size 1 on NCCL ------------------------------------------
+    mesh = make_block_mesh()
+    assert mesh.backend == "nccl" and mesh.shape == {"block": 1}, mesh
+    assert mesh.device.type == "cuda", mesh
+    grid3, nshots3, nrecv = FLAGSHIP
+    _reset_all()
+    A, _, d = make_seismic_problem(grid3, nshots3, nrecv, seed=0, noise=0.05, mesh=mesh)
+    r = lsqr(A, d, maxiter=50, tol=0.0)
+    c = _counts_all()
+    assert c == {"xw_update": 50, "laplacian3d": 51}, c
+    _add(launched, c)
+    assert torch.equal(r.x, flagship_ref[0]), "mesh LSQR x differs from phase 3's"
+    assert torch.equal(r.history, flagship_ref[1]), "mesh LSQR history differs from phase 3's"
+    x1 = r.x
+    ms1 = ms_per_iter(lsqr, A, d, 10, 60)
+    msgs = [f"flagship LSQR {grid3} x {nshots3} shots x {nrecv} rcv with mesh {mesh.shape} "
+            f"on {mesh.backend} ({mesh.device}): x and history of 50 iterations bitwise "
+            f"phase 3's; launches {c}; {ms1:.4f} ms/iter (marginal 10->60, CUDA events)"]
+    del A, d, r
+    for name, (phase, maxiter, threshold) in MESH_CONFIGS.items():
+        _reset_all()
+        res, relres, A = configs.run_config(getattr(configs, name), maxiter=maxiter,
+                                            tol=1e-10, mesh=mesh)
+        it = res.iterations
+        c = _counts_all()
+        expect = {"xw_update": it, **({"laplacian3d": it + 1} if A.dom.ndim == 3 else {})}
+        assert c == expect, f"{name}: launches {c} after {it} iterations"
+        _add(launched, c)
+        assert relres < threshold, f"{name}: relative residual {relres} >= {threshold}"
+        assert torch.equal(res.x, BASELINE_X[name]), f"{name}: x differs from phase {phase}'s"
+        msgs.append(f"{name} with mesh: {it} iterations, relative residual {relres:.6e} "
+                    f"(< {threshold:g}), x bitwise phase {phase}'s, launches {c}")
+        del res, A
+
+    nsh = len(MSRC)
+    mkw = dict(nt=220, store_adjoint="int8", shot_map="map", **wkw)
+    c_bg = torch.full(wshape, 1500.0, device=dev)
+    F1 = multishot_wave_operator(wshape, MSRC, **mkw)
+    Fm = multishot_wave_operator(wshape, MSRC, mesh=mesh, **mkw)
+    _reset_all()
+    d1 = F1(c_true)
+    g1 = F1.linearize(c_bg).H(d1)
+    n1 = _counts_all()
+    _reset_all()
+    dm = Fm(c_true)
+    gm = Fm.linearize(c_bg).H(dm)
+    c = _counts_all()
+    assert c == n1 == {"fused_leapfrog_step": 2 * nsh * 220,
+                       "fused_adjoint_step": nsh * 220}, (c, n1)
+    _add(launched, c)
+    live(g1, "multishot gradient")
+    assert torch.equal(dm, d1) and torch.equal(gm, g1), "mesh multishot differs"
+    msgs.append(f"iso multishot {wshape}, {nsh} shots, nt 220, map, int8 gradient at 1500 "
+                f"m/s: traces and gradient bitwise with and without mesh; launches {c}")
+    del F1, Fm, dm, gm
+
+    sshape = (32, 64, 128)
+    assert sshape in VTI_SHAPES and sshape in TTI_SHAPES, "phase 1 did not check K8-K13 here"
+    ssrc = int(np.ravel_multi_index((16, 32, 64), sshape))
+    skw = dict(nt=24, dt=wkw["dt"], dx=wkw["dx"], freq=wkw["freq"], sponge_width=6,
+               rcv_idx=[int(np.ravel_multi_index((16, 32, x), sshape)) for x in range(128)],
+               store_adjoint="int8", shot_map="map")
+    cs_ = c_true[::8, ::4, ::2].contiguous()
+    for name, make, extra in (
+            ("VTI", multishot_vti_wave_operator, (0.1, 0.05)),
+            ("TTI", multishot_tti_wave_operator, (0.1, 0.05, 0.2, 0.7))):
+        runs = []
+        for kw in ({}, {"mesh": mesh}):
+            F = make(sshape, [ssrc, ssrc + 16], **skw, **kw)
+            m = BlockVector((cs_,) + tuple(torch.full(sshape, v, device=dev) for v in extra),
+                            F.dom)
+            _reset_all()
+            dv = F(m)
+            gv = F.linearize(m).H(dv)
+            runs.append((dv, gv, _counts_all()))
+        (d0v, g0v, n0v), (dmv, gmv, nmv) = runs
+        assert n0v == nmv and len(n0v) == 3 and all(n > 0 for n in n0v.values()), (n0v, nmv)
+        _add(launched, nmv)
+        assert torch.equal(dmv, d0v), f"{name} mesh traces differ"
+        for i, (a, b) in enumerate(zip(gmv, g0v)):
+            live(b, f"{name} gradient block {i}")
+            assert torch.equal(a, b), f"{name} mesh gradient block {i} differs"
+        msgs.append(f"{name} multishot {sshape}, 2 shots, nt 24, map, int8: traces and "
+                    f"{g0v.nblocks} gradient blocks bitwise with and without mesh; launches "
+                    f"{nmv}")
+
+    assert SLAB_SHAPES == ((wshape[0] + 2,) + wshape[1:],
+                           (wshape[0] // RANKS + 2,) + wshape[1:]), \
+        "phase 1 did not check K4 at the halo-extended slabs"
+    ws = block_sharding(make_block_mesh(axis="grid"), "grid")
+    kw220 = dict(nt=220, src_idx=src0, **wkw)
+    _reset_all()
+    F0 = wave_propagator(wshape, **kw220)
+    Fs = wave_propagator(wshape, wavefield_sharding=ws, **kw220)
+    assert Fs.dom.local_shape == wshape
+    d0 = F0(c_true)
+    ds = Fs(c_true)
+    live(d0, "traces")
+    assert torch.equal(ds, d0), "one-slab traces differ from the unsharded K4 route's"
+    resid = d0 - F0(c_bg)
+    g0 = wave_propagator(wshape, store_adjoint="int8", **kw220).linearize(c_true).H(resid)
+    gs = wave_propagator(wshape, store_adjoint="int8", wavefield_sharding=ws,
+                         **kw220).linearize(c_true).H(resid)
+    c = _counts_all()
+    assert c == {"fused_leapfrog_step": 5 * 220, "fused_adjoint_step": 220}, c
+    _add(launched, c)
+    us = {}
+    for name, kw in (("unsharded", {}), ("one slab", {"wavefield_sharding": ws})):
+        t = {n: min(event_ms(lambda op=op: op(c_true)) for _ in range(3)) for n, op in (
+            (n, wave_propagator(wshape, nt=n, src_idx=src0, **wkw, **kw)) for n in (20, 220))}
+        us[name] = 1e3 * (t[220] - t[20]) / 200
+    # the slab's reverse sweep is the plain one (K5 takes no halo), which is
+    # K5's tree; the receiver injection differs only in the sign of a zero
+    msgs.append(f"z-slab propagator {wshape} in one slab, nt 220: traces bitwise the "
+                "unsharded K4 route's; int8 gradient (forward on K4, plain reverse sweep) vs the "
+                "unsharded K4/K5 one " + agree(gs, g0, "gradient", 1e-6) + f"; launches {c}; "
+                f"forward {us['one slab']:.1f} us/step in one slab against {us['unsharded']:.1f} "
+                "unsharded (marginal nt 20->220, CUDA events, best of 3)")
+    log(65, "; ".join(msgs) + f"; phase 65 in {time.perf_counter() - t_ph:.1f} s [{smi}]")
+    del F0, Fs, ds, gs
+
+    # ---- phase 66: 2 ranks on the one card over gloo -----------------------------
+    t66 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    try:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", str(r), str(RANKS), tmp],
+            env={**os.environ, "LOCAL_RANK": str(r)}, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(RANKS)]
+        outs, deadline = [], time.perf_counter() + RANK_TIMEOUT
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            print(out, end="", flush=True)
+            assert p.returncode == 0, f"phase 66 rank {r} failed (rc {p.returncode})"
+        res = []
+        for r in range(RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+        assert len({q["x_hash"] for q in res}) == 1, "the model replicas differ across ranks"
+        x2 = torch.load(os.path.join(tmp, "x.pt")).to(dev)
+        msgs = [f"{RANKS} ranks over gloo ({res[0]['transport']} for the halos) in "
+                f"{time.perf_counter() - t66:.1f} s; flagship LSQR 50 iterations, "
+                f"{nshots3 // RANKS} shots per rank: replicas' tree_hash equal "
+                f"({res[0]['x_hash']:#010x}); x vs phase 65 " + agree(x2, x1, "x", 1e-4)
+                + " (the ranks' partial sums add in another order)"]
+        for r in range(RANKS):
+            tr = torch.load(os.path.join(tmp, f"slab_traces_r{r}.pt")).to(dev)
+            assert torch.equal(tr, d0), f"rank {r}'s slab traces differ from the K4 run's"
+        gsl = torch.cat([torch.load(os.path.join(tmp, f"slab_grad_r{r}.pt"))
+                         for r in range(RANKS)]).to(dev)
+        msgs.append(f"z-slab forward {RANKS} x {wshape[0] // RANKS} planes, nt 220: every "
+                    "rank's traces bitwise the unsharded K4 run's; int8 gradient vs the "
+                    "unsharded K4/K5 one " + agree(gsl, g0, "gradient", 1e-6))
+        gm2 = torch.load(os.path.join(tmp, "gm.pt")).to(dev)
+        msgs.append(f"{nsh}-shot int8 multishot gradient over {RANKS} ranks vs world size 1 "
+                    + agree(gm2, g1, "gradient", 1e-5) + " (the shots' sum in another order)")
+        for q in res:
+            _add(launched, q["launches"])
+        q = res[0]
+        msgs.append(
+            f"rank 0: {q['ms_per_iter']:.3f} ms per LSQR iteration (marginal 10->30, host "
+            f"clock); all_reduce of the {grid3} model {q['allreduce_ms']:.2f} ms; slab step "
+            f"{q['us_per_step']:.1f} us (marginal nt 20->220); halo exchange of 1 plane "
+            f"each way {q['halo_us']:.1f} us; under the profiler (5 LSQR iterations, 20 "
+            f"slab steps): all_reduce {q['prof_allreduce_ms']:.2f} ms in "
+            f"{q['prof_allreduce_n']} calls, halo exchange {q['prof_halo_ms']:.2f} ms in "
+            f"{q['prof_halo_n']} calls; launches per rank {[q_['launches'] for q_ in res]}")
+        log(66, "; ".join(msgs) + f" [{smi}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.distributed.destroy_process_group()  # phase 65's world of one
+    return launched
+
+
+def rank_main(rank, world, tmp):
+    """One rank of phase 66: ``python3 chip_smoke.py --rank r world dir``. Joins
+    a gloo group of ``world`` ranks on this card through a file in ``dir``,
+    runs the flagship LSQR, the z-slab forward and int8 gradient and the
+    16-shot multishot gradient with their launches counted, then times
+    them, and writes what the parent compares into ``dir``."""
+    import os
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from jets_tpu_torch.models.seismic import make_seismic_problem
+    from jets_tpu_torch.ops.wave import multishot_wave_operator, wave_propagator
+    from jets_tpu_torch.parallel import runner
+    from jets_tpu_torch.parallel.collectives import (halo_exchange, halo_transport,
+                                                     sum_replicated)
+    from jets_tpu_torch.parallel.sharded import block_sharding, make_block_mesh, shard_blocks
+    from jets_tpu_torch.solvers import lsqr
+    from jets_tpu_torch.utils import hashing
+
+    t0 = time.perf_counter()
+    runner.init_distributed("gloo", device="cuda",
+                            init_method="file://" + os.path.join(tmp, "store"), rank=rank,
+                            world_size=world, timeout=RANK_TIMEOUT / 2)
+    mesh = make_block_mesh(device="cuda")
+    mesh_g = make_block_mesh(axis="grid", device="cuda")
+    assert mesh.backend == "gloo" and mesh.size == world, mesh
+    dev = mesh.device
+    out = {"transport": halo_transport(mesh)}
+    _reset_all()
+
+    grid3, nshots3, nrecv = FLAGSHIP
+    A, _, d = make_seismic_problem(grid3, nshots3, nrecv, seed=0, noise=0.05, mesh=mesh)
+    assert tuple(d.shape) == (nshots3 // world, nrecv)
+    r = lsqr(A, d, maxiter=50, tol=0.0)
+    out["x_hash"] = hashing.tree_hash(r.x)
+    if rank == 0:
+        torch.save(r.x.cpu(), os.path.join(tmp, "x.pt"))
+
+    c_true, src0, wkw, _ = wave_model(dev)
+    wshape = tuple(c_true.shape)
+    ws = block_sharding(mesh_g, "grid")
+    c_l = shard_blocks(c_true, mesh_g, "grid")
+    bg_l = torch.full_like(c_l, 1500.0)
+    Fs = wave_propagator(wshape, nt=220, src_idx=src0, wavefield_sharding=ws, **wkw)
+    ds = Fs(c_l)
+    torch.save(ds.cpu(), os.path.join(tmp, f"slab_traces_r{rank}.pt"))
+    Gs = wave_propagator(wshape, nt=220, src_idx=src0, store_adjoint="int8",
+                         wavefield_sharding=ws, **wkw)
+    gs = Gs.linearize(c_l).H(ds - Fs(bg_l))
+    torch.save(gs.cpu(), os.path.join(tmp, f"slab_grad_r{rank}.pt"))
+
+    Fm = multishot_wave_operator(wshape, MSRC, nt=220, store_adjoint="int8", shot_map="map",
+                                 mesh=mesh, **wkw)
+    gm = Fm.linearize(torch.full(wshape, 1500.0, device=dev)).H(Fm(c_true))
+    if rank == 0:
+        torch.save(gm.cpu(), os.path.join(tmp, "gm.pt"))
+    out["launches"] = _counts_all()
+    del Gs, gs, Fm, gm
+    print(f"[phase 66 rank {rank}/{world}] main path done in {time.perf_counter() - t0:.1f} s "
+          f"(start-up included) on {dev}: launches {out['launches']}", flush=True)
+
+    t = {n: _wall_ms(lambda n=n: lsqr(A, d, maxiter=n, tol=0.0), mesh) for n in (10, 30)}
+    out["ms_per_iter"] = (t[30] - t[10]) / 20
+    x = torch.ones(grid3, device=dev)
+    out["allreduce_ms"] = _wall_ms(lambda: [sum_replicated(x, mesh) for _ in range(5)],
+                                   mesh) / 5
+    Fs20 = wave_propagator(wshape, nt=20, src_idx=src0, wavefield_sharding=ws, **wkw)
+    t = {n: _wall_ms(lambda op=op: op(c_l), mesh)
+         for n, op in ((20, Fs20), (220, Fs))}
+    out["us_per_step"] = 1e3 * (t[220] - t[20]) / 200
+    out["halo_us"] = 1e3 * _wall_ms(lambda: [halo_exchange(c_l, 1, mesh_g)
+                                             for _ in range(50)], mesh) / 50
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lsqr(A, d, maxiter=5, tol=0.0)
+        Fs20(c_l)
+        torch.cuda.synchronize()
+    spans = {"allreduce": [0.0, 0], "halo": [0.0, 0]}
+    for e in prof.key_averages():
+        key = ("allreduce" if "all_reduce" in e.key else
+               "halo" if "halo_exchange" in e.key else None)
+        if key:
+            spans[key][0] += e.cpu_time_total / 1e3
+            spans[key][1] += e.count
+    for key, (ms, n) in spans.items():
+        out[f"prof_{key}_ms"], out[f"prof_{key}_n"] = ms, n
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def wave_model(dev):
+    """The wave paths' 256^3 model and geometry: ``c_true``, 1500 m/s plus
+    four smooth Gaussian anomalies drawn from a numpy seed; the source at
+    the centre; ``wkw``, the propagators' shared keywords with 128 receivers
+    on the x-line through it; and the seeded generator, for later draws."""
+    wshape = ISO_SHAPES[0]
+    rs = np.random.default_rng(0)
+    axis = torch.arange(256, dtype=torch.float32, device=dev)
+    c_true = torch.full(wshape, 1500.0, device=dev)
+    for _ in range(4):
+        (cz, cy, cx), a, sig = rs.uniform(48, 208, 3), rs.uniform(-80, 80), rs.uniform(12, 32)
+        gz, gy, gx = (torch.exp(-0.5 * ((axis - float(o)) / sig) ** 2) for o in (cz, cy, cx))
+        c_true += a * (gz[:, None, None] * gy[None, :, None] * gx[None, None, :])
+    rcv = [int(np.ravel_multi_index((128, 128, x), wshape)) for x in range(0, 256, 2)]
+    src0 = int(np.ravel_multi_index((128, 128, 128), wshape))
+    return c_true, src0, dict(dt=5e-4, dx=10.0, freq=15.0, rcv_idx=rcv, sponge_width=12), rs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2146,12 +2529,13 @@ def main() -> int:
     err["fused_leapfrog_step"] = err["fused_adjoint_step"] = 0.0
     hists = iso_kernels_check(up, u, a1, a2, g2, c2, spz, spy, spx, src_flat)
     for shape in ISO_SHAPES[1:]:
-        iso_kernels_check(*(rnd(shape) for _ in range(5)),
-                          0.3 * torch.rand(shape, generator=gen, device=dev),
-                          *sponges(shape), centre(shape))
-    log(1, f"K4 bitwise and in place at {shapes_text(ISO_SHAPES)}, orders 2/4/8; K5 "
-           f"bitwise and in place at the same shapes with f32/bf16/int8 histories, "
-           f"orders 2/4/8")
+        for src in (centre(shape),) + ((-1,) if shape in SLAB_SHAPES else ()):
+            iso_kernels_check(*(rnd(shape) for _ in range(5)),
+                              0.3 * torch.rand(shape, generator=gen, device=dev),
+                              *sponges(shape), src)
+    log(1, f"K4 bitwise and in place at {shapes_text(ISO_SHAPES)}, orders 2/4/8 (at "
+           f"{shapes_text(SLAB_SHAPES)} also with no source, -1); K5 bitwise and in place "
+           f"at the same shapes with f32/bf16/int8 histories, orders 2/4/8")
 
     # K8, K9 and K10 at every shape of VTI_SHAPES, every order and history
     # type, bitwise against the plain versions, in place; fields from a numpy
@@ -2419,6 +2803,7 @@ def main() -> int:
     cs.reset_launch_counts()
     c0 = cs.launch_counts()
     r3 = lsqr(A, d, maxiter=50, tol=0.0)
+    flagship_ref = (r3.x, r3.history)  # phase 65 holds the mesh runs to these bits
     c3 = cs.launch_counts()
     assert c3["xw_update"] - c0["xw_update"] == 50, c3
     check_history(r3, 50, dnorm, 3)
@@ -2509,18 +2894,9 @@ def main() -> int:
     from jets_tpu_torch.ops.wave import (born_operator, multishot_wave_operator,
                                          wave_propagator)
 
-    # 1500 m/s plus four smooth Gaussian anomalies drawn from a numpy seed
-    rs = np.random.default_rng(0)
+    c_true, src0, wkw, rs = wave_model(dev)
     axis = torch.arange(256, dtype=torch.float32, device=dev)
-    c_true = torch.full(wshape, 1500.0, device=dev)
-    for _ in range(4):
-        (cz, cy, cx), a, sig = rs.uniform(48, 208, 3), rs.uniform(-80, 80), rs.uniform(12, 32)
-        gz, gy, gx = (torch.exp(-0.5 * ((axis - float(o)) / sig) ** 2) for o in (cz, cy, cx))
-        c_true += a * (gz[:, None, None] * gy[None, :, None] * gx[None, None, :])
     c_bg = torch.full(wshape, 1500.0, device=dev)
-    rcv = [int(np.ravel_multi_index((128, 128, x), wshape)) for x in range(0, 256, 2)]
-    src0 = int(np.ravel_multi_index((128, 128, 128), wshape))
-    wkw = dict(dt=5e-4, dx=10.0, freq=15.0, rcv_idx=rcv, sponge_width=12)
 
     def delta(before):
         now = cw.launch_counts()
@@ -3410,6 +3786,8 @@ def main() -> int:
         main_path[k] += n
     for k, n in utils_path(smi, c_true, wkw).items():
         main_path[k] += n
+    for k, n in distribution(smi, c_true, src0, wkw, flagship_ref).items():
+        main_path[k] += n
     sources = {"solver": "jets_tpu_torch/csrc/solver_kernels.cu",
                "wave": "jets_tpu_torch/csrc/wave_kernels.cu",
                "vti": "jets_tpu_torch/csrc/vti_kernels.cu",
@@ -3450,4 +3828,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:  # one rank of phase 66, started by main
+        sys.exit(rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

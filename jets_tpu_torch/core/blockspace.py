@@ -50,8 +50,8 @@ class BlockVector:
     def setblock(self, i: int, value) -> "BlockVector":
         sub = self.space.spaces[i]
         v = torch.as_tensor(value)
-        if tuple(v.shape) != sub.shape:
-            raise ValueError(f"block {i}: shape {tuple(v.shape)} != {sub.shape}")
+        if tuple(v.shape) != sub.local_shape:
+            raise ValueError(f"block {i}: shape {tuple(v.shape)} != {sub.local_shape}")
         new = list(self.blocks)
         new[i] = v.to(device=sub.device, dtype=sub.dtype)
         return BlockVector(new, self.space)

@@ -136,10 +136,13 @@ class Jet:
         return f"Jet({self.dom} -> {self.rng})"
 
 
+# the derived kernels name what they derive from, so that two operators
+# built alike compare alike (parallel/hetero._structure_key)
 def _linear_forward_from_df(df):
     def f(m, state, __df=df):
         return __df(m, None, state)
 
+    f.__wrapped_df__ = df
     return f
 
 
@@ -147,6 +150,7 @@ def _tangent_from_linear_f(f):
     def df(dm, m0, state, __f=f):
         return __f(dm, state)
 
+    df.__wrapped_f__ = f
     return df
 
 
@@ -154,6 +158,7 @@ def _self_adjoint_from_df(df):
     def dft(dd, m0, state, __df=df):
         return __df(dd, m0, state)
 
+    dft.__self_adjoint_from__ = df
     return dft
 
 
@@ -214,7 +219,7 @@ class Operator:
         if isinstance(other, Operator):
             return algebra.compose(self, other)
         shp = getattr(other, "shape", None)
-        if shp is not None and tuple(shp) != self.dom.shape and len(shp) == 2:
+        if shp is not None and tuple(shp) != self.dom.local_shape and len(shp) == 2:
             return algebra.compose(self, algebra._wrap(other, self.dom.device))
         return self(other)
 

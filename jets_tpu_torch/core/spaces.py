@@ -114,6 +114,12 @@ class Space:
         return self._device
 
     @property
+    def local_shape(self) -> Tuple[int, ...]:
+        """The shape of this process's members: ``shape``, except on a
+        space sharded over ranks (``parallel.sharded.ShardedSpace``)."""
+        return self._shape
+
+    @property
     def ndim(self) -> int:
         return len(self._shape)
 

@@ -104,8 +104,8 @@ def config4_distributed_lsqr(nblocks: int = 64, grid=(128, 128), nrecv: int = 51
                              dtype: torch.dtype = torch.float32, *, wr=None,
                              device: torch.device | str | None = None):
     """The multi-shot seismic operator with ``nblocks`` shots on a 2-D grid,
-    solved by LSQR. ``mesh`` must be None (distribution is ROADMAP queue 1
-    item 18; the JAX package reduces the adjoint with a psum over it)."""
+    solved by LSQR; with ``mesh`` the shots shard over its ranks and the
+    adjoint all-reduces over them (``make_seismic_problem``)."""
     A, m_true, d = make_seismic_problem(grid, nblocks, nrecv, seed=seed, wr=wr,
                                         mesh=mesh, noise=0.02, dtype=dtype, device=device)
     return A, (lambda op, b, **kw: lsqr(op, b, **kw)), d, {"m_true": m_true}
@@ -116,7 +116,7 @@ def config5_seismic3d_pod(nshots: int = 256, grid=(128, 128, 64), nrecv: int = 2
                           *, wr=None,
                           device: torch.device | str | None = None):
     """The 3-D linearized seismic operator over ``nshots`` shots, solved by
-    LSQR. ``mesh`` must be None (distribution is ROADMAP queue 1 item 18)."""
+    LSQR; ``mesh`` as for :func:`config4_distributed_lsqr`."""
     A, m_true, d = make_seismic_problem(grid, nshots, nrecv, seed=seed, wr=wr,
                                         mesh=mesh, noise=0.02, dtype=dtype, device=device)
     return A, (lambda op, b, **kw: lsqr(op, b, **kw)), d, {"m_true": m_true}

@@ -24,6 +24,12 @@ The JAX package draws the geometry and weights with ``jax.random``; the
 port draws its own with a :class:`torch.Generator`, and
 :func:`seismic_operator_from_arrays` builds the operator from given arrays,
 so the two packages can be held against each other on the same operator.
+
+With ``mesh=`` (a :class:`~jets_tpu_torch.parallel.sharded.BlockMesh`) the
+shots shard over the mesh's ranks: each rank keeps its slab of ``wr``,
+the data are its slab of shots, and the adjoint sums the rank's shots (the
+3-D tail through K3 on that local sum), then all-reduces once. The fused
+epilogue hook is left out under a mesh, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -38,6 +44,8 @@ from ..core.spaces import Space, resolve_device
 from ..ops.cuda_solver import lap3d_axpy_norm2, laplacian3d
 from ..ops.stencil import laplacian_nd as _lap
 from ..ops.stencil import laplacian_operator
+from ..parallel.collectives import gather_blocks
+from ..parallel.runner import local_block_range
 from ..parallel.sharded import stacked_block_operator
 
 __all__ = [
@@ -290,6 +298,8 @@ def seismic_operator_from_arrays(
     rcv=None,
     impl: str = "fused",
     epilogue_hook: bool = False,
+    mesh=None,
+    axis: str = "block",
     dtype: torch.dtype = torch.float32,
     device: torch.device | str | None = None,
 ) -> Operator:
@@ -297,9 +307,11 @@ def seismic_operator_from_arrays(
     (nshots, nreceivers) and, for an irregular geometry (a receiver count
     :func:`_receiver_grid` cannot lay out), the flat receiver indices
     ``rcv`` (nreceivers,). ``rcv`` is not used with a regular subgrid, which
-    is fixed by the grid shape and the receiver count."""
+    is fixed by the grid shape and the receiver count. ``mesh``/``axis``
+    shard the shots (the module docstring); the operator is then built on
+    the mesh's device."""
     grid_shape = tuple(int(s) for s in grid_shape)
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
     if impl not in ("fused", "composed"):
         raise ValueError(f"impl must be 'fused' or 'composed', got {impl!r}")
     dom = Space(grid_shape, dtype, device)
@@ -307,7 +319,8 @@ def seismic_operator_from_arrays(
     wr = _tensor(wr, dtype, device)
     if tuple(wr.shape) != (nshots, nreceivers):
         raise ValueError(f"wr has shape {tuple(wr.shape)}, expected ({nshots}, {nreceivers})")
-    common = dict(nblocks=nshots, dom=dom, rng_block=rng_block, bstate={"wr": wr})
+    common = dict(nblocks=nshots, dom=dom, rng_block=rng_block, bstate={"wr": wr},
+                  mesh=mesh, axis=axis)
 
     grid_geom = _receiver_grid(grid_shape, nreceivers)
     if grid_geom is not None:
@@ -323,7 +336,7 @@ def seismic_operator_from_arrays(
                 stack_dft=_make_axis_sample_stack_dft(
                     grid_shape, counts, axes_idx, with_lap=True),
             )
-            if epilogue_hook and len(grid_shape) == 3:
+            if epilogue_hook and len(grid_shape) == 3 and mesh is None:
                 op = with_state(
                     op,
                     adjoint_axpy_norm=_make_adjoint_axpy_norm_hook(
@@ -370,6 +383,7 @@ def make_seismic_operator(
     wr=None,
     rcv=None,
     mesh=None,
+    axis: str = "block",
     dtype: torch.dtype = torch.float32,
     device: torch.device | str | None = None,
     impl: str = "fused",
@@ -383,14 +397,10 @@ def make_seismic_operator(
     :func:`seismic_operator_from_arrays`).
 
     Model space: ``grid_shape`` (2-D or 3-D) on ``device`` (``None``: the
-    CUDA card). Range: ``(nshots, nreceivers)``. ``mesh`` must be None
-    (distribution is not ported yet).
+    CUDA card). Range: ``(nshots, nreceivers)``. ``mesh``/``axis`` shard
+    the shots over a mesh's ranks (the module docstring): every rank draws
+    the same global arrays and keeps its slab.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_seismic_operator(mesh=...) is not ported yet "
-            "(ROADMAP queue 1 item 18, distribution)"
-        )
     grid_shape = tuple(int(s) for s in grid_shape)
     g = generator if generator is not None else torch.Generator().manual_seed(0)
     grid_geom = _receiver_grid(grid_shape, nreceivers)
@@ -403,7 +413,7 @@ def make_seismic_operator(
         wr = _illumination(grid_shape, nshots, rcv, g, dtype)
     return seismic_operator_from_arrays(
         grid_shape, nshots, nreceivers, wr=wr, rcv=rcv, impl=impl,
-        epilogue_hook=epilogue_hook, dtype=dtype, device=device,
+        epilogue_hook=epilogue_hook, mesh=mesh, axis=axis, dtype=dtype, device=device,
     )
 
 
@@ -416,6 +426,7 @@ def make_seismic_problem(
     wr=None,
     rcv=None,
     mesh=None,
+    axis: str = "block",
     noise: float = 0.0,
     dtype: torch.dtype = torch.float32,
     device: torch.device | str | None = None,
@@ -428,13 +439,16 @@ def make_seismic_problem(
     with ``seed``, then moved to ``device``; ``wr``/``rcv`` as in
     :func:`make_seismic_operator`. ``noise`` adds gaussian
     observation noise of that relative amplitude (use it for benchmarks, so
-    Krylov loops run their full iteration budget).
+    Krylov loops run their full iteration budget). Under ``mesh`` the data
+    are the rank's slab of shots: the noise's scale is the standard
+    deviation of the global data and its draw is the global draw's slab,
+    so a seed gives the same global problem on any mesh.
     """
     g = torch.Generator().manual_seed(seed)
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
     A = make_seismic_operator(
-        grid_shape, nshots, nreceivers, g, wr=wr, rcv=rcv, mesh=mesh, dtype=dtype,
-        device=device, impl=impl, epilogue_hook=epilogue_hook,
+        grid_shape, nshots, nreceivers, g, wr=wr, rcv=rcv, mesh=mesh, axis=axis,
+        dtype=dtype, device=device, impl=impl, epilogue_hook=epilogue_hook,
     )
     # sparse spike reflectivity over a weak smooth background
     n = A.dom.size
@@ -445,7 +459,11 @@ def make_seismic_problem(
     m_true = (flat + bg).reshape(A.dom.shape).to(device)
     d_obs = A(m_true)
     if noise > 0:
-        scale = noise * torch.std(d_obs, correction=0)
-        eps = torch.randn(d_obs.shape, generator=g, dtype=dtype).to(device)
-        d_obs = d_obs + scale * eps
+        d_all, lo = d_obs, 0
+        if mesh is not None:
+            lo = local_block_range(nshots, mesh, axis)[0]
+            d_all = gather_blocks(d_obs, nshots, mesh, axis)
+        scale = noise * torch.std(d_all, correction=0)
+        eps = torch.randn(A.rng.shape, generator=g, dtype=dtype)[lo:lo + len(d_obs)]
+        d_obs = d_obs + scale * eps.to(device)
     return A, m_true, d_obs

@@ -78,8 +78,17 @@ gradients. Every derived adjoint runs by :func:`torch.autograd.grad`
 segments: per shot in ``"map"`` mode, over the whole vmapped stack in
 ``"vmap"`` mode.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``wavefield_sharding`` and ``mesh=`` (item 18).
+**Distribution** (:mod:`jets_tpu_torch.parallel`): ``mesh=`` on the three
+multishot operators shards the shots over the ranks of a
+:class:`~jets_tpu_torch.parallel.sharded.BlockMesh` (each rank's shots as
+above, their adjoint contributions met in one ``all_reduce``);
+``wavefield_sharding=block_sharding(mesh, axis)`` on
+:func:`wave_propagator` splits the isotropic grid into z-slabs over the
+ranks, exchanging ``order/2`` halo planes with the z-neighbours every step
+(:func:`_propagate_sharded`, K4 on the halo-extended slab). Not ported yet
+(each raises ``NotImplementedError`` naming ROADMAP queue 1 item 18):
+``wavefield_sharding`` on the VTI and TTI propagators, and shardings that
+are not z-only.
 """
 from __future__ import annotations
 
@@ -96,7 +105,8 @@ from torch.utils.checkpoint import checkpoint
 from ..core.blockspace import BlockSpace, BlockVector
 from ..core.jet import Jet, LinearOperator, Operator, with_state
 from ..core.spaces import Space, true_div
-from ..parallel.sharded import stacked_block_operator
+from ..parallel.collectives import halo_exchange, max_replicated, sum_replicated
+from ..parallel.sharded import ShardedSpace, stacked_block_operator
 from ..utils.tree import tmap
 from . import cuda_tti, cuda_vti, cuda_wave
 from .sampling import _axis_contract, kaiser_sinc_matrix, kaiser_sinc_matrix_np
@@ -374,12 +384,14 @@ def _c2dt2(c, dt: float, dx: float):
     return true_div((c * c) * (dt * dt), dx * dx)
 
 
-def _store_codec(store: str, dtype):
+def _store_codec(store: str, dtype, mesh=None):
     """Per-snapshot ``(enc, dec)`` of the stored-wavefield adjoint: ``f32``
     lossless, ``bf16`` 2× smaller, ``int8`` max-abs-scaled 4× smaller.
     ``enc(u) -> (encoded, scale)``; ``dec(encoded, scale)`` inverts it.
     The int8 code is ``round(u·(127/s))`` (half to even, as ``jnp.round``)
-    with ``s = max(max|u|, 1e-30)``."""
+    with ``s = max(max|u|, 1e-30)``; with ``mesh`` (``u`` a z-slab) the max
+    is over the whole grid, one MAX ``all_reduce`` per snapshot, so the
+    stored bytes are those of the unsharded grid."""
     if store == "f32":
         return ((lambda u: (u, torch.ones((), dtype=dtype, device=u.device))),
                 (lambda q, s: q))
@@ -389,8 +401,10 @@ def _store_codec(store: str, dtype):
                 (lambda q, s: q.to(dtype)))
     if store == "int8":
         def enc(u):
-            s = torch.maximum(torch.linalg.vector_norm(u, float("inf")),  # max|u|
-                              torch.tensor(1e-30, dtype=dtype, device=u.device))
+            amax = torch.linalg.vector_norm(u, float("inf"))  # max|u|
+            if mesh is not None:
+                amax = max_replicated(amax, mesh)
+            s = torch.maximum(amax, torch.tensor(1e-30, dtype=dtype, device=u.device))
             return torch.round(u * (torch.full_like(s, 127.0) / s)).to(torch.int8), s
 
         return enc, (lambda q, s: q.to(dtype) * true_div(s, 127.0))
@@ -538,7 +552,9 @@ def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
     loop's segments then run as :class:`_Segment`.
     """
     if wavefield_sharding is not None:
-        raise _not_ported("wavefield_sharding", "18")
+        return _propagate_sharded(c, src_wavelet, src_idx, rcv_idx, dt=dt, dx=dx,
+                                  sponge=sponge, remat_blocks=remat_blocks, order=order,
+                                  fused=fused, ws=wavefield_sharding, inplace=inplace)
     shape, dtype, dev = c.shape, c.dtype, c.device
     c2dt2 = _c2dt2(c, dt, dx)
     amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
@@ -571,6 +587,184 @@ def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
                        remat_blocks, tape, extract, params, consts, vmap_tape is not None)
 
 
+def _zonly_axis(ws):
+    """The mesh axis name when ``ws`` shards axis 0 ONLY (the z-slab layout
+    the sharded propagator supports), else None."""
+    spec = tuple(ws.spec)
+    if not spec or spec[0] is None or isinstance(spec[0], tuple):
+        return None
+    if any(sp is not None for sp in spec[1:]):
+        return None
+    return spec[0] if spec[0] in ws.mesh.shape else None
+
+
+def _check_wavefield_sharding(ws, shape, order: int):
+    """``ws``'s mesh, or the reason the z-slab propagator cannot take it:
+    a ``ValueError`` naming ``wavefield_sharding`` for what K4 cannot do (a
+    grid that is not 3-D, a slab count that does not divide D, a slab
+    thinner than the stencil's halo), ``NotImplementedError`` for a
+    sharding that is not z-only."""
+    if not (hasattr(ws, "mesh") and hasattr(ws, "spec")):
+        raise ValueError("wavefield_sharding must be a parallel.sharded.block_sharding"
+                         f"(mesh, axis), got {type(ws).__name__}")
+    ax = _zonly_axis(ws)
+    if ax is None:
+        raise _not_ported(f"wavefield_sharding with spec {ws.spec} (not z-only)", "18")
+    n, hw = ws.mesh.shape[ax], order // 2
+    if len(shape) != 3:
+        raise ValueError(f"wavefield_sharding needs a 3-D grid, got {tuple(shape)}")
+    if shape[0] % n:
+        raise ValueError(f"wavefield_sharding: {n} slabs do not divide D = {shape[0]}")
+    if shape[0] // n < hw:
+        raise ValueError(f"wavefield_sharding: slabs of {shape[0] // n} planes are "
+                         f"thinner than the order-{order} halo of {hw}")
+    return ws.mesh
+
+
+def fits_fused_sharded(shape, dtype, order: int, ws) -> bool:
+    """True when the z-slab propagator can ride K4: a 3-D float32 grid, a
+    z-only sharding whose slab count divides D, slabs no thinner than the
+    halo, and a halo-extended slab ``(D/n + 2·hw, H, W)`` K4 takes."""
+    try:
+        mesh = _check_wavefield_sharding(ws, shape, order)
+    except (ValueError, NotImplementedError):
+        return False
+    D, H, W = shape
+    n = mesh.shape[_zonly_axis(ws)]
+    return cuda_wave.fits_wave_kernel((D // n + order, H, W), dtype, order)  # 2·hw = order
+
+
+class _Slab:
+    """One rank's part of a z-slab-sharded isotropic propagation: the
+    halo-extended coefficients and sponge, the source index in the
+    extended slab (−1 off this rank: K4 compares ``i == src``, so nothing
+    is injected), the receivers this rank holds, and the one step on the
+    extended slab — K4 or the plain step — of which the interior is kept."""
+
+    def __init__(self, c, src_idx, rcv_idx, *, dt, dx, sponge, order, fused, ws):
+        mesh = ws.mesh
+        Dl, H, W = c.shape
+        hw = order // 2
+        z0 = mesh.rank * Dl
+        hwp = H * W
+        dtype, dev = c.dtype, c.device
+        self.mesh, self.hw, self.Dl, self.order = mesh, hw, Dl, order
+        self.c2dt2 = _c2dt2(c, dt, dx)
+        self.amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
+        sz = int(src_idx) // hwp
+        self.src = (sz - z0 + hw) * hwp + int(src_idx) % hwp if z0 <= sz < z0 + Dl else -1
+        rz = torch.div(rcv_idx, hwp, rounding_mode="floor")
+        own = (rz >= z0) & (rz < z0 + Dl)
+        self.r_in = own.to(dtype)
+        self.r_loc = torch.where(own, (rz - z0) * hwp + rcv_idx % hwp, 0)
+        self.own_loc, self.own = self.r_loc[own], own
+        # the halo planes of the sponge and c² are edge- and zero-padded:
+        # their outputs are discarded, the values only need to exist
+        spz = sponge[0][z0:z0 + Dl]
+        self.sponge = (torch.cat([spz[:1].expand(hw, 1, 1), spz, spz[-1:].expand(hw, 1, 1)]),
+                       sponge[1], sponge[2])
+        self.c2_ext = self.pad(self.c2dt2)
+        self.kernel = _kernel_route(fused, self.c2_ext, self.sponge, order)
+        if self.kernel:
+            self.factors = _factors_1d(self.sponge)
+        else:
+            self.S = _sponge_full(self.sponge)
+            self.mask = cuda_wave.source_mask(self.c2_ext.shape, self.src, self.amp)
+
+    def pad(self, u):
+        return torch.nn.functional.pad(u, (0, 0, 0, 0, self.hw, self.hw))
+
+    def interior(self, u_ext):
+        return u_ext[self.hw:self.hw + self.Dl]
+
+    def ext(self, u):
+        return halo_exchange(u, self.hw, self.mesh)
+
+    def step(self, up, u, s_t):
+        """``u_next`` of the rank's slab from ``(u_prev, u)`` slabs."""
+        up_ext, u_ext = self.pad(up), self.ext(u)
+        if self.kernel:
+            out = _LeapfrogStep.apply(up_ext, u_ext, self.c2_ext, s_t, *self.factors,
+                                      self.src, self.amp, self.order)
+        else:
+            out = cuda_wave.leapfrog_plain(up_ext, u_ext, self.c2_ext, self.S, s_t,
+                                           self.mask, self.order)
+        return self.interior(out)
+
+    def lap(self, u):
+        """``L(u)`` of the rank's slab, the neighbours' planes exchanged."""
+        return self.interior(_laplacian(self.ext(u), order=self.order))
+
+    def extract(self, u):
+        """The rank's receivers of ``u`` (zeros at the others')."""
+        return u.reshape(-1)[self.r_loc] * self.r_in
+
+    def inject(self, row):
+        """The transpose of :meth:`extract`."""
+        return torch.zeros(self.c2dt2.numel(), dtype=row.dtype, device=row.device).index_add(
+            0, self.own_loc, row[self.own]).reshape(self.c2dt2.shape)
+
+
+def _propagate_sharded(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge, remat_blocks,
+                       order, fused, ws, inplace):
+    """The isotropic leapfrog on a z-slab-sharded grid (the counterpart of
+    the JAX package's ``_propagate_fused_sharded`` on K4 and of its GSPMD
+    partition of the plain step): each rank holds a ``(D/n, H, W)`` slab of
+    ``c``; every step the ``hw`` boundary planes travel to the z-neighbours
+    (:func:`halo_exchange`; the edges receive zeros, the global zero
+    boundary), the step runs on the halo-extended slab and the interior is
+    kept. Each rank gathers the receivers it holds for the whole ``(nt,
+    nrcv)`` trace, zeros elsewhere, and one :func:`sum_replicated` at the
+    end assembles it on every rank (each receiver lives on one rank, so
+    adding the zeros is exact). On K4 the tangent and the adjoint follow
+    :class:`_LeapfrogStep`'s plain rules composed with the exchange's."""
+    sl = _Slab(c, src_idx, rcv_idx, dt=dt, dx=dx, sponge=sponge, order=order, fused=fused,
+               ws=ws)
+    tape = _records(c)
+    traces = _field_loop(sl.step, 1, c.shape, c.dtype, c.device, src_wavelet, rcv_idx,
+                         inplace and not tape, remat_blocks, tape, sl.extract)
+    return sum_replicated(traces, ws.mesh)
+
+
+def _adjoint_stored_sharded(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
+                            order, store, fused, ws):
+    """:func:`_adjoint_stored` on a z-slab-sharded grid: the forward sweep
+    is :func:`_propagate_sharded`'s step (K4 where it applies), storing each
+    slab's snapshot with the global int8 scale (:func:`_store_codec` with
+    the mesh); the reverse sweep is the plain one on the slab, with
+    ``L(u_k)`` and ``L(c²dt²·ē_k)`` taken over the halo-extended slab (the
+    decoded history's and the field's boundary planes exchanged) and the
+    receiver rows injected where this rank holds them. Returns the rank's
+    slab of the gradient."""
+    sl = _Slab(c, src_idx, rcv_idx, dt=dt, dx=dx, sponge=sponge, order=order, fused=fused,
+               ws=ws)
+    dtype, dev, shape = c.dtype, c.device, c.shape
+    enc, dec = _store_codec(store, dtype, ws.mesh)
+    dd = dd.to(dtype)
+    hist = []
+    u_prev = torch.zeros(shape, dtype=dtype, device=dev)
+    u = torch.zeros(shape, dtype=dtype, device=dev)
+    for k in range(int(src_wavelet.shape[0])):
+        hist.append(enc(u))
+        u_prev, u = u, sl.step(u_prev, u, src_wavelet[k])
+    del u_prev, u
+    S = sl.interior(_sponge_full(sl.sponge))
+    dd_shift = torch.cat([torch.zeros_like(dd[:1]), dd[:-1]])
+    a_next = sl.inject(dd[-1])
+    ebar_next = torch.zeros(shape, dtype=dtype, device=dev)
+    gc2 = torch.zeros(shape, dtype=dtype, device=dev)
+    for k in range(len(hist) - 1, -1, -1):
+        q, s = hist[k]
+        hist[k] = None
+        ebar = a_next * S
+        gc2 = gc2 + sl.lap(dec(q, s)) * ebar
+        a_next = ((2.0 * ebar + sl.lap(sl.c2dt2 * ebar)) - ebar_next
+                  + sl.inject(dd_shift[k]))
+        ebar_next = ebar
+    scale = torch.tensor((dt * dt) / (dx * dx), dtype=dtype, device=dev)
+    return gc2 * (2.0 * c) * scale
+
+
 def _adjoint_stored(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
                     order: int = 2, store: str = "int8", fused=None,
                     wavefield_sharding=None, src_mask=None, inject=None):
@@ -590,7 +784,9 @@ def _adjoint_stored(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
     the on-grid source and the receiver scatter; either one takes the plain
     route."""
     if wavefield_sharding is not None:
-        raise _not_ported("wavefield_sharding", "18")
+        return _adjoint_stored_sharded(c, dd, src_wavelet, src_idx, rcv_idx, dt=dt, dx=dx,
+                                       sponge=sponge, order=order, store=store,
+                                       fused=fused, ws=wavefield_sharding)
     custom = src_mask is not None or inject is not None
     shape, dtype, dev = c.shape, c.dtype, c.device
     size = math.prod(shape)
@@ -709,17 +905,34 @@ def wave_propagator(
     (:func:`_adjoint_stored`).
     ``remat_blocks > 1`` checkpoints the time loop in that many segments
     under an autograd tape (the module docstring).
+
+    ``wavefield_sharding=block_sharding(mesh, axis)`` (``parallel.sharded``)
+    splits the grid into z-slabs over the mesh's ranks: the domain is a
+    :class:`~jets_tpu_torch.parallel.sharded.ShardedSpace` whose members are
+    the rank's ``(D/n, H, W)`` slab, the traces are the same on every rank,
+    and the operator is built on the mesh's device (:func:`_propagate_sharded`,
+    :func:`_adjoint_stored_sharded`). ``fused`` then picks K4 on the
+    halo-extended slab as above; a 3-D grid whose slab count divides D, with
+    slabs no thinner than the halo, is required (``ValueError``).
     """
     grid_shape = tuple(int(s) for s in grid_shape)
     space_order = _check_space_order(space_order)
     _check_store(store_adjoint)
-    if wavefield_sharding is not None:
-        raise _not_ported("wave_propagator(wavefield_sharding=...)", "18")
-    if fused and not cuda_wave.fits_wave_kernel(grid_shape, dtype, space_order):
-        raise ValueError("fused wave step requires a 3-D float32 grid")
-    sp = Space(grid_shape, dtype, device)
+    ws = wavefield_sharding
+    if ws is not None:
+        mesh = _check_wavefield_sharding(ws, grid_shape, space_order)
+        if fused and not fits_fused_sharded(grid_shape, dtype, space_order, ws):
+            raise ValueError("fused=True under wavefield_sharding needs a float32 grid "
+                             "whose halo-extended slab K4 takes")
+        sp = ShardedSpace(grid_shape, dtype, mesh, _zonly_axis(ws))
+        prop = functools.partial(_propagate, wavefield_sharding=ws)
+        adj = functools.partial(_adjoint_stored, wavefield_sharding=ws)
+    else:
+        if fused and not cuda_wave.fits_wave_kernel(grid_shape, dtype, space_order):
+            raise ValueError("fused wave step requires a 3-D float32 grid")
+        sp, prop, adj = Space(grid_shape, dtype, device), _propagate, _adjoint_stored
     return _single_shot_operator(
-        sp, sp, _propagate, _adjoint_stored, nt=nt, dt=dt, dx=dx, freq=freq,
+        sp, sp, prop, adj, nt=nt, dt=dt, dx=dx, freq=freq,
         src_idx=src_idx, rcv_idx=rcv_idx, dtrec=dtrec, store_adjoint=store_adjoint,
         fused=fused, order=space_order, remat_blocks=remat_blocks,
         boundary={"sponge": _make_sponge(grid_shape, sponge_width,
@@ -819,9 +1032,14 @@ def _windowing(grid_shape, window_shape, device):
     return take, place
 
 
+def _mesh_device(mesh, device):
+    """The device a constructor builds on: the mesh's, under a mesh."""
+    return device if mesh is None else mesh.device
+
+
 def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx, freq,
                         rcv_idx, boundary, dtrec, store_adjoint, shot_map, order,
-                        remat_blocks=1, windows=None):
+                        remat_blocks=1, windows=None, mesh=None, axis="block"):
     """The multi-shot propagator of :func:`multishot_wave_operator` and the
     VTI and TTI ones (``propagate``/``adjoint``/``boundary`` as for
     :func:`_single_shot_operator`, ``gsp`` the grid each shot propagates
@@ -838,7 +1056,10 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
     straight loop and in the :class:`_Segment` segments of
     ``remat_blocks > 1``, which therefore give the same bits.
     ``windows=(window_shape, corners)`` runs each shot in its window of the
-    model (:func:`_windowing`)."""
+    model (:func:`_windowing`). ``mesh``/``axis`` shard the shots over a
+    mesh's ranks: each rank runs its slab of shots as above, and their
+    contributions to the adjoint meet in one ``all_reduce``
+    (:func:`stacked_block_operator`)."""
     dtype = gsp.dtype
     src = _index_tensor(src_indices, "cpu")
     rcv = _index_tensor(_default_receivers(gsp.size) if rcv_idx is None else rcv_idx,
@@ -937,6 +1158,8 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
         df=df,
         dft=dft,
         stack_dft=stack_dft,
+        mesh=mesh,
+        axis=axis,
         shot_map=shot_map,
     )
 
@@ -1000,6 +1223,11 @@ def multishot_wave_operator(
     ``sponge_width``, ``cmax`` scaling its damping). CPML shots run plain
     with the derived adjoint: ``store_adjoint`` and windows compose with the
     sponge only.
+
+    **Mesh**: ``mesh``/``axis`` shard the shots over a
+    :class:`~jets_tpu_torch.parallel.sharded.BlockMesh` (its size must divide
+    the shot count); the operator is built on the mesh's device, the data
+    are each rank's slab of shots and the adjoint all-reduces once.
     """
     grid_shape = tuple(int(s) for s in grid_shape)
     space_order = _check_space_order(space_order)
@@ -1034,8 +1262,6 @@ def multishot_wave_operator(
                          "the derived adjoint")
     if use_cpml and windows is not None:
         raise ValueError("ginsu windowing composes with boundary='sponge'")
-    if mesh is not None:
-        raise _not_ported("multishot_wave_operator(mesh=...)", "18")
     if use_cpml:
         a_prof, b_prof = _cpml_profiles(prop_shape, sponge_width, dt, dx, cmax, freq,
                                         dtype=dtype, free_surface=free_surface)
@@ -1043,13 +1269,13 @@ def multishot_wave_operator(
     else:
         bnd = {"sponge": _make_sponge(prop_shape, sponge_width,
                                       free_surface=free_surface, dtype=dtype)}
-    sp = Space(grid_shape, dtype, device)
+    sp = Space(grid_shape, dtype, _mesh_device(mesh, device))
     return _multishot_operator(
         sp, Space(prop_shape, dtype, sp.device),
         _propagate_cpml if use_cpml else _propagate, _adjoint_stored, src_indices,
         nt=nt, dt=dt, dx=dx, freq=freq, rcv_idx=rcv_idx, dtrec=dtrec,
         store_adjoint=store_adjoint, shot_map=shot_map, order=space_order,
-        remat_blocks=remat_blocks, windows=windows, boundary=bnd)
+        remat_blocks=remat_blocks, windows=windows, boundary=bnd, mesh=mesh, axis=axis)
 
 
 # ---------------------------------------------------------------------------
@@ -1924,14 +2150,12 @@ def multishot_vti_wave_operator(
     grid_shape = tuple(int(s) for s in grid_shape)
     space_order = _check_space_order(space_order)
     _check_store(store_adjoint)
-    if mesh is not None:
-        raise _not_ported("multishot_vti_wave_operator(mesh=...)", "18")
-    dom = _vti_domain(grid_shape, dtype, device)
+    dom = _vti_domain(grid_shape, dtype, _mesh_device(mesh, device))
     return _multishot_operator(
         dom, dom.subspace(0), _propagate_vti_m, _adjoint_stored_vti_m, src_indices,
         nt=nt, dt=dt, dx=dx, freq=freq, rcv_idx=rcv_idx, dtrec=dtrec,
         store_adjoint=store_adjoint, shot_map=shot_map, order=space_order,
-        remat_blocks=remat_blocks,
+        remat_blocks=remat_blocks, mesh=mesh, axis=axis,
         boundary={"sponge": _make_sponge(grid_shape, sponge_width, dtype=dtype)})
 
 
@@ -2408,14 +2632,12 @@ def multishot_tti_wave_operator(
     grid_shape = tuple(int(s) for s in grid_shape)
     space_order = _check_space_order(space_order)
     _check_tti(grid_shape, store_adjoint, "TTI multishot")
-    if mesh is not None:
-        raise _not_ported("multishot_tti_wave_operator(mesh=...)", "18")
-    dom = _tti_domain(grid_shape, dtype, device)
+    dom = _tti_domain(grid_shape, dtype, _mesh_device(mesh, device))
     return _multishot_operator(
         dom, dom.subspace(0), _propagate_tti_m, _adjoint_stored_tti3d_m, src_indices,
         nt=nt, dt=dt, dx=dx, freq=freq, rcv_idx=rcv_idx, dtrec=dtrec,
         store_adjoint=store_adjoint, shot_map=shot_map, order=space_order,
-        remat_blocks=remat_blocks,
+        remat_blocks=remat_blocks, mesh=mesh, axis=axis,
         boundary={"sponge": _make_sponge(grid_shape, sponge_width, dtype=dtype)})
 
 

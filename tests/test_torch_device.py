@@ -195,3 +195,40 @@ def test_resolve_device_is_the_card_and_never_falls_back(monkeypatch):
     _no_card(monkeypatch)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device(None)
+
+
+def test_distribution_picks_the_card_and_nccl_and_never_falls_back(monkeypatch):
+    """``init_distributed()`` and ``make_block_mesh()`` with no device take
+    this rank's card (``cuda:{LOCAL_RANK % device_count}``) and NCCL; where
+    there is no card they raise. The process group is faked, so no card is
+    needed to see the choice."""
+    import torch.distributed as dist
+
+    from jets_tpu_torch.parallel import runner, sharded
+
+    calls = {}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: calls.setdefault("device", d))
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: calls.setdefault("backend", backend))
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: 0)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 1)
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: calls["backend"])
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    assert runner.init_distributed() == 0
+    assert calls == {"device": torch.device("cuda", 1), "backend": "nccl"}
+    mesh = sharded.make_block_mesh()
+    assert mesh.device == torch.device("cuda", 1) and mesh.backend == "nccl"
+    calls.clear()
+    runner.init_distributed("gloo", device="cuda")  # gloo on the card only when asked
+    assert calls["backend"] == "gloo"
+    calls.clear()
+    runner.init_distributed(device="cpu")
+    assert calls == {"backend": "gloo"}
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runner.init_distributed()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sharded.make_block_mesh()

@@ -5,7 +5,9 @@ solving BASELINE config 3 with CGLS and config 1's operator with GMRES,
 importing every module of the symmetric spaces and the operator packs, and
 inverting the DSP chain and the blending model with LSQR, hashing,
 checkpointing, compressing and streaming through ``jets_tpu_torch.utils``
-(whose native libraries build with g++), on the CPU, with
+(whose native libraries build with g++), importing every module of
+``jets_tpu_torch.parallel`` and solving with LSQR on a one-rank gloo mesh,
+on the CPU, with
 ``jax``, ``jaxlib`` and ``jets_tpu`` blocked from import) needs neither
 nvcc nor triton nor a built kernel library."""
 import os
@@ -30,6 +32,14 @@ from jets_tpu_torch.solvers import lsqr
 A, m, d = make_seismic_problem((8, 8, 16), 2, 8, seed=0, noise=0.05, device="cpu")
 res = lsqr(A, d, maxiter=5, tol=0.0)
 assert res.iterations == 5 and bool(torch.isfinite(res.history).all())
+import importlib
+for mod in ("runner", "sharded", "collectives", "hetero"):
+    importlib.import_module("jets_tpu_torch.parallel." + mod)
+from jets_tpu_torch.parallel.sharded import make_block_mesh
+mesh = make_block_mesh(device="cpu")  # one gloo rank
+Am, _, dm = make_seismic_problem((8, 8, 16), 2, 8, seed=0, noise=0.05, mesh=mesh)
+rm = lsqr(Am, dm, maxiter=5, tol=0.0)
+assert mesh.backend == "gloo" and torch.equal(rm.x, res.x)
 g = torch.Generator().manual_seed(0)
 lhs, rhs = tt.dot_product_test(A, A.dom.randn(g), A.rng.randn(g))
 assert abs(float(lhs) - float(rhs)) <= 1e-4 * abs(float(rhs))

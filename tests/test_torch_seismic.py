@@ -19,7 +19,7 @@ from jets_tpu.models.seismic import make_seismic_operator as jax_make_seismic_op
 from jets_tpu.models.seismic import _receiver_grid as jax_receiver_grid
 from jets_tpu_torch.models import seismic as ts
 from jets_tpu_torch.models.seismic import seismic_operator_from_arrays
-from jets_tpu_torch.parallel.sharded import stacked_block_operator
+from jets_tpu_torch.parallel.sharded import make_block_mesh, stacked_block_operator
 
 CPU = torch.device("cpu")  # the tests build on the CPU, as a caller asks
 
@@ -152,11 +152,18 @@ def test_make_seismic_problem_is_seeded_and_validates():
         seismic_operator_from_arrays((64, 64), 4, 64, wr=np.ones((3, 64)), device=CPU)
     with pytest.raises(ValueError, match="rcv"):
         seismic_operator_from_arrays((64, 64), 4, 67, wr=np.ones((4, 67)), device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 item 18"):
-        ts.make_seismic_operator((64, 64), 4, 64, mesh=object(), device=CPU)
+    # mesh= on a world of one: the same operator and problem, bitwise
+    mesh = make_block_mesh(device=CPU)
+    A6 = ts.make_seismic_operator((64, 64), 4, 67, wr=wr, rcv=rcv, mesh=mesh)
+    assert A6.dom.device == CPU and A6.rng.shape == (4, 67)
+    assert torch.equal(A6(x), A4(x)) and torch.equal(A6.H(A4(x)), A4.H(A4(x)))
+    A7, m7, d7 = ts.make_seismic_problem((16, 16, 128), 4, 64, seed=5, noise=0.1, mesh=mesh)
+    assert torch.equal(m7, m) and torch.equal(d7, d)
+    assert "adjoint_axpy_norm" not in ts.make_seismic_operator(
+        (16, 16, 128), 4, 64, mesh=mesh, epilogue_hook=True).jet.state
 
 
-def _block_op(shot_map, derived):
+def _block_op(shot_map, derived, mesh=None):
     """A stacked operator whose child kernels are batched over shots:
     d[b] = w[b] * (M m) with M shared."""
     rng = np.random.default_rng(4)
@@ -172,7 +179,7 @@ def _block_op(shot_map, derived):
     return stacked_block_operator(
         nblocks=3, dom=tt.Space((7,), torch.float64, device=CPU),
         rng_block=tt.Space((5,), torch.float64, device=CPU), bstate={"w": w},
-        sstate={"M": M}, df=df, dft=None if derived else dft, shot_map=shot_map)
+        sstate={"M": M}, df=df, dft=None if derived else dft, shot_map=shot_map, mesh=mesh)
 
 
 @pytest.mark.parametrize("shot_map", ["vmap", "map"])
@@ -200,5 +207,10 @@ def test_stacked_block_operator_validation():
                                sstate={"w": torch.ones(3)}, **kw)
     with pytest.raises(ValueError, match="leading dim"):
         stacked_block_operator(bstate={"w": torch.ones(4)}, **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 18"):
-        stacked_block_operator(bstate={}, mesh=object(), **kw)
+    mesh = make_block_mesh(device=CPU)  # a world of one: the mesh path, bitwise
+    for shot_map, derived in (("vmap", False), ("vmap", True), ("map", True)):
+        ref, op = _block_op(shot_map, derived), _block_op(shot_map, derived, mesh)
+        m = torch.arange(7.0, dtype=torch.float64)
+        d = torch.linspace(-1, 1, 15, dtype=torch.float64).reshape(3, 5)
+        assert op.rng.local_shape == (3, 5) and op.rng.mesh is mesh
+        assert torch.equal(op(m), ref(m)) and torch.equal(op.H(d), ref.H(d))

@@ -35,6 +35,7 @@ from jets_tpu.ops import wave as jw
 from jets_tpu_torch import BlockVector
 from jets_tpu_torch.ops import cuda_tti as ct
 from jets_tpu_torch.ops import wave as tw
+from jets_tpu_torch.parallel.sharded import make_block_mesh
 from jets_tpu_torch.ops.stencil import d1_axis
 
 CPU = torch.device("cpu")  # the tests build on the CPU, as a caller asks
@@ -478,12 +479,19 @@ def test_what_is_not_ported_names_its_roadmap_item():
     m = tt.BlockVector((torch.full((12, 12), 1500.0), torch.full((12, 12), 0.1),
                         torch.full((12, 12), 0.05), torch.full((12, 12), 0.3)), F4.dom)
     assert torch.equal(F4(m), tw.tti_wave_propagator((12, 12), nt=6, device=CPU)(m))
-    with pytest.raises(NotImplementedError, match="queue 1 item 18"):
-        tw.multishot_tti_wave_operator((20, 20), [5, 9], mesh=object(), device=CPU)
     Fv = tw.multishot_tti_wave_operator((20, 20), [5, 9], nt=4, remat_blocks=2,
                                         device=CPU)  # vmap takes remat segments
     mv = tt.BlockVector((torch.full((20, 20), 1500.0), torch.full((20, 20), 0.1),
                          torch.full((20, 20), 0.05), torch.full((20, 20), 0.3)), Fv.dom)
+    for shot_map in ("map", "vmap"):  # mesh= on a world of one: bitwise
+        Fmesh = tw.multishot_tti_wave_operator((20, 20), [5, 9], nt=4, shot_map=shot_map,
+                                               mesh=make_block_mesh(device=CPU))
+        F1 = tw.multishot_tti_wave_operator((20, 20), [5, 9], nt=4, shot_map=shot_map,
+                                            device=CPU)
+        d1 = F1(mv)
+        assert torch.equal(Fmesh(mv), d1)
+        for a, b in zip(Fmesh.linearize(mv).H(d1), F1.linearize(mv).H(d1)):
+            assert torch.equal(a, b)
     assert torch.equal(Fv(mv), tw.multishot_tti_wave_operator((20, 20), [5, 9], nt=4,
                                                               device=CPU)(mv))
     Fm = tw.multishot_tti_wave_operator((20, 20), [5, 9], nt=4, remat_blocks=2,

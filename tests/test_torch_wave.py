@@ -24,6 +24,7 @@ import jets_tpu_torch as tt
 from jets_tpu.ops import wave as jw
 from jets_tpu_torch.ops import cuda_wave as cw
 from jets_tpu_torch.ops import wave as tw
+from jets_tpu_torch.parallel.sharded import block_sharding, make_block_mesh
 
 CPU = torch.device("cpu")  # the tests build on the CPU, as a caller asks
 
@@ -251,8 +252,22 @@ def test_validation_and_what_is_not_ported():
     c = _T(_velocity(SHAPE2))
     assert torch.equal(tw.wave_propagator(SHAPE2, nt=8, remat_blocks=4, device=CPU)(c),
                        tw.wave_propagator(SHAPE2, nt=8, device=CPU)(c))
-    with pytest.raises(NotImplementedError, match="queue 1 item 18"):
-        tw.wave_propagator(SHAPE2, wavefield_sharding=object(), device=CPU)
+    # the z-slab sharding on a world of one: the unsharded operator, bitwise
+    mesh = make_block_mesh(axis="grid", device=CPU)
+    ws = block_sharding(mesh, "grid")
+    c3 = _T(_velocity(SHAPE3))
+    for fused in (False, True):
+        F0 = tw.wave_propagator(SHAPE3, fused=fused, store_adjoint="int8", device=CPU, **KW3)
+        Fs = tw.wave_propagator(SHAPE3, fused=fused, store_adjoint="int8",
+                                wavefield_sharding=ws, **KW3)
+        assert Fs.dom.mesh is mesh and Fs.dom.local_shape == SHAPE3
+        d0 = F0(c3)
+        assert torch.equal(Fs(c3), d0)
+        assert torch.equal(Fs.linearize(c3).H(d0), F0.linearize(c3).H(d0))
+    with pytest.raises(ValueError, match="wavefield_sharding"):
+        tw.wave_propagator(SHAPE2, wavefield_sharding=ws)
+    with pytest.raises(ValueError, match="wavefield_sharding"):
+        tw.wave_propagator(SHAPE3, wavefield_sharding=object())
     srcs = [5, 9]
     Fw = tw.multishot_wave_operator((20, 20), srcs, nt=4, window_shape=(16, 16),
                                     window_corners=[[0, 0], [4, 4]], device=CPU)
@@ -270,7 +285,13 @@ def test_validation_and_what_is_not_ported():
                                    device=CPU)
     with pytest.raises(ValueError, match="boundary"):
         tw.multishot_wave_operator((20, 20), srcs, boundary="pml", device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 item 18"):
-        tw.multishot_wave_operator((20, 20), srcs, mesh=object(), device=CPU)
+    for shot_map in ("map", "vmap"):  # mesh= on a world of one: bitwise
+        Fm = tw.multishot_wave_operator((20, 20), srcs, nt=4, shot_map=shot_map,
+                                        mesh=make_block_mesh(device=CPU))
+        F1 = tw.multishot_wave_operator((20, 20), srcs, nt=4, shot_map=shot_map,
+                                        device=CPU)
+        d1 = F1(c20)
+        assert torch.equal(Fm(c20), d1)
+        assert torch.equal(Fm.linearize(c20).H(d1), F1.linearize(c20).H(d1))
     with pytest.raises(ValueError, match="shot_map"):
         tw.multishot_wave_operator((20, 20), srcs, shot_map="scan", device=CPU)
