@@ -313,11 +313,18 @@ def check_history(res, maxiter, dnorm, phase):
 # flagships, configs 5 and 4, config 1 at float32, then an odd length (vector
 # path + scalar tail) and its offset view (the unaligned scalar path), then
 # the LSQR models of the tenth path (phases 57 and 59).
+# The grid slabs of phases 67-68 (the 3-D flagship and configs 5 and 4 on a
+# (2, 2) block x grid mesh, each rank its half of the leading dimension) for
+# K1, and the halo-extended slabs K3 runs on there (one plane each side; the
+# (1, 1) mesh's slab is the whole grid).
+GRID_SLABS = ((128, 256, 256), (64, 128, 64), (64, 128))
+K3_SLABS = ((258, 256, 256), (130, 256, 256), (130, 128, 64), (66, 128, 64))
 SOLVER_SHAPES = [((256, 256, 256), 0), ((2048, 2048), 0), ((128, 128, 64), 0),
                  ((128, 128), 0), ((1000,), 0), ((1000003,), 0), ((1000003,), 1),
-                 ((16, 4096, 2048), 0), ((1024, 2000), 0)]
+                 ((16, 4096, 2048), 0), ((1024, 2000), 0)] + [(s, 0) for s in GRID_SLABS]
 SOLVER_SHAPES_TEXT = ("256^3, 2048^2, 128x128x64, 128^2, 1000 and 1000003 "
-                      "aligned/unaligned, and the tenth path's 16x4096x2048 and 1024x2000")
+                      "aligned/unaligned, the tenth path's 16x4096x2048 and 1024x2000, and "
+                      "the grid slabs of phases 67-68")
 
 # The shapes at which phase 1 holds the wave kernels against their plain
 # versions, one list per kernel family: the 256^3 flagship first, then every
@@ -2017,6 +2024,7 @@ FLAGSHIP = ((256, 256, 256), 16, 4096)
 MSRC = np.ravel_multi_index((np.full(16, 128), np.full(16, 128), 16 + 14 * np.arange(16)),
                             (256, 256, 256))
 RANKS, RANK_TIMEOUT = 2, 480.0
+DIST_REF = {}  # phase 65's 16-shot multishot gradient
 
 
 def _wall_ms(fn, mesh=None):
@@ -2130,6 +2138,7 @@ def distribution(smi, c_true, src0, wkw, flagship_ref):
     _add(launched, c)
     live(g1, "multishot gradient")
     assert torch.equal(dm, d1) and torch.equal(gm, g1), "mesh multishot differs"
+    DIST_REF["ms_grad"] = g1  # phase 68 holds its block x grid multishot to it
     msgs.append(f"iso multishot {wshape}, {nsh} shots, nt 220, map, int8 gradient at 1500 "
                 f"m/s: traces and gradient bitwise with and without mesh; launches {c}")
     del F1, Fm, dm, gm
@@ -2353,6 +2362,386 @@ def rank_main(rank, world, tmp):
     return 0
 
 
+# Phases 67-68: the block x grid mesh. The wave checks' shardings (phase 67
+# on the (1, 1) mesh; phase 68 runs the pencil), the physics with their model
+# blocks beyond c, the 4 ranks of phase 68 as a (2, 2) mesh and their hard
+# limit (seconds; every collective of their group has half of it).
+SPECS67 = {"P(grid)": ("grid",), "P(None, grid)": (None, "grid"),
+           "P(block, grid)": ("block", "grid")}
+PHYSICS = {"iso": (), "VTI": (0.1, 0.05), "TTI": (0.1, 0.05, 0.2, 0.7)}
+MESH68, RANK68_TIMEOUT = (2, 2), 600.0
+# config 5's x is compared across meshes after this many iterations: in
+# float32 its LSQR reaches the noise floor by then, and later iterates drift
+# by roundoff (shots split over 4 ranks alone move x by a relative 6 at 30
+# iterations on the CPU, with the same residual)
+CONFIG5_EARLY = 10
+
+
+def _physics_model(name, F, c):
+    """The model of ``name`` on ``F``'s domain: ``c`` (a slab under a
+    sharding) and the constant blocks of :data:`PHYSICS`."""
+    from jets_tpu_torch import BlockVector
+
+    if name == "iso":
+        return c
+    return BlockVector((c,) + tuple(torch.full_like(c, v) for v in PHYSICS[name]), F.dom)
+
+
+def _grid_space(F):
+    """The grid space of a propagator: its domain, or its first block's."""
+    return F.dom if F.dom.__class__.__name__ != "BlockSpace" else F.dom.subspace(0)
+
+
+def _make(name):
+    from jets_tpu_torch.ops.wave import (tti_wave_propagator, vti_wave_propagator,
+                                         wave_propagator)
+
+    return {"iso": wave_propagator, "VTI": vti_wave_propagator,
+            "TTI": tti_wave_propagator}[name]
+
+
+def _dcp_tree(A, state):
+    """The LSQR state with its sharded leaves as DTensors of their global
+    arrays (the layout a checkpoint writes and loads)."""
+    return state._replace(x=A.dom.to_dtensor(state.x), v=A.dom.to_dtensor(state.v),
+                          w=A.dom.to_dtensor(state.w), u=A.rng.to_dtensor(state.u))
+
+
+def block_by_grid(smi, c_true, src0, wkw, flagship_ref):
+    """Phases 67-68: the block x grid mesh (``parallel.gspmd``).
+
+    Phase 67, world size 1 on NCCL in this process (``make_mesh_2d(1, 1)``):
+    the 3-D flagship's LSQR (50 iterations) with the grid-sharded model, x
+    and history bitwise phase 3's, and a DCP round trip of its LSQR state
+    (DTensor leaves) bitwise; configs 4 and 5 with ``mesh=`` bitwise phases
+    42-43; iso, VTI and TTI at 256^3, nt 220, under P(grid), P(None, grid)
+    and P(block, grid): traces and int8 gradients (every block) bitwise the
+    unsharded plain route (K4 is bitwise the plain step, so the P(grid)
+    slab on K4 is held to it too).
+
+    Phase 68, 4 gloo ranks on the one card as a (2, 2) mesh (this script run
+    as ``--rank2d r 4 dir``, each a subprocess under a hard time limit):
+    config 5 at its defaults under its threshold and at phase 67's residual,
+    and its x after 10 iterations against phase 67's;
+    the flagship's LSQR with ms per iteration and x against phase 67's;
+    iso, VTI and TTI at 256^3 under the pencil P(block, grid): traces and
+    int8 gradients against phase 67's unsharded plain route; the 16-shot
+    iso block x grid multishot gradient against phase 65's; the LSQR state
+    written by the 4 ranks as a DCP checkpoint and reloaded here, bitwise
+    the ranks' gathered state; us per pencil step, halo time per dimension,
+    all-reduce time per group, peak memory per rank. Counts from 0; returns
+    the launches, the ranks' included."""
+    import os
+    import shutil
+    import tempfile
+
+    from jets_tpu_torch.models import configs
+    from jets_tpu_torch.models.seismic import make_seismic_problem
+    from jets_tpu_torch.parallel.gspmd import make_mesh_2d
+    from jets_tpu_torch.parallel.sharded import BlockSharding, ShardedSpace
+    from jets_tpu_torch.solvers import lsqr
+    from jets_tpu_torch.solvers.krylov import LSQRState
+    from jets_tpu_torch.utils import load_checkpoint_orbax, save_checkpoint_orbax
+
+    dev = c_true.device
+    wshape = tuple(c_true.shape)
+    t_ph = time.perf_counter()
+    launched = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_block_grid_")
+    try:
+        # ---- phase 67: world size 1 on NCCL, the (1, 1) block x grid mesh --------
+        mesh2 = make_mesh_2d(1, 1)
+        assert mesh2.backend == "nccl" and mesh2.shape == {"block": 1, "grid": 1}, mesh2
+        grid3, nshots3, nrecv = FLAGSHIP
+        _reset_all()
+        A, _, d = make_seismic_problem(grid3, nshots3, nrecv, seed=0, noise=0.05, mesh=mesh2)
+        assert isinstance(A.dom, ShardedSpace) and A.dom.spec == ("grid",), A.dom
+        r = lsqr(A, d, maxiter=50, tol=0.0)
+        c = _counts_all()
+        assert c == {"xw_update": 50, "laplacian3d": 51}, c
+        _add(launched, c)
+        assert torch.equal(r.x, flagship_ref[0]), "block x grid LSQR x differs from phase 3's"
+        assert torch.equal(r.history, flagship_ref[1]), "... history differs from phase 3's"
+        x67 = r.x
+        relres67 = {}
+        ms67 = ms_per_iter(lsqr, A, d, 10, 60)
+        ck = os.path.join(tmp, "state67")
+        save_checkpoint_orbax(ck, _dcp_tree(A, r.state))
+        like = lsqr(A, d, maxiter=1, tol=0.0).state
+        back = load_checkpoint_orbax(ck, _dcp_tree(A, like))
+        for k in ("x", "v", "w", "u"):
+            sp = A.rng if k == "u" else A.dom
+            assert torch.equal(sp.from_dtensor(getattr(back, k)), getattr(r.state, k)), k
+        for k in ("alpha", "phibar", "rhobar"):
+            assert torch.equal(getattr(back, k).to(dev), getattr(r.state, k)), k
+        assert back.i == r.state.i == 50
+        msgs = [f"flagship LSQR {grid3} x {nshots3} shots x {nrecv} rcv on mesh "
+                f"{mesh2.shape} ({mesh2.backend}, model sharded over grid): x and history of "
+                f"50 iterations bitwise phase 3's; launches {c}; {ms67:.4f} ms/iter (marginal "
+                "10->60, CUDA events); its LSQR state through a DCP checkpoint (DTensor "
+                "leaves) bitwise"]
+        del A, d, r, like, back
+        for name, (phase, maxiter, threshold) in MESH_CONFIGS.items():
+            _reset_all()
+            res, relres, A = configs.run_config(getattr(configs, name), maxiter=maxiter,
+                                                tol=1e-10, mesh=mesh2)
+            it = res.iterations
+            c = _counts_all()
+            expect = {"xw_update": it,
+                      **({"laplacian3d": it + 1} if A.dom.ndim == 3 else {})}
+            assert c == expect, f"{name}: launches {c} after {it} iterations"
+            _add(launched, c)
+            assert relres < threshold, f"{name}: relative residual {relres} >= {threshold}"
+            assert torch.equal(res.x, BASELINE_X[name]), f"{name}: x differs from phase {phase}'s"
+            msgs.append(f"{name} on mesh {mesh2.shape}: {it} iterations, relative residual "
+                        f"{relres:.6e} (< {threshold:g}), x bitwise phase {phase}'s, launches {c}")
+            relres67[name] = relres
+            del res, A
+        _reset_all()
+        x10 = configs.run_config(configs.config5_seismic3d_pod, maxiter=CONFIG5_EARLY,
+                                 tol=1e-10, mesh=mesh2)[0].x
+        _add(launched, _counts_all())
+        wkw220 = dict(nt=220, src_idx=src0, **wkw)
+        refs = {}
+        for name in PHYSICS:
+            make = _make(name)
+            _reset_all()
+            F0 = make(wshape, fused=False, **wkw220)
+            m = _physics_model(name, F0, c_true)
+            d0 = F0(m)
+            live(d0, f"{name} traces")
+            g0 = make(wshape, fused=False, store_adjoint="int8", **wkw220).linearize(m).H(d0)
+            assert _counts_all() == {}, f"{name} plain route launched {_counts_all()}"
+            torch.save(d0.cpu(), os.path.join(tmp, f"dd_{name}.pt"))
+            refs[name] = (d0.cpu(), [b.cpu() for b in _blocks(g0)])
+            del F0, g0
+            for sname, spec in SPECS67.items():
+                ws = BlockSharding(mesh2, spec)
+                _reset_all()
+                Fs = make(wshape, wavefield_sharding=ws, **wkw220)
+                ms = _physics_model(name, Fs, c_true)
+                ds = Fs(ms)
+                gs = make(wshape, wavefield_sharding=ws, store_adjoint="int8",
+                          **wkw220).linearize(ms).H(d0)
+                c = _counts_all()
+                k4 = name == "iso" and spec == ("grid",)
+                assert c == ({"fused_leapfrog_step": 2 * 220} if k4 else {}), (name, sname, c)
+                _add(launched, c)
+                assert torch.equal(ds, d0), f"{name} {sname}: traces not bitwise"
+                for i, (a, b) in enumerate(zip(_blocks(gs), refs[name][1])):
+                    assert torch.equal(a.cpu(), b), f"{name} {sname}: gradient[{i}] not bitwise"
+                del Fs, ms, ds, gs
+            msgs.append(f"{name} {wshape}, nt 220, under {', '.join(SPECS67)}: traces and "
+                        f"{len(refs[name][1])} int8 gradient block(s) bitwise the unsharded "
+                        "plain route" + (" (P(grid) on K4: 440 launches)" if name == "iso"
+                                         else ""))
+            del d0
+        log(67, "; ".join(msgs) + f"; phase 67 in {time.perf_counter() - t_ph:.1f} s "
+                f"[{smi}]")
+
+        # ---- phase 68: 4 ranks on the one card over gloo, a (2, 2) mesh -----------
+        t68 = time.perf_counter()
+        world = MESH68[0] * MESH68[1]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank2d", str(r), str(world), tmp],
+            env={**os.environ, "LOCAL_RANK": str(r)}, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        outs, deadline = [], time.perf_counter() + RANK68_TIMEOUT
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            print(out, end="", flush=True)
+            assert p.returncode == 0, f"phase 68 rank {r} failed (rc {p.returncode})"
+        res = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank2d_{r}.json")) as f:
+                res.append(json.load(f))
+        q = res[0]
+        load = lambda n: torch.load(os.path.join(tmp, n))  # noqa: E731
+        x5 = load("x5.pt").to(dev)
+        name5 = "config5_seismic3d_pod"
+        thr5 = MESH_CONFIGS[name5][2]
+        assert q["relres5"] < thr5, f"config 5 on (2, 2): relative residual {q['relres5']}"
+        drift = abs(q["relres5"] - relres67[name5]) / relres67[name5]
+        assert drift <= 1e-3, f"config 5 relative residual {q['relres5']} vs {relres67[name5]}"
+        msgs = [f"{world} ranks over gloo as a {MESH68} mesh ({q['transport']} for the halos) "
+                f"in {time.perf_counter() - t68:.1f} s; config 5 at its defaults: "
+                f"{q['it5']} iterations, relative residual {q['relres5']:.6e} (< {thr5:g}; "
+                f"phase 67's {relres67[name5]:.6e}, rel diff {drift:.2e} <= 1e-3); x after "
+                f"{CONFIG5_EARLY} iterations vs phase 67's " + agree(x5, x10, "x", 1e-5)
+                + " (the ranks' partial sums add in another order; later float32 iterates "
+                "sit at the noise floor and drift by roundoff, so x is held there)"]
+        x68 = load("x.pt").to(dev)
+        msgs.append(f"flagship LSQR 50 iterations, {nshots3 // MESH68[0]} shots and "
+                    f"{grid3[0] // MESH68[1]} planes per rank: x vs phase 67's "
+                    + agree(x68, x67, "x", 1e-4) + f"; {q['ms_per_iter']:.3f} ms per LSQR "
+                    "iteration (rank 0, marginal 10->30, host clock)")
+        gathered = load("state68.pt")
+        zero = {k: torch.zeros_like(v) for k, v in gathered.items() if k != "i"}
+        back = load_checkpoint_orbax(os.path.join(tmp, "state68"),
+                                     LSQRState(**zero, i=0))
+        for k, v in gathered.items():
+            got = getattr(back, k)
+            assert (got == v) if k == "i" else torch.equal(got, v), f"DCP state {k} differs"
+        msgs.append("the LSQR state the 4 ranks wrote (DCP, each its slabs) reloaded in a "
+                    "world of one: every leaf bitwise the ranks' gathered state")
+        nb, ng = MESH68
+        for name in PHYSICS:
+            d0, g0 = refs[name]
+            for r in range(world):
+                tr = load(f"traces_{name}_{r}.pt")
+                assert torch.equal(tr, d0), f"rank {r}'s {name} pencil traces differ"
+            gs = [torch.zeros_like(b) for b in g0]
+            for r in range(world):
+                zb, yb = r // ng, r % ng
+                D, H = wshape[0] // nb, wshape[1] // ng
+                for b, slab in zip(gs, load(f"grad_{name}_{r}.pt")):
+                    b[zb * D:(zb + 1) * D, yb * H:(yb + 1) * H] = slab
+            msgs.append(f"{name} under the pencil P(block, grid), nt 220: every rank's traces "
+                        "bitwise the unsharded plain route's; int8 gradient "
+                        + ", ".join(same(a, b, f"block {i}")
+                                    for i, (a, b) in enumerate(zip(gs, g0))))
+        gm = load("gm.pt").to(dev)
+        msgs.append(f"{len(MSRC)}-shot int8 multishot gradient, shots over block and "
+                    "each shot's wavefield over grid (K4 on the z-slabs), vs phase 65's "
+                    + agree(gm, DIST_REF["ms_grad"], "gradient", 1e-5)
+                    + " (the shots' sum in another order, the reverse sweep plain)")
+        for q_ in res:
+            _add(launched, q_["launches"])
+        msgs.append(
+            "rank 0: us per pencil step (marginal nt 20->120, host clock) "
+            + ", ".join(f"{k} {v:.1f}" for k, v in q["us_per_step"].items())
+            + "; halo exchange of 1 plane each way " + ", ".join(
+                f"dim {k} {v:.1f} us" for k, v in q["halo_us"].items())
+            + "; all_reduce of the flagship model slab " + ", ".join(
+                f"over {k} {v:.2f} ms" for k, v in q["allreduce_ms"].items())
+            + "; peak device memory per rank " + ", ".join(
+                f"{q_['peak_gib']:.2f}" for q_ in res) + " GiB; launches per rank "
+            + str([q_["launches"] for q_ in res]))
+        log(68, "; ".join(msgs) + f" [{smi}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.distributed.destroy_process_group()  # phase 67's world of one
+    return launched
+
+
+def rank2d_main(rank, world, tmp):
+    """One rank of phase 68: ``python3 chip_smoke.py --rank2d r world dir``.
+    Joins a gloo group of ``world`` ranks on this card through a file in
+    ``dir``, makes the (2, 2) block x grid mesh, runs config 5, the flagship
+    LSQR (its state written as a DCP checkpoint), iso, VTI and TTI under the
+    pencil and the 16-shot multishot gradient with their launches counted,
+    then times them, and writes what the parent compares into ``dir``."""
+    import os
+
+    import torch.distributed as dist
+
+    from jets_tpu_torch.models import configs
+    from jets_tpu_torch.models.seismic import make_seismic_problem
+    from jets_tpu_torch.ops.wave import multishot_wave_operator
+    from jets_tpu_torch.parallel import runner
+    from jets_tpu_torch.parallel.collectives import (gather_blocks, halo_exchange,
+                                                     halo_transport, sum_replicated)
+    from jets_tpu_torch.parallel.gspmd import make_mesh_2d, shard_model
+    from jets_tpu_torch.parallel.sharded import BlockSharding
+    from jets_tpu_torch.solvers import lsqr
+    from jets_tpu_torch.utils import save_checkpoint_orbax
+
+    t0 = time.perf_counter()
+    runner.init_distributed("gloo", device="cuda",
+                            init_method="file://" + os.path.join(tmp, "store2d"), rank=rank,
+                            world_size=world, timeout=RANK68_TIMEOUT / 2)
+    mesh2 = make_mesh_2d(*MESH68, device="cuda")
+    assert mesh2.backend == "gloo" and mesh2.size == world, mesh2
+    dev = mesh2.device
+    out = {"transport": halo_transport(mesh2)}
+    save = lambda t, n: torch.save(t, os.path.join(tmp, n))  # noqa: E731
+    _reset_all()
+
+    res, relres, A5 = configs.run_config(configs.config5_seismic3d_pod,
+                                         maxiter=MESH_CONFIGS["config5_seismic3d_pod"][1],
+                                         tol=1e-10, mesh=mesh2)
+    out["relres5"], out["it5"] = relres, int(res.iterations)
+    res = configs.run_config(configs.config5_seismic3d_pod, maxiter=CONFIG5_EARLY, tol=1e-10,
+                             mesh=mesh2)[0]
+    x5 = gather_blocks(res.x, A5.dom.shape[0], mesh2, "grid")
+    if rank == 0:
+        save(x5.cpu(), "x5.pt")
+    del res, A5, x5
+
+    grid3, nshots3, nrecv = FLAGSHIP
+    A, _, d = make_seismic_problem(grid3, nshots3, nrecv, seed=0, noise=0.05, mesh=mesh2)
+    r = lsqr(A, d, maxiter=50, tol=0.0)
+    st = r.state
+    save_checkpoint_orbax(os.path.join(tmp, "state68"), _dcp_tree(A, st))
+    full = {k: gather_blocks(getattr(st, k), grid3[0], mesh2, "grid").cpu()
+            for k in ("x", "v", "w")}
+    full["u"] = gather_blocks(st.u, nshots3, mesh2, "block").cpu()
+    full.update({k: getattr(st, k).cpu() for k in ("alpha", "phibar", "rhobar")})
+    if rank == 0:
+        save(full["x"], "x.pt")
+        save({**full, "i": st.i}, "state68.pt")
+    del full
+
+    c_true, src0, wkw, _ = wave_model(dev)
+    wshape = tuple(c_true.shape)
+    ws = BlockSharding(mesh2, ("block", "grid"))
+    for name in PHYSICS:
+        make = _make(name)
+        Fs = make(wshape, nt=220, src_idx=src0, wavefield_sharding=ws, **wkw)
+        m = _physics_model(name, Fs, _grid_space(Fs).local(c_true).contiguous())
+        save(Fs(m).cpu(), f"traces_{name}_{rank}.pt")
+        dd = torch.load(os.path.join(tmp, f"dd_{name}.pt")).to(dev)
+        g = make(wshape, nt=220, src_idx=src0, wavefield_sharding=ws, store_adjoint="int8",
+                 **wkw).linearize(m).H(dd)
+        save([b.cpu() for b in _blocks(g)], f"grad_{name}_{rank}.pt")
+        del Fs, m, g
+
+    Fm = multishot_wave_operator(wshape, MSRC, nt=220, store_adjoint="int8", mesh=mesh2,
+                                 **wkw)
+    c_l = shard_model(c_true, mesh2)
+    gm = Fm.linearize(torch.full_like(c_l, 1500.0)).H(Fm(c_l))
+    gm = gather_blocks(gm, wshape[0], mesh2, "grid")
+    if rank == 0:
+        save(gm.cpu(), "gm.pt")
+    del Fm, gm
+    out["launches"] = _counts_all()
+    print(f"[phase 68 rank {rank}/{world}] main path done in {time.perf_counter() - t0:.1f} "
+          f"s (start-up included) on {dev}: launches {out['launches']}", flush=True)
+
+    t = {n: _wall_ms(lambda n=n: lsqr(A, d, maxiter=n, tol=0.0), mesh2) for n in (10, 30)}
+    out["ms_per_iter"] = (t[30] - t[10]) / 20
+    out["us_per_step"] = {}
+    for name in PHYSICS:
+        ops = {n: _make(name)(wshape, nt=n, src_idx=src0, wavefield_sharding=ws, **wkw)
+               for n in (20, 120)}
+        m = _physics_model(name, ops[20], _grid_space(ops[20]).local(c_true).contiguous())
+        t = {n: _wall_ms(lambda op=op: op(m), mesh2) for n, op in ops.items()}
+        out["us_per_step"][name] = 1e3 * (t[120] - t[20]) / 100
+    slab = torch.ones((wshape[0] // MESH68[0], wshape[1] // MESH68[1], wshape[2]),
+                      device=dev)
+    out["halo_us"] = {d_: 1e3 * _wall_ms(lambda d_=d_, a=a: [
+        halo_exchange(slab, 1, mesh2, d_, a) for _ in range(50)], mesh2) / 50
+        for d_, a in ((0, "block"), (1, "grid"))}
+    groups = {"block": "block", "grid": "grid", "block x grid": ("block", "grid")}
+    out["allreduce_ms"] = {k: _wall_ms(lambda a=a: [sum_replicated(A.dom.zeros(), mesh2, a)
+                                                    for _ in range(5)], mesh2) / 5
+                           for k, a in groups.items()}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(tmp, f"rank2d_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
 def wave_model(dev):
     """The wave paths' 256^3 model and geometry: ``c_true``, 1500 m/s plus
     four smooth Gaussian anomalies drawn from a numpy seed; the source at
@@ -2450,8 +2839,9 @@ def main() -> int:
         assert torch.equal(xk, xp) and torch.equal(wk, wp), f"K1 not bitwise at {shape}"
         err["xw_update"] = max(err["xw_update"], float((xk - xp).abs().max()),
                                float((wk - wp).abs().max()))
-    # K3 at config 5's grid, then the flagship's (whose z is kept for K2)
-    for shape in ((128, 128, 64), (256, 256, 256)):
+    # K3 at config 5's grid, the extended slabs of phases 67-68, then the
+    # flagship's grid (whose z is kept for K2)
+    for shape in ((128, 128, 64),) + K3_SLABS + ((256, 256, 256),):
         z = rnd(shape)
         lap_k, lap_p = cs.laplacian3d(z), cs.laplacian3d_torch(z)
         torch.cuda.synchronize()
@@ -2468,7 +2858,7 @@ def main() -> int:
     n2_rel = abs(float(n2_k) - n2_ref) / n2_ref
     assert n2_rel <= 1e-5, f"K2 n2 rel err {n2_rel}"
     log(1, f"K1 bitwise at {SOLVER_SHAPES_TEXT} (in place); "
-           f"K3 bitwise at 128x128x64 and 256^3; K2 vh bitwise, n2 rel err {n2_rel:.3e} vs f64 "
+           f"K3 bitwise at 128x128x64, {shapes_text(K3_SLABS)} and 256^3; K2 vh bitwise, n2 rel err {n2_rel:.3e} vs f64 "
            f"(<= 1e-5); max_abs_err {err}")
     del x, w, vh, xp, wp, xk, wk, ro, rw, lap_k, lap_p, vh_k, vh_p
 
@@ -3788,6 +4178,8 @@ def main() -> int:
         main_path[k] += n
     for k, n in distribution(smi, c_true, src0, wkw, flagship_ref).items():
         main_path[k] += n
+    for k, n in block_by_grid(smi, c_true, src0, wkw, flagship_ref).items():
+        main_path[k] += n
     sources = {"solver": "jets_tpu_torch/csrc/solver_kernels.cu",
                "wave": "jets_tpu_torch/csrc/wave_kernels.cu",
                "vti": "jets_tpu_torch/csrc/vti_kernels.cu",
@@ -3830,4 +4222,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:  # one rank of phase 66, started by main
         sys.exit(rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--rank2d"]:  # one rank of phase 68, started by main
+        sys.exit(rank2d_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

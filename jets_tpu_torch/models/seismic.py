@@ -29,7 +29,12 @@ With ``mesh=`` (a :class:`~jets_tpu_torch.parallel.sharded.BlockMesh`) the
 shots shard over the mesh's ranks: each rank keeps its slab of ``wr``,
 the data are its slab of shots, and the adjoint sums the rank's shots (the
 3-D tail through K3 on that local sum), then all-reduces once. The fused
-epilogue hook is left out under a mesh, as in the JAX package.
+epilogue hook is left out under a mesh, as in the JAX package. On a 2-D
+(block × grid) mesh (:func:`~jets_tpu_torch.parallel.gspmd.make_mesh_2d`) the
+model grid splits too: the domain is the rank's slab of the leading grid
+dimension over ``"grid"``, the range its shots over ``"block"``; the forward
+and the adjoint exchange one halo plane (:func:`_grid_sharded_kernels`), the
+adjoint all-reduces over the block group only.
 """
 from __future__ import annotations
 
@@ -44,9 +49,9 @@ from ..core.spaces import Space, resolve_device
 from ..ops.cuda_solver import lap3d_axpy_norm2, laplacian3d
 from ..ops.stencil import laplacian_nd as _lap
 from ..ops.stencil import laplacian_operator
-from ..parallel.collectives import gather_blocks
+from ..parallel.collectives import gather_blocks, halo_exchange, sum_replicated
 from ..parallel.runner import local_block_range
-from ..parallel.sharded import stacked_block_operator
+from ..parallel.sharded import ShardedSpace, grid_axis, stacked_block_operator
 
 __all__ = [
     "make_seismic_operator",
@@ -190,6 +195,62 @@ def _make_sampled_stencil_df(grid_shape, counts, axes_idx):
     return df
 
 
+# -- the grid-sharded model of a block × grid mesh -------------------------------
+
+
+def _grid_sharded_kernels(grid_shape, counts, axes_idx, dom, gax):
+    """``(df, stack_dft)`` of the sampled-stencil operator on a model whose
+    leading dimension is split over the mesh axis ``gax`` (``dom``, a
+    :class:`ShardedSpace`). The forward exchanges one halo plane of ``m``
+    with the neighbours along ``gax``, samples the stencil taps at the
+    receiver rows this rank's slab owns, in :func:`_make_sampled_stencil_df`'s
+    add order, and sums the sampled rows over ``gax``: each receiver lives on
+    one rank, so adding the others' zeros is exact and the traces are the
+    unsharded ones bit for bit. The adjoint deposits the owned receiver rows
+    into the slab, exchanges its halo and applies ``L`` on the extended slab
+    (K3 on a 3-D float32 grid), keeping the interior: the slab of the
+    unsharded adjoint, bit for bit."""
+    mesh, sl = dom.mesh, dom.slices[0]
+    z0, Dl = sl.start, sl.stop - sl.start
+    idx0 = axes_idx[0].cpu().numpy()
+    rows_np = np.nonzero((idx0 >= z0) & (idx0 < z0 + Dl))[0]
+    dev = axes_idx[0].device
+    rows = torch.as_tensor(rows_np, device=dev)
+    loc0 = torch.as_tensor(idx0[rows_np] - z0, device=dev)
+    local_idx = (loc0,) + tuple(axes_idx[1:])
+    nd = len(grid_shape)
+    cat_idx = [torch.cat([i - 1, i, i + 1]) for i in (loc0 + 1,) + tuple(axes_idx[1:])]
+    own = (len(rows_np),) + tuple(counts[1:])
+
+    def _blk_slice(pos):
+        return tuple(slice(b * c, (b + 1) * c) for b, c in zip(pos, own))
+
+    center = (1,) * nd
+    taps = [(center, -2.0 * nd)]
+    for ax in range(nd):
+        for b in (0, 2):
+            taps.append((tuple(b if i == ax else 1 for i in range(nd)), 1.0))
+
+    def df(m, m0, bs):
+        E = halo_exchange(m, 1, mesh, 0, gax)
+        for ax in range(nd):
+            E = torch.index_select(E, ax, cat_idx[ax])
+        lv = None
+        for pos, cf in taps:
+            t = cf * E[_blk_slice(pos)]
+            lv = t if lv is None else lv + t
+        full = torch.zeros(tuple(counts), dtype=m.dtype, device=m.device)
+        full = full.index_copy(0, rows, lv)
+        return sum_replicated(full, mesh, gax).reshape(-1) * bs["wr"]
+
+    def stack_dft(dd, m0, bs):
+        g = torch.sum(dd * bs["wr"], dim=0).reshape(counts)
+        z = _axis_deposit(g.index_select(0, rows), dom.local_shape, local_idx)
+        return _dense_lap(halo_exchange(z, 1, mesh, 0, gax))[1:1 + Dl]
+
+    return df, stack_dft
+
+
 # -- irregular geometry: receiver-local stencil stamps ---------------------------
 
 
@@ -309,7 +370,10 @@ def seismic_operator_from_arrays(
     ``rcv`` (nreceivers,). ``rcv`` is not used with a regular subgrid, which
     is fixed by the grid shape and the receiver count. ``mesh``/``axis``
     shard the shots (the module docstring); the operator is then built on
-    the mesh's device."""
+    the mesh's device. On a 2-D mesh the model's leading dimension also
+    splits over the other axis (:func:`~jets_tpu_torch.parallel.sharded.grid_axis`):
+    the domain is a :class:`ShardedSpace` of the rank's grid slab
+    (:func:`_grid_sharded_kernels`; the fused regular geometry only)."""
     grid_shape = tuple(int(s) for s in grid_shape)
     device = mesh.device if mesh is not None else resolve_device(device)
     if impl not in ("fused", "composed"):
@@ -323,6 +387,16 @@ def seismic_operator_from_arrays(
                   mesh=mesh, axis=axis)
 
     grid_geom = _receiver_grid(grid_shape, nreceivers)
+    gax = grid_axis(mesh, axis)
+    if gax is not None:
+        if grid_geom is None or impl != "fused":
+            raise ValueError(f"a model sharded over mesh axis {gax!r} takes the fused "
+                             "operator on a regular receiver subgrid")
+        dom = common["dom"] = ShardedSpace(grid_shape, dtype, mesh, spec=(gax,))
+        axes_idx = tuple(torch.arange(c, device=device) * st + s
+                         for s, st, c in zip(*grid_geom))
+        df, stack_dft = _grid_sharded_kernels(grid_shape, grid_geom[2], axes_idx, dom, gax)
+        return stacked_block_operator(**common, df=df, stack_dft=stack_dft)
     if grid_geom is not None:
         starts, strides_g, counts = grid_geom
         axes_idx = tuple(
@@ -442,7 +516,8 @@ def make_seismic_problem(
     Krylov loops run their full iteration budget). Under ``mesh`` the data
     are the rank's slab of shots: the noise's scale is the standard
     deviation of the global data and its draw is the global draw's slab,
-    so a seed gives the same global problem on any mesh.
+    so a seed gives the same global problem on any mesh. On a 2-D mesh
+    ``m_true`` is the rank's slab of the grid.
     """
     g = torch.Generator().manual_seed(seed)
     device = mesh.device if mesh is not None else resolve_device(device)
@@ -457,6 +532,8 @@ def make_seismic_problem(
     flat = torch.zeros(n, dtype=dtype)
     flat[spikes] = 1.0
     m_true = (flat + bg).reshape(A.dom.shape).to(device)
+    if isinstance(A.dom, ShardedSpace):  # the rank's slab of the grid
+        m_true = A.dom.local(m_true).contiguous()
     d_obs = A(m_true)
     if noise > 0:
         d_all, lo = d_obs, 0

@@ -81,14 +81,18 @@ segments: per shot in ``"map"`` mode, over the whole vmapped stack in
 **Distribution** (:mod:`jets_tpu_torch.parallel`): ``mesh=`` on the three
 multishot operators shards the shots over the ranks of a
 :class:`~jets_tpu_torch.parallel.sharded.BlockMesh` (each rank's shots as
-above, their adjoint contributions met in one ``all_reduce``);
-``wavefield_sharding=block_sharding(mesh, axis)`` on
-:func:`wave_propagator` splits the isotropic grid into z-slabs over the
-ranks, exchanging ``order/2`` halo planes with the z-neighbours every step
-(:func:`_propagate_sharded`, K4 on the halo-extended slab). Not ported yet
-(each raises ``NotImplementedError`` naming ROADMAP queue 1 item 18):
-``wavefield_sharding`` on the VTI and TTI propagators, and shardings that
-are not z-only.
+above, their adjoint contributions met in one ``all_reduce`` over the shot
+axis); on a 2-D (block × grid) mesh each shot's wavefields are sharded over
+the grid axis too, the shots then running one after another.
+``wavefield_sharding=BlockSharding(mesh, spec)`` on :func:`wave_propagator`,
+:func:`vti_wave_propagator` and :func:`tti_wave_propagator` (3-D only)
+splits the grid over the ranks, any dimensions over any mesh axes: every
+step exchanges ``order/2`` halo planes with the neighbours of each sharded
+dimension (:class:`_Slab`) and runs on the halo-extended slab — K4 for a
+z-only sharding of a 3-D float32 grid, the plain step otherwise, as in the
+JAX package. A slab count that does not divide its dimension and a slab
+thinner than the halo are refused (``ValueError`` naming
+``wavefield_sharding``).
 """
 from __future__ import annotations
 
@@ -106,7 +110,8 @@ from ..core.blockspace import BlockSpace, BlockVector
 from ..core.jet import Jet, LinearOperator, Operator, with_state
 from ..core.spaces import Space, true_div
 from ..parallel.collectives import halo_exchange, max_replicated, sum_replicated
-from ..parallel.sharded import ShardedSpace, stacked_block_operator
+from ..parallel.sharded import (BlockSharding, ShardedSpace, grid_axis, local_slices,
+                                stacked_block_operator)
 from ..utils.tree import tmap
 from . import cuda_tti, cuda_vti, cuda_wave
 from .sampling import _axis_contract, kaiser_sinc_matrix, kaiser_sinc_matrix_np
@@ -130,10 +135,6 @@ __all__ = [
 ]
 
 _STORES = ("f32", "bf16", "int8")
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
 
 
 def _check_space_order(order: int) -> int:
@@ -384,14 +385,15 @@ def _c2dt2(c, dt: float, dx: float):
     return true_div((c * c) * (dt * dt), dx * dx)
 
 
-def _store_codec(store: str, dtype, mesh=None):
+def _store_codec(store: str, dtype, mesh=None, axes=None):
     """Per-snapshot ``(enc, dec)`` of the stored-wavefield adjoint: ``f32``
     lossless, ``bf16`` 2× smaller, ``int8`` max-abs-scaled 4× smaller.
     ``enc(u) -> (encoded, scale)``; ``dec(encoded, scale)`` inverts it.
     The int8 code is ``round(u·(127/s))`` (half to even, as ``jnp.round``)
-    with ``s = max(max|u|, 1e-30)``; with ``mesh`` (``u`` a z-slab) the max
-    is over the whole grid, one MAX ``all_reduce`` per snapshot, so the
-    stored bytes are those of the unsharded grid."""
+    with ``s = max(max|u|, 1e-30)``; with ``mesh`` (``u`` a rank's slab of a
+    grid split over the mesh ``axes``) the max is over the whole grid, one
+    MAX ``all_reduce`` over those axes per snapshot, so the stored bytes are
+    those of the unsharded grid."""
     if store == "f32":
         return ((lambda u: (u, torch.ones((), dtype=dtype, device=u.device))),
                 (lambda q, s: q))
@@ -403,7 +405,7 @@ def _store_codec(store: str, dtype, mesh=None):
         def enc(u):
             amax = torch.linalg.vector_norm(u, float("inf"))  # max|u|
             if mesh is not None:
-                amax = max_replicated(amax, mesh)
+                amax = max_replicated(amax, mesh, axes)
             s = torch.maximum(amax, torch.tensor(1e-30, dtype=dtype, device=u.device))
             return torch.round(u * (torch.full_like(s, 127.0) / s)).to(torch.int8), s
 
@@ -588,8 +590,8 @@ def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
 
 
 def _zonly_axis(ws):
-    """The mesh axis name when ``ws`` shards axis 0 ONLY (the z-slab layout
-    the sharded propagator supports), else None."""
+    """The mesh axis name when ``ws`` shards axis 0 ONLY, over one mesh axis
+    (the z-slab layout K4 takes), else None."""
     spec = tuple(ws.spec)
     if not spec or spec[0] is None or isinstance(spec[0], tuple):
         return None
@@ -599,101 +601,137 @@ def _zonly_axis(ws):
 
 
 def _check_wavefield_sharding(ws, shape, order: int):
-    """``ws``'s mesh, or the reason the z-slab propagator cannot take it:
-    a ``ValueError`` naming ``wavefield_sharding`` for what K4 cannot do (a
-    grid that is not 3-D, a slab count that does not divide D, a slab
-    thinner than the stencil's halo), ``NotImplementedError`` for a
-    sharding that is not z-only."""
+    """``ws``'s mesh, or a ``ValueError`` naming ``wavefield_sharding`` for
+    what the sharded propagators cannot take: a spec with more entries than
+    the grid has dimensions or with names the mesh lacks, a slab count that
+    does not divide its dimension, a slab thinner than the stencil's halo."""
     if not (hasattr(ws, "mesh") and hasattr(ws, "spec")):
-        raise ValueError("wavefield_sharding must be a parallel.sharded.block_sharding"
-                         f"(mesh, axis), got {type(ws).__name__}")
-    ax = _zonly_axis(ws)
-    if ax is None:
-        raise _not_ported(f"wavefield_sharding with spec {ws.spec} (not z-only)", "18")
-    n, hw = ws.mesh.shape[ax], order // 2
-    if len(shape) != 3:
-        raise ValueError(f"wavefield_sharding needs a 3-D grid, got {tuple(shape)}")
-    if shape[0] % n:
-        raise ValueError(f"wavefield_sharding: {n} slabs do not divide D = {shape[0]}")
-    if shape[0] // n < hw:
-        raise ValueError(f"wavefield_sharding: slabs of {shape[0] // n} planes are "
-                         f"thinner than the order-{order} halo of {hw}")
+        raise ValueError("wavefield_sharding must be a parallel.sharded.BlockSharding"
+                         f"(mesh, spec), got {type(ws).__name__}")
+    spec, hw = tuple(ws.spec), order // 2
+    if len(spec) > len(shape):
+        raise ValueError(f"wavefield_sharding spec {spec} has more entries than the grid "
+                         f"{tuple(shape)} has dimensions")
+    try:
+        ws.axes
+    except ValueError as e:
+        raise ValueError(f"wavefield_sharding: {e}") from None
+    for d, e in enumerate(spec):
+        if e is None:
+            continue
+        n = ws.mesh.axis_size(e)
+        if shape[d] % n:
+            raise ValueError(f"wavefield_sharding: {n} slabs do not divide dimension {d} "
+                             f"= {shape[d]}")
+        if shape[d] // n < hw:
+            raise ValueError(f"wavefield_sharding: slabs of {shape[d] // n} planes of "
+                             f"dimension {d} are thinner than the order-{order} halo of "
+                             f"{hw}")
     return ws.mesh
 
 
 def fits_fused_sharded(shape, dtype, order: int, ws) -> bool:
-    """True when the z-slab propagator can ride K4: a 3-D float32 grid, a
-    z-only sharding whose slab count divides D, slabs no thinner than the
-    halo, and a halo-extended slab ``(D/n + 2·hw, H, W)`` K4 takes."""
+    """True when the sharded isotropic propagator can ride K4: a 3-D float32
+    grid, a z-only sharding over one mesh axis whose slab count divides D,
+    slabs no thinner than the halo, and a halo-extended slab
+    ``(D/n + 2·hw, H, W)`` K4 takes. Every other sharding takes the plain
+    step, as the JAX package's GSPMD route does."""
     try:
         mesh = _check_wavefield_sharding(ws, shape, order)
-    except (ValueError, NotImplementedError):
+    except ValueError:
+        return False
+    ax = _zonly_axis(ws)
+    if ax is None or len(shape) != 3:
         return False
     D, H, W = shape
-    n = mesh.shape[_zonly_axis(ws)]
-    return cuda_wave.fits_wave_kernel((D // n + order, H, W), dtype, order)  # 2·hw = order
+    return cuda_wave.fits_wave_kernel((D // mesh.shape[ax] + order, H, W), dtype, order)
 
 
 class _Slab:
-    """One rank's part of a z-slab-sharded isotropic propagation: the
-    halo-extended coefficients and sponge, the source index in the
-    extended slab (−1 off this rank: K4 compares ``i == src``, so nothing
-    is injected), the receivers this rank holds, and the one step on the
-    extended slab — K4 or the plain step — of which the interior is kept."""
+    """One rank's part of a grid split by ``wavefield_sharding`` (any
+    dimensions, each over a mesh axis or a tuple of them): the local and
+    halo-extended shapes, the source index in the extended slab (−1 off this
+    rank: nothing is injected), the receivers this rank holds, the sponge
+    and a source mask on the extended slab, and the moves between the slab
+    and its extension. ``ext`` exchanges the ``hw = order/2`` boundary
+    planes of one sharded dimension after another, each on the array the
+    previous one extended, so the planes of a later dimension carry the
+    corners the mixed-derivative taps read; ``pad`` zero-extends what a step
+    reads only pointwise (its halo outputs are discarded)."""
 
-    def __init__(self, c, src_idx, rcv_idx, *, dt, dx, sponge, order, fused, ws):
+    def __init__(self, gshape, dtype, dev, src_idx, rcv_idx, *, sponge, order, ws):
         mesh = ws.mesh
-        Dl, H, W = c.shape
-        hw = order // 2
-        z0 = mesh.rank * Dl
-        hwp = H * W
-        dtype, dev = c.dtype, c.device
-        self.mesh, self.hw, self.Dl, self.order = mesh, hw, Dl, order
-        self.c2dt2 = _c2dt2(c, dt, dx)
-        self.amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
-        sz = int(src_idx) // hwp
-        self.src = (sz - z0 + hw) * hwp + int(src_idx) % hwp if z0 <= sz < z0 + Dl else -1
-        rz = torch.div(rcv_idx, hwp, rounding_mode="floor")
-        own = (rz >= z0) & (rz < z0 + Dl)
-        self.r_in = own.to(dtype)
-        self.r_loc = torch.where(own, (rz - z0) * hwp + rcv_idx % hwp, 0)
-        self.own_loc, self.own = self.r_loc[own], own
-        # the halo planes of the sponge and c² are edge- and zero-padded:
-        # their outputs are discarded, the values only need to exist
-        spz = sponge[0][z0:z0 + Dl]
-        self.sponge = (torch.cat([spz[:1].expand(hw, 1, 1), spz, spz[-1:].expand(hw, 1, 1)]),
-                       sponge[1], sponge[2])
-        self.c2_ext = self.pad(self.c2dt2)
-        self.kernel = _kernel_route(fused, self.c2_ext, self.sponge, order)
-        if self.kernel:
-            self.factors = _factors_1d(self.sponge)
+        self.mesh, self.hw, self.gshape = mesh, order // 2, tuple(gshape)
+        self.axes, self.zonly = ws.axes, _zonly_axis(ws) is not None
+        self.slices = local_slices(self.gshape, mesh, ws.spec)
+        self.dims = [d for d, e in enumerate(ws.spec) if e is not None]
+        self.axis_of = {d: ws.spec[d] for d in self.dims}
+        self.lshape = tuple(s.stop - s.start for s in self.slices)
+        hw = self.hw
+        self.eshape = tuple(n + 2 * hw if d in self.dims else n
+                            for d, n in enumerate(self.lshape))
+        lo = [s.start for s in self.slices]
+        sc = np.unravel_index(int(src_idx), self.gshape)
+        if all(self.slices[d].start <= sc[d] < self.slices[d].stop for d in self.dims):
+            ext = [c - lo[d] + (hw if d in self.dims else 0) for d, c in enumerate(sc)]
+            self.src = int(np.ravel_multi_index(ext, self.eshape))
         else:
-            self.S = _sponge_full(self.sponge)
-            self.mask = cuda_wave.source_mask(self.c2_ext.shape, self.src, self.amp)
+            self.src = -1
+        own = torch.ones(rcv_idx.shape, dtype=torch.bool, device=rcv_idx.device)
+        loc = torch.zeros_like(rcv_idx)
+        rest = rcv_idx
+        for d in reversed(range(len(self.gshape))):
+            cd = rest % self.gshape[d]
+            rest = torch.div(rest, self.gshape[d], rounding_mode="floor")
+            s = self.slices[d]
+            own &= (cd >= s.start) & (cd < s.stop)
+            loc = loc + (cd - s.start) * math.prod(self.lshape[d + 1:])
+        self.r_in = own.to(dtype)
+        self.r_loc = torch.where(own, loc, 0)
+        self.own_loc, self.own = self.r_loc[own], own
+        if isinstance(sponge, tuple):  # per-axis factors, each sliced and edge-extended
+            self.sponge = tuple(self._ext_factor(f, d) for d, f in enumerate(sponge))
+        else:
+            self.sponge = self.pad(sponge[self.slices])
+        self.S = _sponge_full(self.sponge)
+
+    def _ext_factor(self, f, d):
+        """Sponge factor ``d`` sliced to the slab, its end values repeated
+        over the halo of a sharded dimension."""
+        f = f.narrow(d, self.slices[d].start, self.lshape[d])
+        if d not in self.dims:
+            return f
+        edge = list(f.shape)
+        edge[d] = self.hw
+        return torch.cat([f.narrow(d, 0, 1).expand(edge), f,
+                          f.narrow(d, self.lshape[d] - 1, 1).expand(edge)], d)
+
+    def mask(self, amp):
+        return cuda_wave.source_mask(self.eshape, self.src, amp)
+
+    def local(self, x):
+        """The rank's slab of a global grid array."""
+        return x[self.slices]
 
     def pad(self, u):
-        return torch.nn.functional.pad(u, (0, 0, 0, 0, self.hw, self.hw))
+        widths = []
+        for d in reversed(range(u.ndim)):
+            widths += [self.hw, self.hw] if d in self.dims else [0, 0]
+        return torch.nn.functional.pad(u, widths)
 
     def interior(self, u_ext):
-        return u_ext[self.hw:self.hw + self.Dl]
+        return u_ext[tuple(slice(self.hw, self.hw + n) if d in self.dims else slice(None)
+                           for d, n in enumerate(self.lshape))]
 
     def ext(self, u):
-        return halo_exchange(u, self.hw, self.mesh)
+        for d in self.dims:
+            u = halo_exchange(u, self.hw, self.mesh, d, self.axis_of[d])
+        return u
 
-    def step(self, up, u, s_t):
-        """``u_next`` of the rank's slab from ``(u_prev, u)`` slabs."""
-        up_ext, u_ext = self.pad(up), self.ext(u)
-        if self.kernel:
-            out = _LeapfrogStep.apply(up_ext, u_ext, self.c2_ext, s_t, *self.factors,
-                                      self.src, self.amp, self.order)
-        else:
-            out = cuda_wave.leapfrog_plain(up_ext, u_ext, self.c2_ext, self.S, s_t,
-                                           self.mask, self.order)
-        return self.interior(out)
-
-    def lap(self, u):
-        """``L(u)`` of the rank's slab, the neighbours' planes exchanged."""
-        return self.interior(_laplacian(self.ext(u), order=self.order))
+    def apply(self, fn, u):
+        """``fn(u)`` of a stencil ``fn`` on the rank's slab, the neighbours'
+        planes exchanged."""
+        return self.interior(fn(self.ext(u)))
 
     def extract(self, u):
         """The rank's receivers of ``u`` (zeros at the others')."""
@@ -701,54 +739,97 @@ class _Slab:
 
     def inject(self, row):
         """The transpose of :meth:`extract`."""
-        return torch.zeros(self.c2dt2.numel(), dtype=row.dtype, device=row.device).index_add(
-            0, self.own_loc, row[self.own]).reshape(self.c2dt2.shape)
+        return torch.zeros(math.prod(self.lshape), dtype=row.dtype,
+                           device=row.device).index_add(
+            0, self.own_loc, row[self.own]).reshape(self.lshape)
+
+    def sum(self, traces):
+        """The traces of every rank's receivers, the same on every rank of
+        the wavefield's mesh axes (each receiver lives on one rank, so
+        adding the others' zeros is exact)."""
+        return sum_replicated(traces, self.mesh, self.axes)
+
+    def codec(self, store, dtype):
+        return _store_codec(store, dtype, self.mesh, self.axes)
 
 
 def _propagate_sharded(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge, remat_blocks,
                        order, fused, ws, inplace):
-    """The isotropic leapfrog on a z-slab-sharded grid (the counterpart of
-    the JAX package's ``_propagate_fused_sharded`` on K4 and of its GSPMD
-    partition of the plain step): each rank holds a ``(D/n, H, W)`` slab of
-    ``c``; every step the ``hw`` boundary planes travel to the z-neighbours
-    (:func:`halo_exchange`; the edges receive zeros, the global zero
+    """The isotropic leapfrog on a sharded grid (the counterpart of the JAX
+    package's ``_propagate_fused_sharded`` on K4 and of its GSPMD partition
+    of the plain step): each rank holds its slab of ``c``; every step the
+    ``hw`` boundary planes of ``u`` travel to the neighbours of each sharded
+    dimension (:meth:`_Slab.ext`; the edges receive zeros, the global zero
     boundary), the step runs on the halo-extended slab and the interior is
     kept. Each rank gathers the receivers it holds for the whole ``(nt,
-    nrcv)`` trace, zeros elsewhere, and one :func:`sum_replicated` at the
-    end assembles it on every rank (each receiver lives on one rank, so
-    adding the zeros is exact). On K4 the tangent and the adjoint follow
-    :class:`_LeapfrogStep`'s plain rules composed with the exchange's."""
-    sl = _Slab(c, src_idx, rcv_idx, dt=dt, dx=dx, sponge=sponge, order=order, fused=fused,
-               ws=ws)
+    nrcv)`` trace, zeros elsewhere, and one :func:`sum_replicated` over the
+    wavefield's mesh axes at the end assembles it. K4 takes the step of a
+    z-only 3-D float32 slab (:func:`fits_fused_sharded`); its tangent and
+    adjoint follow :class:`_LeapfrogStep`'s plain rules composed with the
+    exchange's."""
+    sl = _slab_of(c, src_idx, rcv_idx, sponge, order, ws)
+    step = _iso_slab_step(sl, c, dt, dx, order, fused)
     tape = _records(c)
-    traces = _field_loop(sl.step, 1, c.shape, c.dtype, c.device, src_wavelet, rcv_idx,
+    traces = _field_loop(step, 1, c.shape, c.dtype, c.device, src_wavelet, rcv_idx,
                          inplace and not tape, remat_blocks, tape, sl.extract)
-    return sum_replicated(traces, ws.mesh)
+    return sl.sum(traces)
+
+
+def _global_shape(c, ws):
+    """The global grid shape of which ``c`` is a rank's slab under ``ws``."""
+    return tuple(n * (ws.mesh.axis_size(ws.spec[d]) if d < len(ws.spec)
+                      and ws.spec[d] is not None else 1) for d, n in enumerate(c.shape))
+
+
+def _iso_slab_step(sl, c, dt, dx, order, fused):
+    """``step(u_prev, u, s_t) -> u_next`` of the rank's slab: K4 where the
+    sharding is z-only over one mesh axis (:func:`_zonly_axis`) and
+    :func:`_kernel_route` takes the extended slab, else the plain step, each
+    on the halo-extended slab."""
+    c2_ext = sl.pad(_c2dt2(c, dt, dx))
+    amp = torch.tensor(dt * dt, dtype=c.dtype, device=c.device)
+    if sl.zonly and _kernel_route(fused, c2_ext, sl.sponge, order):
+        factors = _factors_1d(sl.sponge)
+
+        def step(up, u, s_t):
+            return sl.interior(_LeapfrogStep.apply(sl.pad(up), sl.ext(u), c2_ext, s_t,
+                                                   *factors, sl.src, amp, order))
+    else:
+        mask = sl.mask(amp)
+
+        def step(up, u, s_t):
+            return sl.interior(cuda_wave.leapfrog_plain(sl.pad(up), sl.ext(u), c2_ext,
+                                                        sl.S, s_t, mask, order))
+    return step
 
 
 def _adjoint_stored_sharded(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
                             order, store, fused, ws):
-    """:func:`_adjoint_stored` on a z-slab-sharded grid: the forward sweep
-    is :func:`_propagate_sharded`'s step (K4 where it applies), storing each
-    slab's snapshot with the global int8 scale (:func:`_store_codec` with
-    the mesh); the reverse sweep is the plain one on the slab, with
-    ``L(u_k)`` and ``L(c²dt²·ē_k)`` taken over the halo-extended slab (the
-    decoded history's and the field's boundary planes exchanged) and the
-    receiver rows injected where this rank holds them. Returns the rank's
-    slab of the gradient."""
-    sl = _Slab(c, src_idx, rcv_idx, dt=dt, dx=dx, sponge=sponge, order=order, fused=fused,
-               ws=ws)
+    """:func:`_adjoint_stored` on a sharded grid: the forward sweep is
+    :func:`_propagate_sharded`'s step (K4 where it applies), storing each
+    slab's snapshot with the global int8 scale (one MAX ``all_reduce`` over
+    the wavefield's mesh axes per snapshot); the reverse sweep is the plain
+    one on the slab, with ``L(u_k)`` and ``L(c²dt²·ē_k)`` taken over the
+    halo-extended slab and the receiver rows injected where this rank holds
+    them. Returns the rank's slab of the gradient."""
     dtype, dev, shape = c.dtype, c.device, c.shape
-    enc, dec = _store_codec(store, dtype, ws.mesh)
+    sl = _slab_of(c, src_idx, rcv_idx, sponge, order, ws)
+    step = _iso_slab_step(sl, c, dt, dx, order, fused)
+    c2dt2 = _c2dt2(c, dt, dx)
+    enc, dec = sl.codec(store, dtype)
     dd = dd.to(dtype)
     hist = []
     u_prev = torch.zeros(shape, dtype=dtype, device=dev)
     u = torch.zeros(shape, dtype=dtype, device=dev)
     for k in range(int(src_wavelet.shape[0])):
         hist.append(enc(u))
-        u_prev, u = u, sl.step(u_prev, u, src_wavelet[k])
+        u_prev, u = u, step(u_prev, u, src_wavelet[k])
     del u_prev, u
-    S = sl.interior(_sponge_full(sl.sponge))
+
+    def lap(u):
+        return sl.apply(lambda v: _laplacian(v, order=order), u)
+
+    S = sl.interior(sl.S)
     dd_shift = torch.cat([torch.zeros_like(dd[:1]), dd[:-1]])
     a_next = sl.inject(dd[-1])
     ebar_next = torch.zeros(shape, dtype=dtype, device=dev)
@@ -757,9 +838,8 @@ def _adjoint_stored_sharded(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, spo
         q, s = hist[k]
         hist[k] = None
         ebar = a_next * S
-        gc2 = gc2 + sl.lap(dec(q, s)) * ebar
-        a_next = ((2.0 * ebar + sl.lap(sl.c2dt2 * ebar)) - ebar_next
-                  + sl.inject(dd_shift[k]))
+        gc2 = gc2 + lap(dec(q, s)) * ebar
+        a_next = ((2.0 * ebar + lap(c2dt2 * ebar)) - ebar_next + sl.inject(dd_shift[k]))
         ebar_next = ebar
     scale = torch.tensor((dt * dt) / (dx * dx), dtype=dtype, device=dev)
     return gc2 * (2.0 * c) * scale
@@ -906,14 +986,18 @@ def wave_propagator(
     ``remat_blocks > 1`` checkpoints the time loop in that many segments
     under an autograd tape (the module docstring).
 
-    ``wavefield_sharding=block_sharding(mesh, axis)`` (``parallel.sharded``)
-    splits the grid into z-slabs over the mesh's ranks: the domain is a
+    ``wavefield_sharding=BlockSharding(mesh, spec)`` (``parallel.sharded``;
+    ``block_sharding(mesh, axis)`` for z-slabs) splits the grid over the
+    mesh's ranks, any dimensions over any axes (``P(None, "grid")``, the
+    pencil ``P("block", "grid")``, ``P(("block", "grid"))``): the domain is a
     :class:`~jets_tpu_torch.parallel.sharded.ShardedSpace` whose members are
-    the rank's ``(D/n, H, W)`` slab, the traces are the same on every rank,
-    and the operator is built on the mesh's device (:func:`_propagate_sharded`,
-    :func:`_adjoint_stored_sharded`). ``fused`` then picks K4 on the
-    halo-extended slab as above; a 3-D grid whose slab count divides D, with
-    slabs no thinner than the halo, is required (``ValueError``).
+    the rank's slab, the traces are the same on every rank of the
+    wavefield's axes, and the operator is built on the mesh's device
+    (:func:`_propagate_sharded`, :func:`_adjoint_stored_sharded`). ``fused``
+    then picks K4 on the halo-extended slab of a z-only sharding of a 3-D
+    float32 grid (:func:`fits_fused_sharded`); every other sharding takes
+    the plain step. Each split must divide its dimension into slabs no
+    thinner than the halo (``ValueError``).
     """
     grid_shape = tuple(int(s) for s in grid_shape)
     space_order = _check_space_order(space_order)
@@ -922,9 +1006,9 @@ def wave_propagator(
     if ws is not None:
         mesh = _check_wavefield_sharding(ws, grid_shape, space_order)
         if fused and not fits_fused_sharded(grid_shape, dtype, space_order, ws):
-            raise ValueError("fused=True under wavefield_sharding needs a float32 grid "
-                             "whose halo-extended slab K4 takes")
-        sp = ShardedSpace(grid_shape, dtype, mesh, _zonly_axis(ws))
+            raise ValueError("fused=True under wavefield_sharding needs a z-only sharding "
+                             "of a float32 grid whose halo-extended slab K4 takes")
+        sp = ShardedSpace(grid_shape, dtype, mesh, spec=ws.spec)
         prop = functools.partial(_propagate, wavefield_sharding=ws)
         adj = functools.partial(_adjoint_stored, wavefield_sharding=ws)
     else:
@@ -937,6 +1021,26 @@ def wave_propagator(
         fused=fused, order=space_order, remat_blocks=remat_blocks,
         boundary={"sponge": _make_sponge(grid_shape, sponge_width,
                                          free_surface=free_surface, dtype=dtype)})
+
+
+def _sharded_grid(ws, grid_shape, dtype, order, fused, device):
+    """The grid space of a two-field propagator: the rank's slab under a
+    sharding, which the plain step only takes (``fused=True`` raises)."""
+    if ws is None:
+        return Space(grid_shape, dtype, device)
+    mesh = _check_wavefield_sharding(ws, grid_shape, order)
+    if fused:
+        raise ValueError("wavefield_sharding rides the plain step; fused=True is "
+                         "incompatible")
+    return ShardedSpace(grid_shape, dtype, mesh, spec=ws.spec)
+
+
+def _with_sharding(ws, propagate, adjoint):
+    """``(propagate, adjoint)`` bound to ``wavefield_sharding=ws``."""
+    if ws is None:
+        return propagate, adjoint
+    return (functools.partial(propagate, wavefield_sharding=ws),
+            functools.partial(adjoint, wavefield_sharding=ws))
 
 
 def _to_device(arrays, device):
@@ -1032,9 +1136,16 @@ def _windowing(grid_shape, window_shape, device):
     return take, place
 
 
-def _mesh_device(mesh, device):
-    """The device a constructor builds on: the mesh's, under a mesh."""
-    return device if mesh is None else mesh.device
+def _multishot_grid(grid_shape, dtype, mesh, axis, device, order):
+    """The grid space of a multishot operator: on a 2-D mesh the rank's slab
+    of the leading dimension over the grid axis (:func:`grid_axis`), else the
+    whole grid on the mesh's device (or ``device`` without a mesh)."""
+    gax = grid_axis(mesh, axis)
+    if gax is None:
+        return Space(grid_shape, dtype, device if mesh is None else mesh.device)
+    ws = BlockSharding(mesh, (gax,))
+    _check_wavefield_sharding(ws, grid_shape, order)
+    return ShardedSpace(grid_shape, dtype, mesh, spec=ws.spec)
 
 
 def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx, freq,
@@ -1058,9 +1169,17 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
     ``windows=(window_shape, corners)`` runs each shot in its window of the
     model (:func:`_windowing`). ``mesh``/``axis`` shard the shots over a
     mesh's ranks: each rank runs its slab of shots as above, and their
-    contributions to the adjoint meet in one ``all_reduce``
-    (:func:`stacked_block_operator`)."""
+    contributions to the adjoint meet in one ``all_reduce`` over ``axis``
+    (:func:`stacked_block_operator`). When ``gsp`` is a rank's slab (a 2-D
+    mesh: :func:`_multishot_grid`), each shot's wavefields are sharded over
+    the grid axis (``wavefield_sharding``) and the shots run one after
+    another whatever ``shot_map`` says: collectives do not run inside
+    ``torch.func.vmap``."""
     dtype = gsp.dtype
+    if isinstance(gsp, ShardedSpace):
+        propagate, adjoint = _with_sharding(BlockSharding(gsp.mesh, gsp.spec), propagate,
+                                            adjoint)
+        shot_map = "map"
     src = _index_tensor(src_indices, "cpu")
     rcv = _index_tensor(_default_receivers(gsp.size) if rcv_idx is None else rcv_idx,
                         gsp.device)
@@ -1269,9 +1388,12 @@ def multishot_wave_operator(
     else:
         bnd = {"sponge": _make_sponge(prop_shape, sponge_width,
                                       free_surface=free_surface, dtype=dtype)}
-    sp = Space(grid_shape, dtype, _mesh_device(mesh, device))
+    sp = _multishot_grid(grid_shape, dtype, mesh, axis, device, space_order)
+    if isinstance(sp, ShardedSpace) and (use_cpml or windows is not None):
+        raise ValueError("a wavefield sharded over a mesh's grid axis takes the sponge "
+                         "boundary and no ginsu windows")
     return _multishot_operator(
-        sp, Space(prop_shape, dtype, sp.device),
+        sp, sp if windows is None else Space(prop_shape, dtype, sp.device),
         _propagate_cpml if use_cpml else _propagate, _adjoint_stored, src_indices,
         nt=nt, dt=dt, dx=dx, freq=freq, rcv_idx=rcv_idx, dtrec=dtrec,
         store_adjoint=store_adjoint, shot_map=shot_map, order=space_order,
@@ -1889,19 +2011,59 @@ def _static_q(q, dt: float, f0: float, grid_shape, dtype):
             "ig": (1.0 / (1.0 + g)).expand(grid_shape).contiguous()}
 
 
+def _same(u):
+    return u
+
+
+def _slab_of(c, src_idx, rcv_idx, sponge, order, ws):
+    """The rank's :class:`_Slab` of a propagation under ``ws`` (``None``
+    without one)."""
+    if ws is None:
+        return None
+    return _Slab(_global_shape(c, ws), c.dtype, c.device, src_idx, rcv_idx, sponge=sponge,
+                 order=order, ws=ws)
+
+
+def _vti_slab_step(sl, C, ah, av, inv_dx2, amp, order, og=None, ig=None):
+    """``step(p_prev, p, q_prev, q, s_t) -> (p_next, q_next)`` of a rank's
+    slab (:class:`_Slab`): :func:`cuda_vti.vti_plain` on the halo-extended
+    fields, the interior kept. The coefficients and the static-Q factors
+    (global arrays, sliced) enter the step pointwise, so they are
+    zero-extended once."""
+    Ce, ahe, ave = sl.pad(C), sl.pad(ah), sl.pad(av)
+    mask = sl.mask(amp)
+    fr = () if og is None else (sl.pad(sl.local(og)), sl.pad(sl.local(ig)))
+
+    def step(pp, p, qp, q, s_t):
+        pn, qn = cuda_vti.vti_plain(sl.pad(pp), sl.ext(p), sl.pad(qp), sl.ext(q), Ce, ahe,
+                                    ave, sl.S, inv_dx2, s_t, mask, order, *fr)
+        return sl.interior(pn), sl.interior(qn)
+
+    return step
+
+
 def _propagate_vti(c, eps, delta, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
                    order: int = 2, fused=None, inplace: bool = False,
                    remat_blocks: int = 1, og=None, ig=None,
-                   vmap_tape: Optional[bool] = None):
+                   vmap_tape: Optional[bool] = None, wavefield_sharding=None):
     """Coupled VTI leapfrog; returns the p-field receiver traces
     ``(nt, nrcv)``. ``fused``, ``inplace``, ``remat_blocks`` and ``vmap_tape`` as for
     :func:`_propagate`: on the kernel route the step is K8, in place on
     sweeps no transform watches and inside :class:`_VtiStep` otherwise.
     The static-Q friction factors ``og``, ``ig`` (:func:`_static_q`) take
-    the plain step, as K8 has no friction field."""
+    the plain step, as K8 has no friction field. With ``wavefield_sharding``
+    the fields are the rank's slabs and every step is :func:`_vti_slab_step`
+    (both fields' halos exchanged), the traces summed over the wavefield's
+    mesh axes, as :func:`_propagate_sharded` does for the isotropic step."""
     shape, dtype, dev = c.shape, c.dtype, c.device
     C, ah, av, inv_dx2 = _vti_coefficients(c, eps, delta, dt, dx)
     amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
+    if wavefield_sharding is not None:
+        sl = _slab_of(c, src_idx, rcv_idx, sponge, order, wavefield_sharding)
+        tape = _records(c, eps, delta)
+        return sl.sum(_field_loop(_vti_slab_step(sl, C, ah, av, inv_dx2, amp, order, og, ig),
+                                  2, shape, dtype, dev, src_wavelet, rcv_idx,
+                                  inplace and not tape, remat_blocks, tape, sl.extract))
     kernel = _kernel_route(fused, c, sponge, order,
                            None if og is None else _NO_STATIC_Q["VTI"])
     tape = _records(c, eps, delta) if vmap_tape is None else vmap_tape
@@ -1935,7 +2097,7 @@ def _propagate_vti(c, eps, delta, src_wavelet, src_idx, rcv_idx, *, dt, dx, spon
 
 def _adjoint_stored_vti(c, eps, delta, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx,
                         sponge, order: int = 2, store: str = "int8", fused=None,
-                        og=None, ig=None):
+                        og=None, ig=None, wavefield_sharding=None):
     """Adjoint-state gradient ``(∂F/∂(c, ε, δ))ᵀ dd`` over a stored two-field
     forward history, encoded per snapshot (``store``: f32, bf16, int8).
     With ``ēp = S⊙ap₊``, ``ēq = S⊙aq₊``, ``C = c²dt²``::
@@ -1955,7 +2117,12 @@ def _adjoint_stored_vti(c, eps, delta, dd, src_wavelet, src_idx, rcv_idx, *, dt,
     XLA sweeps (``fstep``/``bstep``), tree for tree. With the static-Q
     factors ``og``, ``ig`` (Q not differentiated) both sweeps are plain:
     ``ig`` scales ``ēp``/``ēq`` after the sponge and ``og`` the carried
-    ``ēp₊``/``ēq₊``. Returns ``(gc, gε, gδ)``."""
+    ``ēp₊``/``ēq₊``. With ``wavefield_sharding`` both sweeps are plain on
+    the rank's slab (:class:`_Slab`): the forward sweep is
+    :func:`_vti_slab_step`, each snapshot's int8 scales global maxima; the
+    reverse sweep exchanges the decoded ``p_k``, ``q_k`` and ``ēp``, ``ēq``
+    and holds the coefficients' halos, exchanged once. Returns
+    ``(gc, gε, gδ)``, the rank's slabs under a sharding."""
     shape, dtype, dev = c.shape, c.dtype, c.device
     size = math.prod(shape)
     nt = int(src_wavelet.shape[0])
@@ -1974,7 +2141,8 @@ def _adjoint_stored_vti(c, eps, delta, dd, src_wavelet, src_idx, rcv_idx, *, dt,
         return (gC * (2.0 * c) * torch.tensor(dt * dt, dtype=dtype, device=dev),
                 2.0 * gah, gav / av)
 
-    if _kernel_route(fused, c, sponge, order, None if og is None else _NO_STATIC_Q["VTI"]):
+    if wavefield_sharding is None and _kernel_route(
+            fused, c, sponge, order, None if og is None else _NO_STATIC_Q["VTI"]):
         spz, sy, sx = _factors_1d(sponge)
         src = int(src_idx)
         pp, p, qp, q = (zeros() for _ in range(4))
@@ -2006,15 +2174,28 @@ def _adjoint_stored_vti(c, eps, delta, dd, src_wavelet, src_idx, rcv_idx, *, dt,
             ap1, aq1, ap2, aq2 = ap, aq, ap1, aq1
         return outer(gC, gah, gav)
 
-    S = _sponge_full(sponge)
-    mask = cuda_wave.source_mask(shape, src_idx, amp)
-    enc, dec = _store_codec(store, dtype)
+    sl = _slab_of(c, src_idx, rcv_idx, sponge, order, wavefield_sharding)
+    if sl is None:
+        S = _sponge_full(sponge)
+        mask = cuda_wave.source_mask(shape, src_idx, amp)
+        enc, dec = _store_codec(store, dtype)
+        X = I = _same
+        Cx, ahx, avx = C, ah, av
+
+        def fstep(pp, p, qp, q, s_t):
+            return cuda_vti.vti_plain(pp, p, qp, q, C, ah, av, S, inv_dx2, s_t, mask,
+                                      order, og, ig)
+    else:
+        S, (enc, dec), inject = sl.interior(sl.S), sl.codec(store, dtype), sl.inject
+        fstep = _vti_slab_step(sl, C, ah, av, inv_dx2, amp, order, og, ig)
+        og, ig = (None, None) if og is None else (sl.local(og), sl.local(ig))
+        X, I = sl.ext, sl.interior
+        Cx, ahx, avx = X(C), X(ah), X(av)
     pp, p, qp, q = (zeros() for _ in range(4))
     hist = []
     for k in range(nt):
         hist.append((enc(p), enc(q)))  # history entry k holds (p_k, q_k)
-        p_next, q_next = cuda_vti.vti_plain(pp, p, qp, q, C, ah, av, S, inv_dx2,
-                                            src_wavelet[k], mask, order, og, ig)
+        p_next, q_next = fstep(pp, p, qp, q, src_wavelet[k])
         pp, p, qp, q = p, p_next, q, q_next
     # ḡ_{k-1} aligned to reverse step k (rec_k samples p_{k+1})
     dd_shift = torch.cat([torch.zeros_like(dd[:1]), dd[:-1]])
@@ -2027,23 +2208,19 @@ def _adjoint_stored_vti(c, eps, delta, dd, src_wavelet, src_idx, rcv_idx, *, dt,
         ebp, ebq = ap1 * S, aq1 * S
         if og is not None:
             ebp, ebq = ebp * ig, ebq * ig
-        lh_k = cuda_vti.lh(p_k, inv_dx2, order)
-        dzz_k = cuda_vti.dzz(q_k, inv_dx2, order)
+        lh_k = I(cuda_vti.lh(X(p_k), inv_dx2, order))
+        dzz_k = I(cuda_vti.dzz(X(q_k), inv_dx2, order))
         gC = gC + ((ah * lh_k + av * dzz_k) * ebp + (av * lh_k + dzz_k) * ebq)
         gah = gah + (C * lh_k) * ebp
         gav = gav + C * (dzz_k * ebp + lh_k * ebq)
         ebp1s, ebq1s = (ebp1, ebq1) if og is None else (og * ebp1, og * ebq1)
-        ap = (2.0 * ebp + cuda_vti.lh(C * ah * ebp, inv_dx2, order)
-              + cuda_vti.lh(C * av * ebq, inv_dx2, order) - ebp1s) + inject(dd_shift[k])
-        aq = (2.0 * ebq + cuda_vti.dzz(C * av * ebp, inv_dx2, order)
-              + cuda_vti.dzz(C * ebq, inv_dx2, order)) - ebq1s
+        ebpx, ebqx = X(ebp), X(ebq)
+        ap = (2.0 * ebp + I(cuda_vti.lh(Cx * ahx * ebpx, inv_dx2, order))
+              + I(cuda_vti.lh(Cx * avx * ebqx, inv_dx2, order)) - ebp1s) + inject(dd_shift[k])
+        aq = (2.0 * ebq + I(cuda_vti.dzz(Cx * avx * ebpx, inv_dx2, order))
+              + I(cuda_vti.dzz(Cx * ebqx, inv_dx2, order))) - ebq1s
         ap1, aq1, ebp1, ebq1 = ap, aq, ebp, ebq
     return outer(gC, gah, gav)
-
-
-def _vti_domain(grid_shape, dtype, device):
-    gsp = Space(grid_shape, dtype, device)
-    return BlockSpace([gsp, gsp, gsp])
 
 
 def _propagate_vti_m(m, *args, **kw):
@@ -2097,22 +2274,27 @@ def vti_wave_propagator(
     the source ``freq``; a modelling parameter, not a block of the domain):
     the attenuating DenQ variant. No kernel takes friction fields, so a
     Q'ed propagator and its stored adjoint take the plain steps and
-    ``fused=True`` raises. ``wavefield_sharding`` is not ported yet.
+    ``fused=True`` raises.
+
+    ``wavefield_sharding`` splits the grid as for :func:`wave_propagator`
+    (every block of the domain is the rank's slab): both fields take the
+    plain step on their halo-extended slabs, as in the JAX package, and
+    ``fused=True`` raises.
     """
     grid_shape = tuple(int(s) for s in grid_shape)
     space_order = _check_space_order(space_order)
     _check_store(store_adjoint)
-    if wavefield_sharding is not None:
-        raise _not_ported("vti_wave_propagator(wavefield_sharding=...)", "18")
+    ws = wavefield_sharding
+    gsp = _sharded_grid(ws, grid_shape, dtype, space_order, fused, device)
     if fused and q is not None:
         raise ValueError(_NO_STATIC_Q["VTI"])
     if fused and not cuda_wave.fits_wave_kernel(grid_shape, dtype, space_order):
         raise ValueError("fused VTI step requires a 3-D float32 grid")
-    dom = _vti_domain(grid_shape, dtype, device)
+    dom = BlockSpace([gsp] * 3)
     friction = {} if q is None else _static_q(q, dt, float(freq if f0 is None else f0),
                                               grid_shape, dtype)
     return _single_shot_operator(
-        dom, dom.subspace(0), _propagate_vti_m, _adjoint_stored_vti_m, nt=nt, dt=dt,
+        dom, gsp, *_with_sharding(ws, _propagate_vti_m, _adjoint_stored_vti_m), nt=nt, dt=dt,
         dx=dx, freq=freq, src_idx=src_idx, rcv_idx=rcv_idx, dtrec=dtrec,
         store_adjoint=store_adjoint, fused=fused, order=space_order,
         remat_blocks=remat_blocks,
@@ -2150,9 +2332,10 @@ def multishot_vti_wave_operator(
     grid_shape = tuple(int(s) for s in grid_shape)
     space_order = _check_space_order(space_order)
     _check_store(store_adjoint)
-    dom = _vti_domain(grid_shape, dtype, _mesh_device(mesh, device))
+    gsp = _multishot_grid(grid_shape, dtype, mesh, axis, device, space_order)
+    dom = BlockSpace([gsp] * 3)
     return _multishot_operator(
-        dom, dom.subspace(0), _propagate_vti_m, _adjoint_stored_vti_m, src_indices,
+        dom, gsp, _propagate_vti_m, _adjoint_stored_vti_m, src_indices,
         nt=nt, dt=dt, dx=dx, freq=freq, rcv_idx=rcv_idx, dtrec=dtrec,
         store_adjoint=store_adjoint, shot_map=shot_map, order=space_order,
         remat_blocks=remat_blocks, mesh=mesh, axis=axis,
@@ -2278,20 +2461,49 @@ class _TtiStep(_PlainRuleStep):
         return step
 
 
+def _tti_slab_step(sl, C, ah, av, nz, ny, nx, inv_dx2, inv_dx, amp, order, og=None,
+                   ig=None):
+    """:func:`_vti_slab_step` for the 3-D TTI step (:func:`cuda_tti.tti_plain`).
+    One halo of ``order/2`` planes per sharded dimension is enough: every
+    second derivative is one ``d2_axis`` and every mixed one (``_dij``) takes
+    its two first derivatives along two different dimensions, the inner one
+    at the outer one's halo points, whose planes the sequential exchange
+    extended with the corners."""
+    ce = tuple(sl.pad(t) for t in (C, ah, av, nz, ny, nx))
+    mask = sl.mask(amp)
+    fr = () if og is None else (sl.pad(sl.local(og)), sl.pad(sl.local(ig)))
+
+    def step(pp, p, qp, q, s_t):
+        pn, qn = cuda_tti.tti_plain(sl.pad(pp), sl.ext(p), sl.pad(qp), sl.ext(q), *ce,
+                                    sl.S, inv_dx2, inv_dx, s_t, mask, order, *fr)
+        return sl.interior(pn), sl.interior(qn)
+
+    return step
+
+
 def _propagate_tti3d(c, eps, delta, theta, phi, src_wavelet, src_idx, rcv_idx, *, dt,
                      dx, sponge, order: int = 2, fused=None, inplace: bool = False,
                      coeff16: bool = False, remat_blocks: int = 1, og=None, ig=None,
-                     vmap_tape: Optional[bool] = None):
+                     vmap_tape: Optional[bool] = None, wavefield_sharding=None):
     """Coupled 3-D TTI leapfrog; returns the p-field receiver traces
     ``(nt, nrcv)``. ``fused``, ``inplace``, ``remat_blocks``, ``vmap_tape`` and the
     static-Q factors ``og``, ``ig`` as for :func:`_propagate_vti`:
     on the kernel route the step is K11 on the streamed fields ``kc``, in
     place on sweeps no transform watches and inside :class:`_TtiStep`
-    otherwise; the plain route is the JAX package's XLA step, tree for tree."""
+    otherwise; the plain route is the JAX package's XLA step, tree for tree.
+    ``wavefield_sharding`` as for :func:`_propagate_vti`, the step
+    :func:`_tti_slab_step`."""
     shape, dtype, dev = c.shape, c.dtype, c.device
     C, ah, av, nz, ny, nx, inv_dx2, inv_dx, _, kc = _tti_coefficients(
         c, eps, delta, theta, phi, dt, dx, coeff16)
     amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
+    if wavefield_sharding is not None:
+        sl = _slab_of(c, src_idx, rcv_idx, sponge, order, wavefield_sharding)
+        tape = _records(c, eps, delta, theta, phi)
+        step = _tti_slab_step(sl, C, ah, av, nz, ny, nx, inv_dx2, inv_dx, amp, order, og,
+                              ig)
+        return sl.sum(_field_loop(step, 2, shape, dtype, dev, src_wavelet, rcv_idx,
+                                  inplace and not tape, remat_blocks, tape, sl.extract))
     kernel = _kernel_route(fused, c, sponge, order,
                            None if og is None else _NO_STATIC_Q["TTI"])
     tape = _records(c, eps, delta, theta, phi) if vmap_tape is None else vmap_tape
@@ -2371,7 +2583,8 @@ def _propagate_tti(c, eps, delta, theta, src_wavelet, src_idx, rcv_idx, *, dt, d
 
 def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet, src_idx, rcv_idx,
                           *, dt, dx, sponge, order: int = 2, store: str = "int8",
-                          fused=None, coeff16: bool = False, og=None, ig=None):
+                          fused=None, coeff16: bool = False, og=None, ig=None,
+                          wavefield_sharding=None):
     """Adjoint-state gradient ``(∂F/∂(c, ε, δ, θ, φ))ᵀ dd`` of the 3-D TTI
     system over a stored two-field forward history, encoded per snapshot
     (``store``: f32, bf16, int8). Every rotated derivative is self-adjoint
@@ -2392,8 +2605,14 @@ def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet, src_idx, r
     ``index_add_``. The plain route is the JAX package's XLA sweeps
     (``fstep``/``bstep``), tree for tree. ``coeff16`` applies the forward's
     straight-through bfloat16 rounding; the static-Q factors ``og``, ``ig``
-    take both sweeps plain, as in :func:`_adjoint_stored_vti`. Returns
-    ``(gc, gε, gδ, gθ, gφ)``."""
+    take both sweeps plain, as in :func:`_adjoint_stored_vti`. With
+    ``wavefield_sharding`` both sweeps are plain on the rank's slab, as in
+    :func:`_adjoint_stored_vti`: the reverse sweep exchanges the decoded
+    ``p_k``, ``q_k`` and the two arguments ``w`` of ``Hᵀ``/``Vᵀ``, and holds
+    the halos of ``nz, ny, nx`` (exchanged once), so each ``Σ D_d(κ_d·w)``
+    is one exchange of ``w`` where exchanging each product ``κ_d·w`` would
+    be six. Returns ``(gc, gε, gδ, gθ, gφ)``, the rank's slabs under a
+    sharding."""
     shape, dtype, dev = c.shape, c.dtype, c.device
     size = math.prod(shape)
     nt = int(src_wavelet.shape[0])
@@ -2417,7 +2636,8 @@ def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet, src_idx, r
                 -sth * gnz + (cth * cph) * gny + (cth * sph) * gnx,
                 (-sth * sph) * gny + (sth * cph) * gnx)
 
-    if _kernel_route(fused, c, sponge, order, None if og is None else _NO_STATIC_Q["TTI"]):
+    if wavefield_sharding is None and _kernel_route(
+            fused, c, sponge, order, None if og is None else _NO_STATIC_Q["TTI"]):
         spz, sy, sx = _factors_1d(sponge)
         src = int(src_idx)
         pp, p, qp, q = (zeros() for _ in range(4))
@@ -2450,17 +2670,30 @@ def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet, src_idx, r
             ap1, aq1, ap2, aq2 = ap, aq, ap1, aq1
         return outer(*accs)
 
-    S = _sponge_full(sponge)
-    mask = cuda_wave.source_mask(shape, src_idx, amp)
-    enc, dec = _store_codec(store, dtype)
     cf = cuda_tti.directions(nz, ny, nx)
+    sl = _slab_of(c, src_idx, rcv_idx, sponge, order, wavefield_sharding)
+    if sl is None:
+        S = _sponge_full(sponge)
+        mask = cuda_wave.source_mask(shape, src_idx, amp)
+        enc, dec = _store_codec(store, dtype)
+        X = I = _same
+        cfx = cf
+
+        def fstep(pp, p, qp, q, s_t):
+            return cuda_tti.tti_plain(pp, p, qp, q, C, ah, av, nz, ny, nx, S, inv_dx2,
+                                      inv_dx, s_t, mask, order, og, ig)
+    else:
+        S, (enc, dec), inject = sl.interior(sl.S), sl.codec(store, dtype), sl.inject
+        fstep = _tti_slab_step(sl, C, ah, av, nz, ny, nx, inv_dx2, inv_dx, amp, order, og,
+                               ig)
+        og, ig = (None, None) if og is None else (sl.local(og), sl.local(ig))
+        X, I = sl.ext, sl.interior
+        cfx = cuda_tti.directions(X(nz), X(ny), X(nx))
     pp, p, qp, q = (zeros() for _ in range(4))
     hist = []
     for k in range(nt):
         hist.append((enc(p), enc(q)))  # history entry k holds (p_k, q_k)
-        p_next, q_next = cuda_tti.tti_plain(pp, p, qp, q, C, ah, av, nz, ny, nx, S,
-                                            inv_dx2, inv_dx, src_wavelet[k], mask, order,
-                                            og, ig)
+        p_next, q_next = fstep(pp, p, qp, q, src_wavelet[k])
         pp, p, qp, q = p, p_next, q, q_next
     # ḡ_{k-1} aligned to reverse step k (rec_k samples p_{k+1})
     dd_shift = torch.cat([torch.zeros_like(dd[:1]), dd[:-1]])
@@ -2470,8 +2703,8 @@ def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet, src_idx, r
     for k in range(nt - 1, -1, -1):
         (pq, psv), (qq, qsv) = hist[k]
         hist[k] = None
-        dp6 = cuda_tti.derivs(dec(pq, psv), inv_dx2, inv_dx, order)
-        dq6 = cuda_tti.derivs(dec(qq, qsv), inv_dx2, inv_dx, order)
+        dp6 = tuple(map(I, cuda_tti.derivs(X(dec(pq, psv)), inv_dx2, inv_dx, order)))
+        dq6 = tuple(map(I, cuda_tti.derivs(X(dec(qq, qsv)), inv_dx2, inv_dx, order)))
         ebp, ebq = ap1 * S, aq1 * S
         if og is not None:
             ebp, ebq = ebp * ig, ebq * ig
@@ -2486,17 +2719,12 @@ def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet, src_idx, r
         gny = gny + (2.0 * ny * dcyy + 2.0 * nz * dczy + 2.0 * nx * dcyx)
         gnx = gnx + (2.0 * nx * dcxx + 2.0 * nz * dczx + 2.0 * ny * dcyx)
         ebp1s, ebq1s = (ebp1, ebq1) if og is None else (og * ebp1, og * ebq1)
-        ap = (2.0 * ebp + cuda_tti.ht(C * ah * ebp + C * av * ebq, cf, inv_dx2, inv_dx,
-                                      order) - ebp1s) + inject(dd_shift[k])
-        aq = (2.0 * ebq + cuda_tti.vt(C * av * ebp + C * ebq, cf, inv_dx2, inv_dx,
-                                      order)) - ebq1s
+        ap = (2.0 * ebp + I(cuda_tti.ht(X(C * ah * ebp + C * av * ebq), cfx, inv_dx2,
+                                        inv_dx, order)) - ebp1s) + inject(dd_shift[k])
+        aq = (2.0 * ebq + I(cuda_tti.vt(X(C * av * ebp + C * ebq), cfx, inv_dx2, inv_dx,
+                                        order))) - ebq1s
         ap1, aq1, ebp1, ebq1 = ap, aq, ebp, ebq
     return outer(gC, gah, gav, gnz, gny, gnx)
-
-
-def _tti_domain(grid_shape, dtype, device):
-    gsp = Space(grid_shape, dtype, device)
-    return BlockSpace([gsp] * (5 if len(grid_shape) == 3 else 4))
 
 
 def _propagate_tti_m(m, *args, coeff16=False, **kw):
@@ -2566,7 +2794,9 @@ def tti_wave_propagator(
     ``q=``/``f0`` add static Kosloff friction as for
     :func:`vti_wave_propagator` (plain steps; ``fused=True`` raises); it
     composes with the stored adjoint, ``dtrec`` and bfloat16 coefficients.
-    ``wavefield_sharding`` is not ported yet.
+    ``wavefield_sharding`` (3-D only; ``ValueError`` "3-D only" otherwise)
+    splits the grid as for :func:`vti_wave_propagator`: the plain step on the
+    halo-extended slabs, ``fused=True`` refused.
     """
     grid_shape = tuple(int(s) for s in grid_shape)
     space_order = _check_space_order(space_order)
@@ -2577,24 +2807,25 @@ def tti_wave_propagator(
     coeff16 = coeff_dtype == torch.bfloat16
     if coeff16 and not three_d:
         raise ValueError("bf16 coefficient mode is 3-D only")
-    if fused and wavefield_sharding is not None:
+    ws = wavefield_sharding
+    if fused and ws is not None:
         raise ValueError("wavefield_sharding rides the plain step; fused=True is "
                          "incompatible")
-    if wavefield_sharding is not None and not three_d:
+    if ws is not None and not three_d:
         raise ValueError("wavefield_sharding on TTI is 3-D only")
-    if wavefield_sharding is not None:
-        raise _not_ported("tti_wave_propagator(wavefield_sharding=...)", "18")
+    gsp = _sharded_grid(ws, grid_shape, dtype, space_order, fused, device)
     if fused and q is not None:
         raise ValueError(_NO_STATIC_Q["TTI"])
     if fused and not (three_d and cuda_wave.fits_wave_kernel(grid_shape, dtype,
                                                               space_order)):
         raise ValueError("fused TTI step requires a 3-D float32 grid")
-    dom = _tti_domain(grid_shape, dtype, device)
+    dom = BlockSpace([gsp] * (5 if three_d else 4))
     friction = {} if q is None else _static_q(q, dt, float(freq if f0 is None else f0),
                                               grid_shape, dtype)
     return _single_shot_operator(
-        dom, dom.subspace(0), functools.partial(_propagate_tti_m, coeff16=coeff16),
-        functools.partial(_adjoint_stored_tti3d_m, coeff16=coeff16), nt=nt, dt=dt,
+        dom, gsp, *_with_sharding(ws, functools.partial(_propagate_tti_m, coeff16=coeff16),
+                                  functools.partial(_adjoint_stored_tti3d_m, coeff16=coeff16)),
+        nt=nt, dt=dt,
         dx=dx, freq=freq, src_idx=src_idx, rcv_idx=rcv_idx, dtrec=dtrec,
         store_adjoint=store_adjoint, fused=fused, order=space_order,
         remat_blocks=remat_blocks,
@@ -2632,9 +2863,12 @@ def multishot_tti_wave_operator(
     grid_shape = tuple(int(s) for s in grid_shape)
     space_order = _check_space_order(space_order)
     _check_tti(grid_shape, store_adjoint, "TTI multishot")
-    dom = _tti_domain(grid_shape, dtype, _mesh_device(mesh, device))
+    gsp = _multishot_grid(grid_shape, dtype, mesh, axis, device, space_order)
+    if isinstance(gsp, ShardedSpace) and len(grid_shape) != 3:
+        raise ValueError("wavefield_sharding on TTI is 3-D only")
+    dom = BlockSpace([gsp] * (5 if len(grid_shape) == 3 else 4))
     return _multishot_operator(
-        dom, dom.subspace(0), _propagate_tti_m, _adjoint_stored_tti3d_m, src_indices,
+        dom, gsp, _propagate_tti_m, _adjoint_stored_tti3d_m, src_indices,
         nt=nt, dt=dt, dx=dx, freq=freq, rcv_idx=rcv_idx, dtrec=dtrec,
         store_adjoint=store_adjoint, shot_map=shot_map, order=space_order,
         remat_blocks=remat_blocks, mesh=mesh, axis=axis,

@@ -98,12 +98,15 @@ def init_distributed(backend: Optional[str] = None, *, device=None,
 def local_block_range(nblocks: int, mesh, axis: str = "block") -> Tuple[int, int]:
     """The contiguous ``[lo, hi)`` range of block indices this rank holds —
     the shot gathers this process must load. Blocks are laid out
-    contiguously over the mesh axis, which must divide ``nblocks``."""
-    n = mesh.shape[axis]
+    contiguously over the mesh axis (a name, or a tuple of names taken
+    row-major), which must divide ``nblocks``; on the other axes of the mesh
+    the ranges repeat."""
+    n = mesh.axis_size(axis)
     if nblocks % n:
         raise ValueError(f"nblocks {nblocks} not divisible by mesh axis {n}")
     per = nblocks // n
-    return mesh.rank * per, (mesh.rank + 1) * per
+    i = mesh.index(axis)
+    return i * per, (i + 1) * per
 
 
 def distribute_blocks(x, mesh, axis: str = "block") -> torch.Tensor:

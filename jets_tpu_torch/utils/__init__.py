@@ -3,10 +3,12 @@ vector helpers (``tree``), CRC32C content hashing, npz checkpoint/resume,
 the block-float snapshot codec and store, the shot-gather store and its
 native prefetching loader, NaN/Inf guards and profiling. The native pieces
 are the JAX package's C++ sources, copied, built with g++ into
-``jets_tpu_torch/_build/`` at first use. The JAX package's orbax checkpoint
-pair (sharded leaves) is not ported yet."""
+``jets_tpu_torch/_build/`` at first use. The sharded checkpoint pair keeps
+the JAX package's orbax names and writes ``torch.distributed.checkpoint``
+directories."""
 from . import tree
-from .checkpoint import load_checkpoint, save_checkpoint
+from .checkpoint import (load_checkpoint, load_checkpoint_orbax, save_checkpoint,
+                         save_checkpoint_orbax)
 from .compression import (
     SnapshotStore,
     compress_array,
@@ -22,6 +24,8 @@ __all__ = [
     "tree",
     "save_checkpoint",
     "load_checkpoint",
+    "save_checkpoint_orbax",
+    "load_checkpoint_orbax",
     "ShotGatherStore",
     "ShotGatherLoader",
     "SnapshotStore",

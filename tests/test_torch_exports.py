@@ -1,11 +1,12 @@
 """Name parity of the port's public surface with the JAX package's: every
-name ``jets_tpu`` exports at its top level, from ``jets_tpu.ops`` and from
-``jets_tpu.utils`` (and its ``checkpoint`` module) the port exports too,
-apart from the names listed here as not ported yet, each with its ROADMAP
-item."""
+name ``jets_tpu`` exports at its top level, from ``jets_tpu.ops``, from
+``jets_tpu.utils`` (and its ``checkpoint`` module) and from
+``jets_tpu.parallel.gspmd`` the port exports too, apart from the names
+listed here as not ported yet (none now), each with its ROADMAP item."""
 import jets_tpu
 import jets_tpu.ops
 import jets_tpu.utils
+import jets_tpu.parallel.gspmd
 import jets_tpu.utils.checkpoint
 import numpy as np
 import pytest
@@ -14,11 +15,12 @@ import torch
 import jets_tpu_torch
 import jets_tpu_torch.ops
 import jets_tpu_torch.utils
+import jets_tpu_torch.parallel.gspmd
 import jets_tpu_torch.utils.checkpoint
 
-# orbax is a JAX library: the sharded checkpoint pair waits for the port's
-# sharded path (ROADMAP queue 1 item 18, torch.distributed.checkpoint)
-NOT_PORTED = {"save_checkpoint_orbax": "18", "load_checkpoint_orbax": "18"}
+# every public name is ported (the orbax pair keeps its names over
+# torch.distributed.checkpoint)
+NOT_PORTED = {}
 
 
 def _public(mod):
@@ -32,7 +34,8 @@ def _public(mod):
     (jets_tpu.ops, jets_tpu_torch.ops),
     (jets_tpu.utils, jets_tpu_torch.utils),
     (jets_tpu.utils.checkpoint, jets_tpu_torch.utils.checkpoint),
-], ids=["top", "ops", "utils", "utils.checkpoint"])
+    (jets_tpu.parallel.gspmd, jets_tpu_torch.parallel.gspmd),
+], ids=["top", "ops", "utils", "utils.checkpoint", "parallel.gspmd"])
 def test_port_exports_every_name_of_the_jax_package(ref, port):
     missing = _public(ref) - _public(port) - set(NOT_PORTED)
     assert not missing, sorted(missing)
@@ -41,9 +44,12 @@ def test_port_exports_every_name_of_the_jax_package(ref, port):
 
 
 def test_not_ported_names_are_still_missing():
-    """The list above names only what the port really lacks."""
+    """The list above names only what the port really lacks: nothing, and
+    the checkpoint pair it once listed is exported by both modules."""
     port = _public(jets_tpu_torch.utils.checkpoint) | _public(jets_tpu_torch.utils)
-    assert not set(NOT_PORTED) & port
+    assert not set(NOT_PORTED) & port and not NOT_PORTED
+    assert {"save_checkpoint_orbax", "load_checkpoint_orbax"} <= (
+        _public(jets_tpu_torch.utils.checkpoint) & _public(jets_tpu_torch.utils))
 
 
 def test_wave_exports_and_reshape():

@@ -6,7 +6,8 @@ importing every module of the symmetric spaces and the operator packs, and
 inverting the DSP chain and the blending model with LSQR, hashing,
 checkpointing, compressing and streaming through ``jets_tpu_torch.utils``
 (whose native libraries build with g++), importing every module of
-``jets_tpu_torch.parallel`` and solving with LSQR on a one-rank gloo mesh,
+``jets_tpu_torch.parallel`` and solving with LSQR on one-rank gloo 1-D and
+block × grid meshes,
 on the CPU, with
 ``jax``, ``jaxlib`` and ``jets_tpu`` blocked from import) needs neither
 nvcc nor triton nor a built kernel library."""
@@ -33,13 +34,17 @@ A, m, d = make_seismic_problem((8, 8, 16), 2, 8, seed=0, noise=0.05, device="cpu
 res = lsqr(A, d, maxiter=5, tol=0.0)
 assert res.iterations == 5 and bool(torch.isfinite(res.history).all())
 import importlib
-for mod in ("runner", "sharded", "collectives", "hetero"):
+for mod in ("runner", "sharded", "collectives", "hetero", "gspmd"):
     importlib.import_module("jets_tpu_torch.parallel." + mod)
 from jets_tpu_torch.parallel.sharded import make_block_mesh
 mesh = make_block_mesh(device="cpu")  # one gloo rank
 Am, _, dm = make_seismic_problem((8, 8, 16), 2, 8, seed=0, noise=0.05, mesh=mesh)
 rm = lsqr(Am, dm, maxiter=5, tol=0.0)
 assert mesh.backend == "gloo" and torch.equal(rm.x, res.x)
+from jets_tpu_torch.parallel.gspmd import make_mesh_2d
+mesh2 = make_mesh_2d(1, 1, device="cpu")  # the block x grid mesh of the same world
+A2, _, d2 = make_seismic_problem((8, 8, 16), 2, 8, seed=0, noise=0.05, mesh=mesh2)
+assert torch.equal(lsqr(A2, d2, maxiter=5, tol=0.0).x, res.x)
 g = torch.Generator().manual_seed(0)
 lhs, rhs = tt.dot_product_test(A, A.dom.randn(g), A.rng.randn(g))
 assert abs(float(lhs) - float(rhs)) <= 1e-4 * abs(float(rhs))

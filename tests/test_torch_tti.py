@@ -471,7 +471,7 @@ def test_validation_errors_match_jax():
 
 
 def test_what_is_not_ported_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 18"):
+    with pytest.raises(ValueError, match="wavefield_sharding"):  # ported: not a sharding
         tw.tti_wave_propagator(SHAPE3, wavefield_sharding=object(), device=CPU)
     with pytest.raises(ValueError, match="static Q"):  # ported: no kernel takes Q
         tw.tti_wave_propagator(SHAPE3, q=50.0, fused=True, device=CPU)

@@ -346,7 +346,7 @@ def test_validation_and_what_is_not_ported():
                                   torch.full((24 * 24,), 0.1),
                                   torch.full((24 * 24,), 0.05)]))
     assert torch.equal(F4(m), tw.vti_wave_propagator(SHAPE2, nt=8, device=CPU)(m))
-    with pytest.raises(NotImplementedError, match="queue 1 item 18"):
+    with pytest.raises(ValueError, match="wavefield_sharding"):  # ported: not a sharding
         tw.vti_wave_propagator(SHAPE2, wavefield_sharding=object(), device=CPU)
     Fv = tw.multishot_vti_wave_operator((20, 20), [5, 9], nt=4, remat_blocks=2,
                                         device=CPU)  # vmap takes remat segments

@@ -264,8 +264,12 @@ def test_validation_and_what_is_not_ported():
         d0 = F0(c3)
         assert torch.equal(Fs(c3), d0)
         assert torch.equal(Fs.linearize(c3).H(d0), F0.linearize(c3).H(d0))
-    with pytest.raises(ValueError, match="wavefield_sharding"):
-        tw.wave_propagator(SHAPE2, wavefield_sharding=ws)
+    # a 2-D grid under the sharding (once refused): the unsharded operator, bitwise
+    F2 = tw.wave_propagator(SHAPE2, nt=8, wavefield_sharding=ws)
+    assert Fs.dom.mesh is mesh and torch.equal(
+        F2(c), tw.wave_propagator(SHAPE2, nt=8, device=CPU)(c))
+    with pytest.raises(ValueError, match="wavefield_sharding"):  # a slab thinner than the halo
+        tw.wave_propagator((3,) + SHAPE2, space_order=8, wavefield_sharding=ws)
     with pytest.raises(ValueError, match="wavefield_sharding"):
         tw.wave_propagator(SHAPE3, wavefield_sharding=object())
     srcs = [5, 9]
