@@ -312,7 +312,9 @@ def check_history(res, maxiter, dnorm, phase):
 # kernels K1, K6a, K6b and K7 against their plain versions: the 3-D and 2-D
 # flagships, configs 5 and 4, config 1 at float32, then an odd length (vector
 # path + scalar tail) and its offset view (the unaligned scalar path), then
-# the LSQR models of the tenth path (phases 57 and 59).
+# the LSQR models of the tenth path (phases 57 and 59), then the models that
+# phase 69's examples give K1 (01's 2000 samples, 02's 256^2 reflectivity,
+# 07's 16 x 400 shots, 08's 48^2 image).
 # The grid slabs of phases 67-68 (the 3-D flagship and configs 5 and 4 on a
 # (2, 2) block x grid mesh, each rank its half of the leading dimension) for
 # K1, and the halo-extended slabs K3 runs on there (one plane each side; the
@@ -321,10 +323,12 @@ GRID_SLABS = ((128, 256, 256), (64, 128, 64), (64, 128))
 K3_SLABS = ((258, 256, 256), (130, 256, 256), (130, 128, 64), (66, 128, 64))
 SOLVER_SHAPES = [((256, 256, 256), 0), ((2048, 2048), 0), ((128, 128, 64), 0),
                  ((128, 128), 0), ((1000,), 0), ((1000003,), 0), ((1000003,), 1),
-                 ((16, 4096, 2048), 0), ((1024, 2000), 0)] + [(s, 0) for s in GRID_SLABS]
+                 ((16, 4096, 2048), 0), ((1024, 2000), 0)] + [(s, 0) for s in GRID_SLABS] + [
+                 ((2000,), 0), ((256, 256), 0), ((16, 400), 0), ((48, 48), 0)]
 SOLVER_SHAPES_TEXT = ("256^3, 2048^2, 128x128x64, 128^2, 1000 and 1000003 "
-                      "aligned/unaligned, the tenth path's 16x4096x2048 and 1024x2000, and "
-                      "the grid slabs of phases 67-68")
+                      "aligned/unaligned, the tenth path's 16x4096x2048 and 1024x2000, "
+                      "the grid slabs of phases 67-68 and the examples' 2000, 256^2, "
+                      "16x400 and 48^2 (phase 69)")
 
 # The shapes at which phase 1 holds the wave kernels against their plain
 # versions, one list per kernel family: the 256^3 flagship first, then every
@@ -332,14 +336,15 @@ SOLVER_SHAPES_TEXT = ("256^3, 2048^2, 128x128x64, 128^2, 1000 and 1000003 "
 # and those of its card-vs-CPU check, phase 46's windows, phase 49's remat
 # grid), the halo-extended z-slabs of phases 65-66 (the 256^3 grid in one
 # and in two slabs, an order-2 halo plane on each side; K4 there also with no
-# source, -1, as on the ranks that do not hold it) and, for K11-K13, two
-# ragged shapes. The FWI and distribution phases assert that the shapes they
+# source, -1, as on the ranks that do not hold it), the grid of phase 69's
+# example 12 and, for K11-K13, two ragged shapes. The FWI and distribution phases assert that the shapes they
 # run are listed here.
 SLAB_SHAPES = ((258, 256, 256), (130, 256, 256))
 ISO_SHAPES = ((256, 256, 256), (256, 128, 128), (32, 32, 32), (48, 32, 32),
-              (32, 64, 128)) + SLAB_SHAPES  # K4, K5
+              (32, 64, 128), (16, 32, 128)) + SLAB_SHAPES  # K4, K5
 VTI_SHAPES = ((256, 256, 256), (32, 64, 128))  # K8, K9, K10
-TTI_SHAPES = ((256, 256, 256), (37, 45, 70), (5, 19, 33), (32, 64, 128))  # K11-K13
+TTI_SHAPES = ((256, 256, 256), (37, 45, 70), (5, 19, 33), (32, 64, 128),
+              (16, 32, 128))  # K11-K13
 Q_SHAPES = ((256, 256, 256), (32, 64, 128))  # K14
 
 
@@ -2375,6 +2380,43 @@ MESH68, RANK68_TIMEOUT = (2, 2), 600.0
 # by roundoff (shots split over 4 ranks alone move x by a relative 6 at 30
 # iterations on the CPU, with the same residual)
 CONFIG5_EARLY = 10
+# the routes of the grid-sharded model beside the fused regular flagship:
+# the seismic operator on an irregular receiver geometry (4093 receivers fit
+# no regular subgrid: stencil stamps) and with impl="composed", at the
+# flagship's grid and shots (x compared across meshes after CONFIG5_EARLY
+# iterations, the residual after 30); and the 16-shot CPML and Ginsu-windowed
+# isotropic multishots on a (64, 128, 128) piece of the wave model, nt 60, the
+# windows (32, 64, 128) (phase 1 checks K4/K5 there) at corners that cross
+# the (2, 2) mesh's grid slabs
+SEIS_ROUTES = {"stamp": dict(nreceivers=4093), "composed": dict(nreceivers=4096,
+                                                                  impl="composed")}
+MS_GRID, MS_WIN, MS_NT = (64, 128, 128), (32, 64, 128), 60
+MS_CORNERS = [(z, y, 0) for z in (0, 8, 16, 32) for y in (0, 21, 43, 64)]
+
+
+def _f1f2_multishots(wkw, dev, mesh=None):
+    """Phases 67-68's CPML and windowed 16-shot multishots (:data:`MS_GRID`):
+    on ``mesh`` (a block x grid mesh), or unsharded in map mode on ``dev``."""
+    from jets_tpu_torch.ops.wave import multishot_wave_operator
+
+    kw = dict(nt=MS_NT, dt=wkw["dt"], dx=wkw["dx"], freq=wkw["freq"], sponge_width=12,
+              shot_map="map", **({"mesh": mesh} if mesh is not None else {"device": dev}))
+    rcv = [int(np.ravel_multi_index((32, 64, x), MS_GRID)) for x in range(128)]
+    srcs = [int(np.ravel_multi_index((32, 64, 8 + 7 * k), MS_GRID)) for k in range(16)]
+    wrcv = [int(np.ravel_multi_index((16, 32, x), MS_WIN)) for x in range(128)]
+    wsrc = int(np.ravel_multi_index((16, 32, 64), MS_WIN))
+    return {"CPML": multishot_wave_operator(MS_GRID, srcs, rcv_idx=rcv, boundary="cpml",
+                                            cmax=2000.0, **kw),
+            "windowed": multishot_wave_operator(MS_GRID, [wsrc] * 16, rcv_idx=wrcv,
+                                                window_shape=MS_WIN,
+                                                window_corners=MS_CORNERS,
+                                                store_adjoint="int8", **kw)}
+
+
+def _ms_model(c_true):
+    """The multishots' model: the (64, 128, 128) piece of the wave model
+    around its centre."""
+    return c_true[96:160, 64:192, 64:192].contiguous()
 
 
 def _physics_model(name, F, c):
@@ -2536,6 +2578,57 @@ def block_by_grid(smi, c_true, src0, wkw, flagship_ref):
                         "plain route" + (" (P(grid) on K4: 440 launches)" if name == "iso"
                                          else ""))
             del d0
+        # the irregular geometry and impl="composed" on the grid-sharded model
+        t_f = time.perf_counter()
+        seis67 = {}
+        for kind, kw_ in SEIS_ROUTES.items():
+            runs = {}
+            for where, mesh_ in (("mesh", mesh2), ("none", None)):
+                _reset_all()
+                A, _, d = make_seismic_problem(grid3, nshots3, seed=0, noise=0.05, mesh=mesh_,
+                                               **kw_)
+                runs[where] = (lsqr(A, d, maxiter=30, tol=0.0), _counts_all(), A, d)
+                _add(launched, runs[where][1])
+            (r, c, A, d), (r0, c0, _, _) = runs["mesh"], runs["none"]
+            assert isinstance(A.dom, ShardedSpace), kind
+            assert c["xw_update"] == 30 and c0["xw_update"] == 30, (kind, c, c0)
+            assert torch.equal(r.x, r0.x) and torch.equal(r.history, r0.history), \
+                f"{kind}: LSQR on the (1, 1) mesh not bitwise mesh=None: rel {rel(r.x, r0.x)}"
+            _reset_all()
+            xs10 = lsqr(A, d, maxiter=CONFIG5_EARLY, tol=0.0).x
+            _add(launched, _counts_all())
+            relres = float(r.resnorm) / float(A.rng.norm(d))
+            seis67[kind] = (xs10.cpu(), relres)
+            msgs.append(f"{kind} seismic operator ({kw_['nreceivers']} receivers) with the "
+                        f"model sharded over grid: LSQR x and history of 30 iterations "
+                        f"bitwise mesh=None, relative residual {relres:.6e}, launches {c} "
+                        f"(mesh=None: {c0}); {ms_per_iter(lsqr, A, d, 10, 30):.4f} ms/iter "
+                        "(marginal 10->30, CUDA events)")
+            del runs, r, r0, A, d, xs10
+        ms67 = {}
+        c_ms = _ms_model(c_true)
+        for (name, F), F0 in zip(_f1f2_multishots(wkw, dev, mesh2).items(),
+                                 _f1f2_multishots(wkw, dev).values()):
+            _reset_all()
+            c_lo = torch.full_like(c_ms, 1500.0)
+            d, g = F(c_ms), F.linearize(c_lo).H(F(c_ms))
+            c = _counts_all()
+            _add(launched, c)
+            _reset_all()
+            d0, g0 = F0(c_ms), F0.linearize(c_lo).H(F0(c_ms))
+            c0 = _counts_all()
+            _add(launched, c0)
+            ms67[name] = (d.cpu(), g.cpu())
+            msgs.append(f"16-shot {name} multishot {MS_GRID} nt {MS_NT} with the model sharded "
+                        "over grid: " + same(d, d0, "traces") + ", " + same(g, g0, "gradient")
+                        + f" against the unsharded map-mode operator; launches {c} "
+                        f"(unsharded {c0})")
+            if name == "windowed":
+                assert set(c) == {"fused_leapfrog_step", "fused_adjoint_step"}, c
+            else:
+                assert c == {}, f"CPML launched {c}"
+            del F, F0, d, g, d0, g0
+        msgs.append(f"these routes in {time.perf_counter() - t_f:.1f} s")
         log(67, "; ".join(msgs) + f"; phase 67 in {time.perf_counter() - t_ph:.1f} s "
                 f"[{smi}]")
 
@@ -2557,8 +2650,9 @@ def block_by_grid(smi, c_true, src0, wkw, flagship_ref):
                 if p.poll() is None:
                     p.kill()
                     p.wait()
-        for r, (p, out) in enumerate(zip(procs, outs)):
+        for out in outs:  # every rank's output, then their exit codes
             print(out, end="", flush=True)
+        for r, p in enumerate(procs):
             assert p.returncode == 0, f"phase 68 rank {r} failed (rc {p.returncode})"
         res = []
         for r in range(world):
@@ -2614,6 +2708,21 @@ def block_by_grid(smi, c_true, src0, wkw, flagship_ref):
                     "each shot's wavefield over grid (K4 on the z-slabs), vs phase 65's "
                     + agree(gm, DIST_REF["ms_grad"], "gradient", 1e-5)
                     + " (the shots' sum in another order, the reverse sweep plain)")
+        for kind, (xs10, relres) in seis67.items():
+            x_r = load(f"x10_{kind}.pt")
+            drift = abs(q["relres_" + kind] - relres) / relres
+            assert drift <= 1e-3, f"{kind}: relative residual {q['relres_' + kind]} vs {relres}"
+            msgs.append(f"{kind} seismic LSQR: x after {CONFIG5_EARLY} iterations vs phase "
+                        "67's " + agree(x_r, xs10, "x", 1e-4) + f"; relative residual after "
+                        f"30 {q['relres_' + kind]:.6e} (phase 67's {relres:.6e}, rel diff "
+                        f"{drift:.2e} <= 1e-3); {q['ms_' + kind]:.3f} ms per iteration "
+                        "(rank 0, marginal 10->30, host clock)")
+        for name, (d67, g67) in ms67.items():
+            msgs.append(f"16-shot {name} multishot, shots over block and the model over "
+                        "grid: " + agree(load(f"ms_{name}_d.pt"), d67, "traces", 1e-5)
+                        + ", " + agree(load(f"ms_{name}_g.pt"), g67, "gradient", 1e-5)
+                        + f" vs phase 67's; {q['ms_' + name]:.1f} ms per traces + gradient "
+                        "(rank 0, host clock)")
         for q_ in res:
             _add(launched, q_["launches"])
         msgs.append(
@@ -2713,12 +2822,38 @@ def rank2d_main(rank, world, tmp):
     if rank == 0:
         save(gm.cpu(), "gm.pt")
     del Fm, gm
+
+    seis = {}
+    for kind, kw_ in SEIS_ROUTES.items():
+        A_, _, d_ = make_seismic_problem(grid3, nshots3, seed=0, noise=0.05, mesh=mesh2, **kw_)
+        xs10 = gather_blocks(lsqr(A_, d_, maxiter=CONFIG5_EARLY, tol=0.0).x, grid3[0], mesh2,
+                             "grid")
+        r30 = lsqr(A_, d_, maxiter=30, tol=0.0)
+        out["relres_" + kind] = float(r30.resnorm) / float(A_.rng.norm(d_))
+        if rank == 0:
+            save(xs10.cpu(), f"x10_{kind}.pt")
+        seis[kind] = (A_, d_)
+    c_ms = shard_model(_ms_model(c_true), mesh2)
+    c_lo = torch.full_like(c_ms, 1500.0)
+    mss = _f1f2_multishots(wkw, dev, mesh2)
+    for name, F_ in mss.items():
+        d_ = gather_blocks(F_(c_ms), 16, mesh2, "block")
+        g_ = gather_blocks(F_.linearize(c_lo).H(F_(c_ms)), MS_GRID[0], mesh2, "grid")
+        if rank == 0:
+            save(d_.cpu(), f"ms_{name}_d.pt")
+            save(g_.cpu(), f"ms_{name}_g.pt")
     out["launches"] = _counts_all()
     print(f"[phase 68 rank {rank}/{world}] main path done in {time.perf_counter() - t0:.1f} "
           f"s (start-up included) on {dev}: launches {out['launches']}", flush=True)
 
     t = {n: _wall_ms(lambda n=n: lsqr(A, d, maxiter=n, tol=0.0), mesh2) for n in (10, 30)}
     out["ms_per_iter"] = (t[30] - t[10]) / 20
+    for kind, (A_, d_) in seis.items():
+        t = {n: _wall_ms(lambda n=n: lsqr(A_, d_, maxiter=n, tol=0.0), mesh2) for n in (10, 30)}
+        out["ms_" + kind] = (t[30] - t[10]) / 20
+    for name, F_ in mss.items():
+        out["ms_" + name] = _wall_ms(lambda F_=F_: F_.linearize(c_lo).H(F_(c_ms)), mesh2)
+    del seis, mss
     out["us_per_step"] = {}
     for name in PHYSICS:
         ops = {n: _make(name)(wshape, nt=n, src_idx=src0, wavefield_sharding=ws, **wkw)
@@ -2740,6 +2875,167 @@ def rank2d_main(rank, world, tmp):
         json.dump(out, f)
     dist.destroy_process_group()
     return 0
+
+
+# Phase 69: every example of examples_torch/, run as a user runs it on the
+# card (in this process, as __main__), and its main(device="cpu") in a
+# subprocess beside it. EXAMPLE_KERNELS is the set of kernels each example's
+# main path launches on the card (the float64 solves, the 2-D grids and the
+# plain-only physics launch none); EXAMPLE_TOL holds each printed number of
+# the card's run to the CPU's, in print order: "it" (an iteration count that
+# stops on tol: within 2) or a relative tolerance set from what four runs of
+# this phase read (H100 80GB HBM3, 700 W; PERF.md section 5): 3x the largest
+# difference read, rounded up on the 1-2-5 scale, and 1e-5 where every run
+# read none (0 for integers that say what ran). Both runs are deterministic
+# (four runs read the same differences). The widest are the float32 results
+# that roundoff steers — 07's 400-iteration deblending LSQR (0.031 and 0.0041
+# read), 08's 6-iteration LSM (0.0033), 09's and 11's L-BFGS after its
+# Armijo branches (0.0013; 0.029 for 11's misfit) — as it steers them between
+# the two packages (tests/test_torch_example_parity*.py).
+EXAMPLES = ("01_deconvolution", "02_distributed_seismic", "03_fwi_gauss_newton",
+            "04_out_of_core", "05_fwi_lbfgs", "06_dsp_wavelet_processing", "07_deblending",
+            "08_rtm_imaging", "09_multiparameter_fwi", "10_compressed_snapshot_rtm",
+            "11_production_fwi", "12_multishot_imaging", "13_anisotropic_denq_gradient")
+EXAMPLE_KERNELS = {
+    "01_deconvolution": {"xw_update"}, "02_distributed_seismic": {"xw_update"},
+    "07_deblending": {"xw_update"}, "08_rtm_imaging": {"xw_update"},
+    "12_multishot_imaging": {"fused_leapfrog_step", "fused_adjoint_step", "fused_tti_step",
+                             "fused_tti_hist_step", "fused_tti_adjoint_step"}}
+EXAMPLE_TOL = {
+    "01_deconvolution": (5e-6, 1e-5, "it", 1e-5),
+    "02_distributed_seismic": (0, 0, "it", 1e-5),
+    "03_fwi_gauss_newton": (1e-5, 1e-5, 2e-3, 1e-5, 1e-5),
+    "04_out_of_core": (0, 0, 1e-5, 0, 1e-5, 0, 1e-5),
+    "05_fwi_lbfgs": (1e-5, 1e-5, "it", 1e-5, 1e-5, 0),
+    "06_dsp_wavelet_processing": (1e-5, 1e-5, "it", 1e-5, 0, 1e-5),
+    "07_deblending": (5e-6, 5e-5, "it", 0.1, 0.02),
+    "08_rtm_imaging": (1e-5, 0, 0, 0, 0, 0, 0.01, 1e-5, 1e-5),
+    "09_multiparameter_fwi": (1e-5, 1e-5, 1e-5, "it", 5e-3, 1e-5),
+    "10_compressed_snapshot_rtm": (0, 1e-5, 1e-5, 1e-5, 1e-5),
+    "11_production_fwi": (0, 0, 0, 0, 1e-5, 0.1, "it", 1e-3, 1e-3, 0, 0, 1e-5, 5e-4),
+    "12_multishot_imaging": (0, 1e-5, 1e-5, 0) + (1e-5,) * 5,
+    "13_anisotropic_denq_gradient": (0, 1e-5, 1e-5, 1e-5, 0, 1e-5, 1e-5, 1e-5, 1e-5),
+}
+EXAMPLE_NUM = re.compile(r"[-+]?\d+(?:\.\d+)?(?:e[-+]?\d+)?%?")
+
+
+def run_example(name, argv=()):
+    """What ``examples_torch/<name>.py`` prints run as ``__main__`` in this
+    process with ``argv``, and its seconds."""
+    import contextlib
+    import io
+    import os
+    import runpy
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples_torch",
+                        f"{name}.py")
+    buf, old = io.StringIO(), sys.argv
+    sys.argv = [path, *argv]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(path, run_name="__main__")
+    finally:
+        sys.argv = old
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def examples_cpu_main(out_path):
+    """``python3 chip_smoke.py --examples-cpu file``: every example's
+    ``main(device="cpu")``, what it prints and its seconds, into ``file``
+    (JSON)."""
+    import contextlib
+    import importlib.util
+    import io
+    import os
+
+    torch.set_num_threads(4)  # the card's run beside it keeps the other cores
+    res = {}
+    for name in EXAMPLES:
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples_torch",
+                            f"{name}.py")
+        spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main(device="cpu")
+        res[name] = {"out": buf.getvalue(), "s": time.perf_counter() - t0}
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _printed_close(card, cpu, tols, name):
+    """The numbers the card's run printed against the CPU's, in order: each
+    within its tolerance (relative) or half a unit of the CPU's last printed
+    digit, whichever is larger. Returns each number's relative difference
+    (an iteration count's difference as a count)."""
+    a, b = EXAMPLE_NUM.findall(card), EXAMPLE_NUM.findall(cpu)
+    assert len(a) == len(b) == len(tols), (name, a, b, len(tols))
+    diffs = []
+    for x, y, tol in zip(a, b, tols):
+        fx, fy = (float(v.rstrip("%")) for v in (x, y))
+        if tol == "it":
+            assert abs(fx - fy) <= 2, f"{name}: iterations {x} on the card, {y} on the CPU"
+            diffs.append(int(abs(fx - fy)))
+            continue
+        digits = y.rstrip("%").lower().partition("e")
+        dec = len(digits[0].split(".")[1]) if "." in digits[0] else 0
+        half = 0.5 * 10.0 ** (int(digits[2] or 0) - dec)
+        assert abs(fx - fy) <= max(tol * abs(fy), half), \
+            f"{name}: {x} on the card, {y} on the CPU (tolerance {tol})"
+        diffs.append(abs(fx - fy) / abs(fy) if fy else abs(fx - fy))
+    return diffs
+
+
+def examples_phase(smi):
+    """Phase 69: each example of ``examples_torch/`` on the card, in this
+    process, with the kernels' launch counts set to 0 just before it and read
+    just after (the set launched must be :data:`EXAMPLE_KERNELS`' — every
+    kernel of the example's path launched, no other), its printed numbers
+    against its CPU run's (:data:`EXAMPLE_TOL`), the seconds of each. Example
+    02 runs as a world of one on NCCL (NCCL refuses two ranks on one card).
+    Returns the launches."""
+    import os
+    import tempfile
+
+    t_ph = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    cpu_json = os.path.join(tmp, "cpu.json")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--examples-cpu",
+                             cpu_json], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    launched, rows = {}, []
+    try:
+        for name in EXAMPLES:
+            _reset_all()
+            out, sec = run_example(name)
+            torch.cuda.synchronize()
+            c = _counts_all()
+            assert set(c) == EXAMPLE_KERNELS.get(name, set()), \
+                f"{name}: launched {c}, expected {sorted(EXAMPLE_KERNELS.get(name, ()))}"
+            _add(launched, c)
+            rows.append((name, out, sec, c))
+        log_out = proc.communicate(timeout=900)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, f"the examples' CPU runs failed:\n{log_out}"
+    with open(cpu_json) as f:
+        cpu = json.load(f)
+    msgs = []
+    for name, out, sec, c in rows:
+        print(out, end="", flush=True)
+        diffs = _printed_close(out, cpu[name]["out"], EXAMPLE_TOL[name], name)
+        msgs.append(f"{name}: card {sec:.2f} s, CPU {cpu[name]['s']:.2f} s, printed numbers "
+                    f"within tolerance of the CPU's (rel diff of each: "
+                    f"{' '.join(f'{d:.2g}' for d in diffs)}), launches {c or 'none'}")
+    log(69, "; ".join(msgs) + f"; phase 69 in {time.perf_counter() - t_ph:.1f} s (the CPU "
+            f"runs in a subprocess beside the card's) [{smi}]")
+    return launched
 
 
 def wave_model(dev):
@@ -4180,6 +4476,8 @@ def main() -> int:
         main_path[k] += n
     for k, n in block_by_grid(smi, c_true, src0, wkw, flagship_ref).items():
         main_path[k] += n
+    for k, n in examples_phase(smi).items():
+        main_path[k] += n
     sources = {"solver": "jets_tpu_torch/csrc/solver_kernels.cu",
                "wave": "jets_tpu_torch/csrc/wave_kernels.cu",
                "vti": "jets_tpu_torch/csrc/vti_kernels.cu",
@@ -4224,4 +4522,6 @@ if __name__ == "__main__":
         sys.exit(rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     if sys.argv[1:2] == ["--rank2d"]:  # one rank of phase 68, started by main
         sys.exit(rank2d_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--examples-cpu"]:  # the CPU runs of phase 69, started by main
+        sys.exit(examples_cpu_main(sys.argv[2]))
     sys.exit(main())

@@ -33,20 +33,26 @@ epilogue hook is left out under a mesh, as in the JAX package. On a 2-D
 (block × grid) mesh (:func:`~jets_tpu_torch.parallel.gspmd.make_mesh_2d`) the
 model grid splits too: the domain is the rank's slab of the leading grid
 dimension over ``"grid"``, the range its shots over ``"block"``; the forward
-and the adjoint exchange one halo plane (:func:`_grid_sharded_kernels`), the
-adjoint all-reduces over the block group only.
+exchanges one halo plane (:func:`_grid_sharded_kernels` on the regular
+subgrid, :func:`_stamp_kernels` on an irregular geometry; ``impl="composed"``
+composes the stamps' sampling with :func:`_sharded_laplacian`), the adjoint
+all-reduces over the block group only. Every adjoint deposit adds in a fixed
+order, so the card gives the same bits on every run.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import math
+
 import numpy as np
 import torch
 
 from ..core.algebra import compose
-from ..core.jet import Operator, with_state
+from ..core.jet import Jet, LinearOperator, Operator, with_state
 from ..core.spaces import Space, resolve_device
 from ..ops.cuda_solver import lap3d_axpy_norm2, laplacian3d
+from ..ops.interp import gather_table
 from ..ops.stencil import laplacian_nd as _lap
 from ..ops.stencil import laplacian_operator
 from ..parallel.collectives import gather_blocks, halo_exchange, sum_replicated
@@ -278,38 +284,94 @@ def _laplacian_stamps(grid_shape, rcv, dtype, device):
     )
 
 
-def _stamp_df(m, m0, bs):
-    """``(L m)[rcv]`` from the receiver stamps (once for all shots), then
-    the per-shot weights."""
-    lv = torch.sum(m.reshape(-1)[bs["sidx"]] * bs["scoef"], dim=0)  # (nrecv,)
-    return lv * bs["wr"]
+def _deposit_plan(targets, n):
+    """``(bins, table)`` of a scatter-add of ``len(targets)`` values into
+    ``n`` bins as a gather (:func:`~jets_tpu_torch.ops.interp.gather_table`
+    over the bins hit): each bin sums its sources in source order, so the
+    deposit is the same on every device and every run (``index_add_`` adds
+    duplicate indices in a varying order on the card)."""
+    bins, inv = np.unique(np.asarray(targets, np.int64), return_inverse=True)
+    if not bins.size:  # no tap lands here (a slab without receivers)
+        return bins, np.zeros((1, 0), np.int64)
+    return bins, gather_table(inv.reshape(-1), len(bins))
 
 
-def _make_stamp_stack_dft(grid_shape):
+def _deposit(vals, bins, table, n):
+    """``zeros(n)`` with ``vals`` added at the plan's bins
+    (:func:`_deposit_plan`)."""
+    src = torch.cat([vals, vals.new_zeros(1)])
+    acc = src[table[0]]
+    for k in range(1, table.shape[0]):
+        acc = acc + src[table[k]]
+    return vals.new_zeros(n).index_copy_(0, bins, acc)
+
+
+def _stamp_kernels(grid_shape, sidx, coef, dom, gax):
+    """``(df, stack_dft)`` of ``A m = wr ⊙ Σ_k coef[k]·m[sidx[k]]``, a stamp
+    of flat grid indices ``sidx`` (numpy, ``(nstamp, nrecv)``, the centre
+    row first) and coefficients ``coef`` (a tensor) at each receiver: the
+    Laplacian stamps of :func:`_laplacian_stamps` (``impl="fused"`` on an
+    irregular geometry) or the receivers themselves with coefficient 1 (the
+    sampling ``S`` of ``impl="composed"`` on an irregular geometry, and on
+    any geometry of a grid-sharded model). The forward sums each stamp over its taps once for
+    all shots, then weights it per shot; the adjoint sums the weighted
+    residuals over shots and deposits the stamps in a fixed order
+    (:func:`_deposit`).
+
+    With ``gax``, ``dom`` is a :class:`ShardedSpace` whose leading dimension
+    splits over that mesh axis. A rank owns the receivers whose centre plane
+    lies in its slab: the forward exchanges one halo plane (the stamps reach
+    one plane beyond their centre), gathers the owned stamps from the
+    extended slab and sums the traces over ``gax`` (each receiver lives on
+    one rank, so adding the others' zeros is exact). The adjoint needs no
+    exchange: every rank of a row holds the same shots' residuals, so it
+    deposits every tap that lands in its own slab, each bin's sources in
+    the unsharded order — the slab of the unsharded adjoint, bit for bit."""
+    nstamp, nrecv = sidx.shape
+    plane = math.prod(grid_shape[1:])
+    mesh = dom.mesh if gax is not None else None
+    halo = gax is not None and nstamp > 1  # a stamp beyond its centre plane
+    reach = int(halo)
+    z0, Dl = (dom.slices[0].start, dom.local_shape[0]) if gax is not None else (0, grid_shape[0])
+    dev = coef.device
+    rows = np.nonzero((sidx[0] // plane >= z0) & (sidx[0] // plane < z0 + Dl))[0]
+    own_idx = torch.as_tensor(np.ascontiguousarray(sidx[:, rows]) - (z0 - reach) * plane,
+                              device=dev)
+    rows_t = torch.as_tensor(rows, device=dev)
+    own_coef = coef[:, rows_t]
+    flat = sidx.reshape(-1)
+    sel = np.nonzero((flat // plane >= z0) & (flat // plane < z0 + Dl))[0]
+    bins, table = _deposit_plan(flat[sel] - z0 * plane, Dl * plane)
+    sel, bins, table = (torch.as_tensor(a, device=dev) for a in (sel, bins, table))
+    local_shape = (Dl,) + tuple(grid_shape[1:])
+
+    def df(m, m0, bs):
+        E = halo_exchange(m, 1, mesh, 0, gax) if halo else m
+        lv = torch.sum(E.reshape(-1)[own_idx] * own_coef, dim=0)
+        if gax is not None:
+            lv = sum_replicated(lv.new_zeros(nrecv).index_copy(0, rows_t, lv), mesh, gax)
+        return lv * bs["wr"]
+
     def stack_dft(dd, m0, bs):
-        """``L^T S^T dd``: reduce the weighted residuals over shots, then one
-        scatter-add of the stencil stamps."""
         g = torch.sum(dd * bs["wr"], dim=0)  # (nrecv,)
-        vals = bs["scoef"] * g[None, :]  # (nstamp, nrecv)
-        z = torch.zeros(int(np.prod(grid_shape)), dtype=dd.dtype, device=dd.device)
-        return z.index_add_(0, bs["sidx"].reshape(-1), vals.reshape(-1)).reshape(
-            grid_shape)
+        vals = (coef * g[None, :]).reshape(-1)[sel]
+        return _deposit(vals, bins, table, Dl * plane).reshape(local_shape)
 
-    return stack_dft
+    return df, stack_dft
 
 
-def _sample_df(u, m0, bs):
-    """Gather the wavefield at the receivers, weight per shot."""
-    return u.reshape(-1)[bs["rcv"]] * bs["wr"]
+def _sharded_laplacian(dom, gax):
+    """The order-2 Laplacian on a :class:`ShardedSpace` split over ``gax``
+    along its leading dimension: one halo plane exchanged, the Laplacian of
+    the extended slab (K3 on a 3-D float32 grid), its interior kept — the
+    slab of :func:`laplacian_nd` of the whole grid, bit for bit. It is
+    self-adjoint, as the unsharded one is."""
+    Dl = dom.local_shape[0]
 
+    def df(dm, m0, state):
+        return _dense_lap(halo_exchange(dm, 1, dom.mesh, 0, gax))[1:1 + Dl]
 
-def _make_sample_stack_dft(grid_shape):
-    def stack_dft(dd, m0, bs):
-        g = torch.sum(dd * bs["wr"], dim=0)  # (nrecv,)
-        z = torch.zeros(int(np.prod(grid_shape)), dtype=dd.dtype, device=dd.device)
-        return z.index_add_(0, bs["rcv"], g).reshape(grid_shape)
-
-    return stack_dft
+    return LinearOperator(Jet(dom=dom, rng=dom, df=df, dft="self"))
 
 
 # -- constructors ----------------------------------------------------------------
@@ -372,8 +434,8 @@ def seismic_operator_from_arrays(
     shard the shots (the module docstring); the operator is then built on
     the mesh's device. On a 2-D mesh the model's leading dimension also
     splits over the other axis (:func:`~jets_tpu_torch.parallel.sharded.grid_axis`):
-    the domain is a :class:`ShardedSpace` of the rank's grid slab
-    (:func:`_grid_sharded_kernels`; the fused regular geometry only)."""
+    the domain is a :class:`ShardedSpace` of the rank's grid slab, for
+    every geometry and both values of ``impl``."""
     grid_shape = tuple(int(s) for s in grid_shape)
     device = mesh.device if mesh is not None else resolve_device(device)
     if impl not in ("fused", "composed"):
@@ -389,20 +451,16 @@ def seismic_operator_from_arrays(
     grid_geom = _receiver_grid(grid_shape, nreceivers)
     gax = grid_axis(mesh, axis)
     if gax is not None:
-        if grid_geom is None or impl != "fused":
-            raise ValueError(f"a model sharded over mesh axis {gax!r} takes the fused "
-                             "operator on a regular receiver subgrid")
         dom = common["dom"] = ShardedSpace(grid_shape, dtype, mesh, spec=(gax,))
-        axes_idx = tuple(torch.arange(c, device=device) * st + s
-                         for s, st, c in zip(*grid_geom))
-        df, stack_dft = _grid_sharded_kernels(grid_shape, grid_geom[2], axes_idx, dom, gax)
-        return stacked_block_operator(**common, df=df, stack_dft=stack_dft)
-    if grid_geom is not None:
+    if grid_geom is not None and (gax is None or impl == "fused"):
         starts, strides_g, counts = grid_geom
         axes_idx = tuple(
             torch.arange(c, device=device) * st + s
             for s, st, c in zip(starts, strides_g, counts)
         )
+        if gax is not None:
+            df, stack_dft = _grid_sharded_kernels(grid_shape, counts, axes_idx, dom, gax)
+            return stacked_block_operator(**common, df=df, stack_dft=stack_dft)
         if impl == "fused":
             op = stacked_block_operator(
                 **common,
@@ -425,27 +483,24 @@ def seismic_operator_from_arrays(
         )
         return compose(S, laplacian_operator(grid_shape, dtype, device))
 
+    if grid_geom is not None:  # composed on a grid-sharded model: S by stamps
+        rcv = _subgrid_receivers(grid_shape, grid_geom)
     if rcv is None:
         raise ValueError(
             f"{nreceivers} receivers do not fit a regular subgrid of {grid_shape}: "
             "pass the receiver indices rcv"
         )
-    rcv = _tensor(rcv, torch.int64, device)
+    rcv = np.asarray(_tensor(rcv, torch.int64, "cpu"))
     if impl == "fused":
-        sidx, scoef = _laplacian_stamps(grid_shape, rcv.cpu().numpy(), dtype, device)
-        return stacked_block_operator(
-            **common,
-            sstate={"sidx": sidx, "scoef": scoef},
-            df=_stamp_df,
-            stack_dft=_make_stamp_stack_dft(grid_shape),
-        )
-    S = stacked_block_operator(
-        **common,
-        sstate={"rcv": rcv},
-        df=_sample_df,
-        stack_dft=_make_sample_stack_dft(grid_shape),
-    )
-    return compose(S, laplacian_operator(grid_shape, dtype, device))
+        sidx, scoef = _laplacian_stamps(grid_shape, rcv, dtype, device)
+        df, stack_dft = _stamp_kernels(grid_shape, sidx.cpu().numpy(), scoef, dom, gax)
+        return stacked_block_operator(**common, df=df, stack_dft=stack_dft)
+    df, stack_dft = _stamp_kernels(grid_shape, rcv[None], torch.ones(
+        (1, nreceivers), dtype=dtype, device=device), dom, gax)
+    S = stacked_block_operator(**common, df=df, stack_dft=stack_dft)
+    L = (laplacian_operator(grid_shape, dtype, device) if gax is None
+         else _sharded_laplacian(dom, gax))
+    return compose(S, L)
 
 
 def make_seismic_operator(

@@ -689,6 +689,8 @@ class _Slab:
         self.r_in = own.to(dtype)
         self.r_loc = torch.where(own, loc, 0)
         self.own_loc, self.own = self.r_loc[own], own
+        if sponge is None:  # a boundary of its own (CPML)
+            return
         if isinstance(sponge, tuple):  # per-axis factors, each sliced and edge-extended
             self.sponge = tuple(self._ext_factor(f, d) for d, f in enumerate(sponge))
         else:
@@ -708,6 +710,23 @@ class _Slab:
 
     def mask(self, amp):
         return cuda_wave.source_mask(self.eshape, self.src, amp)
+
+    def narrow(self, f, d):
+        """``f``'s part on the rank's slab along dimension ``d`` (a full
+        grid array or a profile broadcast along the others)."""
+        if f.shape[d] == 1 or d not in self.dims:
+            return f
+        return f.narrow(d, self.slices[d].start, self.lshape[d])
+
+    def along(self, fn, u, d):
+        """``fn(u)`` of a stencil ``fn`` along dimension ``d`` only: ``u``'s
+        halo exchanged along ``d`` where it is split over several ranks, the
+        interior kept (``fn`` itself zero-pads, so with one rank along ``d``
+        it runs on ``u`` as the unsharded step does, autograd graph and all)."""
+        if d not in self.dims or self.mesh.axis_size(self.axis_of[d]) == 1:
+            return fn(u)
+        return fn(halo_exchange(u, self.hw, self.mesh, d, self.axis_of[d])).narrow(
+            d, self.hw, self.lshape[d])
 
     def local(self, x):
         """The rank's slab of a global grid array."""
@@ -1136,6 +1155,48 @@ def _windowing(grid_shape, window_shape, device):
     return take, place
 
 
+def _sharded_windowing(dom, window_shape):
+    """``(take, place)`` of :func:`_windowing` on a model whose leading
+    dimension is split over a mesh axis (``dom``, a :class:`ShardedSpace`),
+    at host corner rows: ``take`` pads the rank's planes of the window with
+    zeros to the window's shape and sums it over the grid axis (each plane
+    lives on one rank, so adding the others' zeros is exact), which gives
+    every rank of the row the whole window; ``place`` keeps the rank's
+    planes of a window-shaped gradient, zero elsewhere in its slab. Each
+    shot then propagates unsharded in its window on its block rank, and
+    ``take``'s backward (the sum's is the identity) returns each owner its
+    planes of the window's gradient. What moves is one window per shot, not
+    the model."""
+    z0, Dl = dom.slices[0].start, dom.local_shape[0]
+    rest_shape = tuple(window_shape[1:])
+
+    def planes(corner):
+        cz = int(corner[0])
+        lo, hi = max(cz, z0), min(cz + window_shape[0], z0 + Dl)
+        return (lo, hi) if hi > lo else (cz, cz)
+
+    def pad(x, widths):
+        return torch.nn.functional.pad(x, [w for pair in reversed(widths) for w in pair])
+
+    def take(m, corner):
+        cz, (lo, hi) = int(corner[0]), planes(corner)
+        rest = tuple(slice(int(c), int(c) + n) for c, n in zip(corner[1:], rest_shape))
+        part = m[(slice(lo - z0, hi - z0),) + rest]
+        w = pad(part, [(lo - cz, cz + window_shape[0] - hi)] + [(0, 0)] * len(rest))
+        return sum_replicated(w, dom.mesh, dom.axes)
+
+    def place(g, corner):
+        cz, (lo, hi) = int(corner[0]), planes(corner)
+        if hi == lo:  # the window misses this rank's planes
+            return g.new_zeros(dom.local_shape)
+        widths = [(lo - z0, z0 + Dl - hi)] + [
+            (int(c), n - int(c) - k) for c, k, n in zip(corner[1:], rest_shape,
+                                                        dom.local_shape[1:])]
+        return pad(g[lo - cz:hi - cz], widths)
+
+    return take, place
+
+
 def _multishot_grid(grid_shape, dtype, mesh, axis, device, order):
     """The grid space of a multishot operator: on a 2-D mesh the rank's slab
     of the leading dimension over the grid axis (:func:`grid_axis`), else the
@@ -1170,15 +1231,19 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
     model (:func:`_windowing`). ``mesh``/``axis`` shard the shots over a
     mesh's ranks: each rank runs its slab of shots as above, and their
     contributions to the adjoint meet in one ``all_reduce`` over ``axis``
-    (:func:`stacked_block_operator`). When ``gsp`` is a rank's slab (a 2-D
-    mesh: :func:`_multishot_grid`), each shot's wavefields are sharded over
-    the grid axis (``wavefield_sharding``) and the shots run one after
-    another whatever ``shot_map`` says: collectives do not run inside
-    ``torch.func.vmap``."""
+    (:func:`stacked_block_operator`). When ``dom`` is a rank's slab (a 2-D
+    mesh: :func:`_multishot_grid`), the shots run one after another whatever
+    ``shot_map`` says (collectives do not run inside ``torch.func.vmap``):
+    without windows ``gsp`` is that slab and each shot's wavefields are
+    sharded over the grid axis (``wavefield_sharding``, the sponge or the
+    CPML boundary); with windows each shot gathers its window from the
+    planes' owners and propagates it unsharded (:func:`_sharded_windowing`)."""
     dtype = gsp.dtype
     if isinstance(gsp, ShardedSpace):
         propagate, adjoint = _with_sharding(BlockSharding(gsp.mesh, gsp.spec), propagate,
                                             adjoint)
+    sharded = isinstance(dom, ShardedSpace)  # windows on a split model
+    if sharded or isinstance(gsp, ShardedSpace):
         shot_map = "map"
     src = _index_tensor(src_indices, "cpu")
     rcv = _index_tensor(_default_receivers(gsp.size) if rcv_idx is None else rcv_idx,
@@ -1192,9 +1257,10 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
     bstate = {"src": src}
     take = place = None
     if windows is not None:
-        take, place = _windowing(dom.shape, windows[0], gsp.device)
-        bstate["corner"] = _index_tensor(windows[1], gsp.device).reshape(
-            int(src.shape[0]), len(dom.shape))
+        take, place = (_sharded_windowing(dom, windows[0]) if sharded
+                       else _windowing(dom.shape, windows[0], gsp.device))
+        bstate["corner"] = _index_tensor(windows[1], "cpu" if sharded else gsp.device
+                                         ).reshape(int(src.shape[0]), len(dom.shape))
 
     def local(m, corner):
         return m if take is None else take(m, corner)
@@ -1346,7 +1412,9 @@ def multishot_wave_operator(
     **Mesh**: ``mesh``/``axis`` shard the shots over a
     :class:`~jets_tpu_torch.parallel.sharded.BlockMesh` (its size must divide
     the shot count); the operator is built on the mesh's device, the data
-    are each rank's slab of shots and the adjoint all-reduces once.
+    are each rank's slab of shots and the adjoint all-reduces once. On a
+    2-D mesh the model's leading dimension splits over the grid axis too,
+    with either boundary and with windows.
     """
     grid_shape = tuple(int(s) for s in grid_shape)
     space_order = _check_space_order(space_order)
@@ -1389,9 +1457,6 @@ def multishot_wave_operator(
         bnd = {"sponge": _make_sponge(prop_shape, sponge_width,
                                       free_surface=free_surface, dtype=dtype)}
     sp = _multishot_grid(grid_shape, dtype, mesh, axis, device, space_order)
-    if isinstance(sp, ShardedSpace) and (use_cpml or windows is not None):
-        raise ValueError("a wavefield sharded over a mesh's grid axis takes the sponge "
-                         "boundary and no ginsu windows")
     return _multishot_operator(
         sp, sp if windows is None else Space(prop_shape, dtype, sp.device),
         _propagate_cpml if use_cpml else _propagate, _adjoint_stored, src_indices,
@@ -1441,18 +1506,37 @@ def _cpml_profiles(shape, width, dt, dx, cmax, f0, R=1e-3, dtype=torch.float32,
 
 def _propagate_cpml(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, a_prof, b_prof,
                     order: int = 2, remat_blocks: int = 1, fused=None,
-                    inplace: bool = False, vmap_tape: Optional[bool] = None):
+                    inplace: bool = False, vmap_tape: Optional[bool] = None,
+                    wavefield_sharding=None):
     """Leapfrog stepping with CPML memory-field boundaries; returns the
     receiver traces ``(nt, nrcv)``. The carry is ``(u_prev, u, psi_0..,
     zeta_0..)``; each step is the JAX package's XLA step, tree for tree.
     Plain only (``fused`` and ``inplace`` are accepted and ignored);
-    ``remat_blocks`` and ``vmap_tape`` as for :func:`_propagate`."""
+    ``remat_blocks`` and ``vmap_tape`` as for :func:`_propagate`.
+
+    Under ``wavefield_sharding`` each rank steps its slab (:class:`_Slab`):
+    the profiles are sliced to the slab's planes, the memory fields ψ and ζ
+    stay local, and each derivative along a sharded dimension reads the
+    neighbours' planes — ``u``'s for the first and second derivatives, the
+    fresh ψ's for ``∂ψ`` (one more exchange per sharded dimension and step).
+    Every point keeps its tree, so the traces (summed once over the
+    wavefield's mesh axes) are the unsharded ones bit for bit on a world of
+    one; the derived adjoint goes back through the exchanges."""
     shape, dtype, dev, nd = c.shape, c.dtype, c.device, c.ndim
+    sl = _slab_of(c, src_idx, rcv_idx, None, order, wavefield_sharding)
     c2dt2 = (c * c) * (dt * dt)
     inv_dx2 = torch.tensor(1.0 / (dx * dx), dtype=dtype, device=dev)
     inv_dx = torch.tensor(1.0 / dx, dtype=dtype, device=dev)
-    mask = cuda_wave.source_mask(shape, src_idx, torch.tensor(dt * dt, dtype=dtype,
-                                                              device=dev))
+    amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
+    if sl is None:
+        mask = cuda_wave.source_mask(shape, src_idx, amp)
+        along = lambda fn, u, ax: fn(u)  # noqa: E731
+        record = functools.partial(_gather, idx=rcv_idx, vmapped=vmap_tape is not None)
+    else:
+        mask = sl.interior(sl.mask(amp))
+        a_prof = tuple(sl.narrow(f, ax) for ax, f in enumerate(a_prof))
+        b_prof = tuple(sl.narrow(f, ax) for ax, f in enumerate(b_prof))
+        along, record = sl.along, sl.extract
 
     def body(carry, s_t, params, consts):
         (c2,), (inv_dx, inv_dx2, mask) = params, consts[:3]
@@ -1460,27 +1544,27 @@ def _propagate_cpml(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, a_prof, b_prof,
         u_prev, u, psis, zetas = carry
         new_psis, new_zetas, lap = [], [], None
         for ax in range(nd):
-            d1 = d1_axis(u, ax, inv_dx, order)
+            d1 = along(lambda v: d1_axis(v, ax, inv_dx, order), u, ax)
             psi = b_prof[ax] * psis[ax] + a_prof[ax] * d1
-            d2 = d2_axis(u, ax, inv_dx2, order)
-            dpsi = d1_axis(psi, ax, inv_dx, order)
+            d2 = along(lambda v: d2_axis(v, ax, inv_dx2, order), u, ax)
+            dpsi = along(lambda v: d1_axis(v, ax, inv_dx, order), psi, ax)
             zeta = b_prof[ax] * zetas[ax] + a_prof[ax] * (d2 + dpsi)
             new_psis.append(psi)
             new_zetas.append(zeta)
             term = d2 + dpsi + zeta
             lap = term if lap is None else lap + term
         u_next = 2.0 * u - u_prev + c2 * lap + s_t * mask
-        return ((u, u_next, tuple(new_psis), tuple(new_zetas)),
-                _gather(u_next, rcv_idx, vmap_tape is not None))
+        return (u, u_next, tuple(new_psis), tuple(new_zetas)), record(u_next)
 
     def zero():
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     carry = (zero(), zero(), tuple(zero() for _ in range(nd)),
              tuple(zero() for _ in range(nd)))
-    return _time_loop(body, carry, src_wavelet, remat_blocks,
-                      _records(c) if vmap_tape is None else vmap_tape, (c2dt2,),
-                      (inv_dx, inv_dx2, mask, *a_prof, *b_prof), vmap_tape is not None)
+    traces = _time_loop(body, carry, src_wavelet, remat_blocks,
+                        _records(c) if vmap_tape is None else vmap_tape, (c2dt2,),
+                        (inv_dx, inv_dx2, mask, *a_prof, *b_prof), vmap_tape is not None)
+    return traces if sl is None else sl.sum(traces)
 
 
 def cpml_wave_propagator(

@@ -432,11 +432,30 @@ def battery_configs(inp, mesh):
     return out
 
 
+# tests/test_torch_gspmd.py's seismic and multishot cases of the routes a
+# grid-sharded model also takes (the JAX references are computed there)
+# (key, grid, shots, receivers, impl, the JAX mesh, seed, iterations): 31
+# and 23 receivers fit no regular subgrid, so those geometries are
+# irregular. The 3-D ones have rank 23, which CGLS has reached by 15
+# iterations: there the JAX package's own sharded and unsharded runs part by
+# 5e-5 (roundoff past convergence), so they take 8, where both agree to 1e-15.
+SEISMIC_CASES = [("irr", (16, 16), 8, 31, "fused", (4, 2), 6, 25),
+                 ("comp", (16, 16), 8, 32, "composed", (4, 2), 7, 25),
+                 ("irr3", (8, 10, 6), 4, 23, "fused", (2, 4), 8, 8),
+                 ("comp3", (8, 10, 6), 4, 23, "composed", (2, 4), 9, 8)]
+WINDOW = dict(window_shape=(10, 12), window_corners=[[2, 1], [3, 2], [4, 0], [6, 4]],
+              srcs=[5 * 12 + 2, 5 * 12 + 6, 5 * 12 + 8, 5 * 12 + 5])
+MULTISHOT_CASES = {"cpml": dict(boundary="cpml"), "win": WINDOW,
+                   "win8": dict(WINDOW, store_adjoint="int8")}
+
+
 def gspmd_on(inp, mesh):
     """tests/test_gspmd.py's nine checks on one (block × grid) mesh, with the
     JAX package's draws: each result gathered to the global array (every
     rank holds its slab only; the shapes are asserted), and each rank's
     halo exchanges counted."""
+    import math
+
     import numpy as np
     import torch
 
@@ -537,6 +556,47 @@ def gspmd_on(inp, mesh):
                                                        wavefield_sharding=ws, **kwp))
     out["tti_2d_refusal"] = _refusal(lambda: tti_wave_propagator(
         (16, 16), wavefield_sharding=ws, nt=8))
+
+    # the irregular geometry and impl="composed" on the grid-sharded model
+    one = math.prod(mesh.shape.values()) == 1
+    for key, shp, ns, nr, impl, _, _, iters in SEISMIC_CASES:
+        kwa = dict(wr=inp[f"{key}_wr"], rcv=inp.get(f"{key}_rcv"), impl=impl, dtype=f64)
+        A = seismic_operator_from_arrays(shp, ns, nr, mesh=mesh, **kwa)
+        assert isinstance(A.dom, ShardedSpace)
+        A0 = seismic_operator_from_arrays(shp, ns, nr, device="cpu", **kwa) if one else None
+        for tag, op in (("", A), ("_none", A0)):
+            if op is None:
+                continue
+            d = shard_data(inp[f"{key}_d"], mesh) if op is A else T(inp[f"{key}_d"])
+            if len(shp) == 2:
+                r = lsqr(op, d, maxiter=iters, tol=0.0)
+                out[f"{key}_resnorm{tag}"] = float(r.resnorm)
+            else:
+                x0 = shard_model(np.zeros(shp), mesh) if op is A else torch.zeros(shp, dtype=f64)
+                r = cgls(op, d, x0=x0, maxiter=iters, tol=0.0)
+            out[f"{key}_x{tag}"] = grid_all(r.x, shp[0]) if op is A else _np(r.x)
+        out[f"{key}_fwd"] = counted(f"{key}_fwd", lambda: data_all(
+            A(shard_model(np.ones(shp), mesh)), ns))
+
+    # the CPML and Ginsu-windowed multishots on the grid-sharded model
+    for key, extra in MULTISHOT_CASES.items():
+        kwm = dict(mkw, **{k: v for k, v in extra.items() if k != "srcs"})
+        s = extra.get("srcs", srcs)
+        F = multishot_wave_operator(grid, s, mesh=mesh, **kwm)
+        c = shard_model(inp[f"{key}_c"], mesh)
+        out[f"{key}_fwd"] = counted(f"{key}_fwd", lambda: data_all(F(c), 4))
+        out[f"{key}_adj"] = grid_all(F.linearize(c).H(shard_data(inp[f"{key}_d0"], mesh)),
+                                     16)
+        if one:
+            F0 = multishot_wave_operator(grid, s, shot_map="map", device="cpu", **kwm)
+            c0 = T(inp[f"{key}_c"])
+            out[f"{key}_fwd_none"] = _np(F0(c0))
+            out[f"{key}_adj_none"] = _np(F0.linearize(c0).H(T(inp[f"{key}_d0"])))
+    win = {k: v for k, v in WINDOW.items() if k != "srcs"}
+    out["cpml_win_refusal"] = _refusal(lambda: multishot_wave_operator(
+        grid, WINDOW["srcs"], mesh=mesh, boundary="cpml", **mkw, **win))
+    out["cpml_store_refusal"] = _refusal(lambda: multishot_wave_operator(
+        grid, srcs, mesh=mesh, boundary="cpml", store_adjoint="int8", **mkw))
 
     # test_fused_sharded_step_parity_and_collectives
     shape = (16, 8, 128)

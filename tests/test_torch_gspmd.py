@@ -22,7 +22,7 @@ import pytest
 import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from _torch_mp_worker import gspmd_on, spawn
+from _torch_mp_worker import MULTISHOT_CASES, SEISMIC_CASES, gspmd_on, spawn
 from jets_tpu.models.seismic import make_seismic_problem
 from jets_tpu.ops.wave import (multishot_vti_wave_operator, multishot_wave_operator,
                                tti_wave_propagator, vti_wave_propagator, wave_propagator)
@@ -42,6 +42,16 @@ def _wave_kw(shape, src, nt=14):
                 src_idx=int(np.ravel_multi_index(src, shape)),
                 rcv_idx=jnp.asarray([np.ravel_multi_index((8, 4, x), shape)
                                      for x in range(shape[2])], jnp.int32))
+
+
+def _lift(A):
+    """``(wr, rcv)`` of a JAX seismic operator (rcv None on a regular
+    subgrid; stamp row 0 holds the receivers)."""
+    st = (A.jet.state["ops"][0] if "ops" in A.jet.state else A).jet.state
+    rcv = st["sstate"].get("rcv", None)
+    if rcv is None and "sidx" in st["sstate"]:
+        rcv = st["sstate"]["sidx"][0]
+    return np.asarray(st["bstate"]["wr"]), None if rcv is None else np.asarray(rcv)
 
 
 def _jax_runs():
@@ -117,6 +127,37 @@ def _jax_runs():
         Fss = make(SHAPE, wavefield_sharding=ws, store_adjoint="f32", **kwp)
         a = jax.jit(lambda dd: Fss.linearize(m_sh).H(dd))(d)
         ref[f"{key}_adj"] = np.stack([np.asarray(a.getblock(b)) for b in range(len(vals))])
+
+    # the seismic routes a grid-sharded model also takes: the irregular
+    # receiver geometry (stencil stamps) and impl="composed"
+    for key, shp, ns, nr, impl, mesh_s, seed, iters in SEISMIC_CASES:
+        mesh_j = make_mesh_2d(*mesh_s)
+        A, _, d = make_seismic_problem(shp, ns, nr, seed=seed, noise=0.02, impl=impl,
+                                       dtype=jnp.float64)
+        wr, rcv = _lift(A)
+        inp.update({f"{key}_wr": wr, f"{key}_d": np.asarray(d)})
+        if rcv is not None:
+            inp[f"{key}_rcv"] = rcv
+        if len(shp) == 2:
+            r = lsqr(A, shard_data(d, mesh_j), maxiter=iters, tol=0.0)
+            ref[f"{key}_resnorm"], ref[f"{key}_bnorm"] = float(r.resnorm), float(A.rng.norm(d))
+        else:
+            r = cgls(A, shard_data(d, mesh_j), x0=shard_model(A.dom.zeros(), mesh_j),
+                     maxiter=iters, tol=0.0)
+        ref[f"{key}_x"] = np.asarray(r.x)
+
+    # the multishots a grid-sharded model also takes: CPML and Ginsu windows
+    for key, extra in MULTISHOT_CASES.items():
+        F = multishot_wave_operator(GRID, jnp.array(extra.get("srcs", SRCS)), **mkw,
+                                    **{k: v for k, v in extra.items() if k != "srcs"})
+        c = jnp.full(GRID, 1500.0, jnp.float32) + 20.0 * jax.random.normal(
+            jax.random.PRNGKey(14), GRID, jnp.float32)
+        c_sh = shard_model(c, mesh2)
+        d0 = F(c)
+        inp[f"{key}_c"], inp[f"{key}_d0"] = np.asarray(c), np.asarray(d0)
+        ref[f"{key}_fwd"] = np.asarray(jax.jit(lambda x: F(x))(c_sh))
+        ref[f"{key}_adj"] = np.asarray(jax.jit(lambda dd: F.linearize(c_sh).H(dd))(
+            shard_data(d0, mesh2)))
 
     shape = (16, 8, 128)
     kw = _wave_kw(shape, (8, 4, 64))
@@ -273,3 +314,54 @@ def test_mesh_2d_spans_the_world(runs):
         big, small = str(r["mesh_too_big"]), str(r["mesh_too_small"])
         assert big.startswith("ValueError") and "mesh 2x4 needs 8 devices, have 4" in big
         assert small.startswith("ValueError") and "spans every rank" in small
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("case", [c[0] for c in SEISMIC_CASES])
+def test_grid_sharded_stamp_and_composed_seismic(runs, mesh, case):
+    """The irregular receiver geometry (its stencil stamps) and
+    ``impl="composed"`` on a grid-sharded model: LSQR (2-D, 25 iterations)
+    and CGLS (3-D, 8; see ``SEISMIC_CASES``) against the JAX operator on sharded inputs, x within
+    ``rtol 1e-6, atol 1e-9`` and LSQR's ``resnorm`` within ``1e-9·‖b‖``
+    (float64, tests/test_gspmd.py's tolerances); on the world of one every
+    result is bitwise the port's ``mesh=None`` run, and the stamps' forward
+    moved halos wherever the grid axis splits the model."""
+    ref, out = runs
+    res = out[mesh]
+    np.testing.assert_allclose(_replicated(res, f"{case}_x"), ref[f"{case}_x"], rtol=1e-6,
+                               atol=1e-9)
+    if f"{case}_resnorm" in ref:
+        assert abs(float(_replicated(res, f"{case}_resnorm")) - ref[f"{case}_resnorm"]) \
+            < 1e-9 * ref[f"{case}_bnorm"]
+    if mesh == "1x1":
+        np.testing.assert_array_equal(res[0][f"{case}_x"], res[0][f"{case}_x_none"])
+    if case.startswith("irr"):
+        _halos_moved(res, f"{case}_fwd", mesh)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("case", list(MULTISHOT_CASES))
+def test_grid_sharded_cpml_and_windowed_multishot(runs, mesh, case):
+    """The CPML and the Ginsu-windowed isotropic multishots with the model
+    split over the grid axis (the windows with the derived adjoint and with
+    the stored int8 one): traces ``rtol 2e-6`` and adjoints ``atol 1e-5``
+    of their scale against the JAX package's run on sharded
+    inputs; on the world of one bitwise the port's unsharded operator (map
+    mode); CPML moved halos wherever the grid axis splits the model. CPML
+    with windows and ``store_adjoint`` with CPML stay refused, in both
+    packages' words."""
+    ref, out = runs
+    res = out[mesh]
+    assert float(np.max(np.abs(ref[f"{case}_fwd"]))) > 0.0, "vacuous"
+    np.testing.assert_allclose(_replicated(res, f"{case}_fwd"), ref[f"{case}_fwd"],
+                               rtol=2e-6, atol=1e-30)
+    _max_close(_replicated(res, f"{case}_adj"), ref[f"{case}_adj"])
+    if mesh == "1x1":
+        for k in ("fwd", "adj"):
+            np.testing.assert_array_equal(res[0][f"{case}_{k}"], res[0][f"{case}_{k}_none"])
+    if case == "cpml":
+        _halos_moved(res, "cpml_fwd", mesh)
+        assert "ginsu windowing composes with boundary='sponge'" in str(
+            res[0]["cpml_win_refusal"])
+        assert "store_adjoint is not available with CPML" in str(
+            res[0]["cpml_store_refusal"])

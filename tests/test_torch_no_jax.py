@@ -199,3 +199,51 @@ def test_no_module_of_the_port_names_jax_and_the_kernels_ship():
         for entry in entries:
             assert f"int {entry}(" in text
     assert "triton" not in (PKG / "kernels.py").read_text()
+
+
+def test_examples_tools_and_smoke_name_no_jax():
+    """``examples_torch/``, ``tools/`` and ``chip_smoke.py`` import none of
+    ``jax``, ``jaxlib`` and ``jets_tpu``."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|jets_tpu)(\s|\.|$)", re.M)
+    files = [*(ROOT / "examples_torch").glob("*.py"), *(ROOT / "tools").glob("*.py"),
+             ROOT / "chip_smoke.py"]
+    assert len(files) >= 15
+    offenders = [str(p.relative_to(ROOT)) for p in files if pat.search(p.read_text())]
+    assert not offenders, offenders
+
+
+def test_smoke_example_phase_runs_without_jax():
+    """``chip_smoke.py``'s example phase, the part a CPU can run, with
+    ``jax``, ``jaxlib`` and ``jets_tpu`` blocked: its runner runs an example
+    as ``__main__``, its CPU half runs an example's ``main(device="cpu")``
+    and writes what it prints (one example: tests/test_torch_examples.py
+    runs them all), and the card's printed numbers are held to the CPU's by
+    the same comparison (here 13's run as ``__main__`` against its
+    ``main``); every example has a tolerance for each number it prints."""
+    script = r"""
+import sys, json, tempfile, os
+for name in ("jax", "jaxlib", "jets_tpu"):
+    sys.modules[name] = None
+import chip_smoke as cs
+name = "13_anisotropic_denq_gradient"
+assert sorted(cs.EXAMPLE_TOL) == sorted(cs.EXAMPLES) and len(cs.EXAMPLES) == 13
+out, sec = cs.run_example(name, ["--device", "cpu"])
+assert "VTI+staticQ" in out and sec > 0
+path = os.path.join(tempfile.mkdtemp(), "cpu.json")
+cs.EXAMPLES = (name,)
+assert cs.examples_cpu_main(path) == 0
+res = json.load(open(path))
+assert sorted(res) == [name]
+assert cs._printed_close(out, res[name]["out"], cs.EXAMPLE_TOL[name], name) == \
+    [0.0] * len(cs.EXAMPLE_TOL[name])
+bad = sorted(m for m, v in sys.modules.items()
+             if v is not None and m.split(".")[0] in ("jax", "jaxlib", "jets_tpu"))
+assert not bad, bad
+print("OK")
+"""
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH",)}
+    env.update(PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("OK")

@@ -3,9 +3,10 @@
 x grid mesh (``chip_smoke.block_by_grid``), after building the kernels and
 recomputing the references it holds the mesh runs to (phase 3's LSQR of
 the 3-D flagship, phases 42-43's configs 4 and 5, phase 65's 16-shot
-isotropic int8 multishot gradient).
+isotropic int8 multishot gradient); with ``--examples`` then phase 69, the
+examples of ``examples_torch/`` (``chip_smoke.examples_phase``).
 
-    python3 tools/smoke_block_grid.py
+    python3 tools/smoke_block_grid.py [--examples]
 
 Every line carries the card's name and power limit.
 """
@@ -59,6 +60,11 @@ def main() -> int:
     launched = chip_smoke.block_by_grid(smi, c_true, src0, wkw, flagship_ref)
     print(f"phases 67-68 launches {launched} in {time.perf_counter() - t1:.1f} s; "
           f"{time.perf_counter() - t0:.1f} s in all [{smi}]", flush=True)
+    if "--examples" in sys.argv[1:]:
+        t1 = time.perf_counter()
+        launched = chip_smoke.examples_phase(smi)
+        print(f"phase 69 launches {launched} in {time.perf_counter() - t1:.1f} s [{smi}]",
+              flush=True)
     return 0
 
 
