@@ -17,8 +17,9 @@ are built by :mod:`jets_tpu_torch.kernels`. Each wrapper checks device,
 dtype (float32), shape and contiguity and raises on anything its kernel
 does not take. For a tensor on the CPU it calls the plain version; for a
 CUDA tensor it launches the kernel or raises — there is no fallback. Each
-wrapper counts its kernel launches in ``<wrapper>.launches`` (a plain int)
-so a run can show that its main path went through the kernel.
+wrapper counts its kernel launches in the counter ``launches.<wrapper>`` of
+:mod:`~jets_tpu_torch.utils.profiling` (``launch_counts()`` is a view of
+them), so a run can show that its main path went through the kernel.
 
 On the card the kernels are bitwise equal to their plain versions (no FMA
 contraction; the stencil keeps ``laplacian_nd``'s add order), except the
@@ -31,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..utils.profiling import count, counters
 from .stencil import laplacian_nd
 
 __all__ = [
@@ -179,7 +181,7 @@ def xw_update(x, w, vh, t1, t2, inv_a):
     kernels.check(lib.jt_xw_update(
         *(t.data_ptr() for t in (x, w, vh, s1, s2, s3)), x.numel(), _stream(dev)),
         "xw_update")
-    xw_update.launches += 1
+    count("launches.xw_update")
     return x, w
 
 
@@ -196,7 +198,7 @@ def laplacian3d(z):
     lib = kernels.load_library()
     kernels.check(lib.jt_laplacian3d(
         z.data_ptr(), out.data_ptr(), *z.shape, _stream(z.device)), "laplacian3d")
-    laplacian3d.launches += 1
+    count("launches.laplacian3d")
     return out
 
 
@@ -220,7 +222,7 @@ def lap3d_axpy_norm2(z, v, s):
     kernels.check(lib.jt_lap3d_axpy_norm2(
         *(t.data_ptr() for t in (z, v, s, vh, partials, n2)), *z.shape, _stream(dev)),
         "lap3d_axpy_norm2")
-    lap3d_axpy_norm2.launches += 1
+    count("launches.lap3d_axpy_norm2")
     return vh, n2
 
 
@@ -243,7 +245,7 @@ def cg_update(x, r, p, q, alpha):
     kernels.check(lib.jt_cg_update(
         *(t.data_ptr() for t in (x, r, p, q, alpha, partials, rho)), x.numel(),
         _stream(dev)), name)
-    cg_update.launches += 1
+    count("launches.cg_update")
     return x, r, rho
 
 
@@ -259,7 +261,7 @@ def p_update(r, p, beta):
     lib = kernels.load_library()
     kernels.check(lib.jt_p_update(r.data_ptr(), p.data_ptr(), beta.data_ptr(), r.numel(),
                                   _stream(dev)), name)
-    p_update.launches += 1
+    count("launches.p_update")
     return p
 
 
@@ -277,20 +279,25 @@ def lsmr_update(vh, h, hbar, x, c_hb, c_x, c_h, inv_a):
     lib = kernels.load_library()
     kernels.check(lib.jt_lsmr_update(
         *(t.data_ptr() for t in (vh, h, hbar, x) + s), x.numel(), _stream(dev)), name)
-    lsmr_update.launches += 1
+    count("launches.lsmr_update")
     return h, hbar, x
 
 
 _WRAPPERS = (xw_update, lap3d_axpy_norm2, laplacian3d, cg_update, p_update, lsmr_update)
 
 
-def reset_launch_counts() -> None:
-    for fn in _WRAPPERS:
-        fn.launches = 0
+def _launch_counters(wrappers):
+    """``(reset_launch_counts, launch_counts)`` of a module's ``wrappers``:
+    views of the registry's counters ``launches.<wrapper>``."""
+    keys = [f"launches.{fn.__name__}" for fn in wrappers]
+
+    def reset_launch_counts() -> None:
+        counters(keys, reset=True)
+
+    def launch_counts() -> dict:
+        return {fn.__name__: n for fn, n in zip(wrappers, counters(keys).values())}
+
+    return reset_launch_counts, launch_counts
 
 
-def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
-
-
-reset_launch_counts()
+reset_launch_counts, launch_counts = _launch_counters(_WRAPPERS)

@@ -15,7 +15,8 @@ built by :mod:`jets_tpu_torch.kernels`. As in :mod:`.cuda_vti`, each wrapper
 checks device, dtype, shape and contiguity and raises on anything its
 kernel does not take; for tensors on the CPU it calls the plain version,
 for CUDA tensors it launches the kernel or raises, and it counts its
-launches in ``<wrapper>.launches``.
+launches in the counter ``launches.<wrapper>`` of
+:mod:`~jets_tpu_torch.utils.profiling`.
 
 The coupled system (axis 0 = z; the symmetry axis ``n = (nz, ny, nx) =
 (cosθ, sinθ·cosφ, sinθ·sinφ)``; ``C = c²dt²``, ``ah = 1+2ε``,
@@ -50,7 +51,8 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .cuda_solver import _check_f32, _scalar, _stream
+from ..utils.profiling import count
+from .cuda_solver import _check_f32, _launch_counters, _scalar, _stream
 from .cuda_vti import (_STORE_DTYPES, SCALE_FLOOR, _check_distinct, _check_history,
                        _ptrs, encode)
 from .cuda_wave import (_STORE_CODE, _check_factors, _check_grid, _device_of,
@@ -275,7 +277,7 @@ def fused_tti_step(p_prev, p, q_prev, q, C, ah, av, nz, ny, nx, spz, sy, sx, inv
     kernels.check(lib.jt_tti_step(
         *_ptrs(p_prev, p, q_prev, q, C, *coeffs, spz, sy, sx, s_t, amp, inv_dx2, inv_dx),
         src, *_ptrs(pn, qn), *p.shape, order, code, _stream(dev)), name, "tti")
-    fused_tti_step.launches += 1
+    count("launches.fused_tti_step")
     return pn, qn
 
 
@@ -315,7 +317,7 @@ def fused_tti_hist_step(p_prev, p, q_prev, q, C, ah, av, nz, ny, nx, spz, sy, sx
         *_ptrs(p_prev, p, q_prev, q, C, *coeffs, spz, sy, sx, s_t, amp, inv_dx2, inv_dx,
                qfp, qfq), src, *_ptrs(pn, qn, penc, qenc, partials), *p.shape, order,
         code, _STORE_CODE[sdt], _stream(dev)), name, "tti")
-    fused_tti_hist_step.launches += 1
+    count("launches.fused_tti_hist_step")
     peak = torch.amax(partials, dim=1)
     return pn, qn, penc, qenc, torch.maximum(peak, torch.full_like(peak, SCALE_FLOOR))
 
@@ -359,20 +361,10 @@ def fused_tti_adjoint_step(ap1, aq1, ap2, aq2, gC, gah, gav, gnz, gny, gnx, C, a
         *_ptrs(ap1, aq1, ap2, aq2, *accs, C, *coeffs, p_enc, q_enc, psc, qsc, inv_dx2,
                inv_dx, spz, sy, sx), *_ptrs(*outs), *ap1.shape, order, code,
         _STORE_CODE[p_enc.dtype], _stream(dev)), name, "tti")
-    fused_tti_adjoint_step.launches += 1
+    count("launches.fused_tti_adjoint_step")
     return outs
 
 
 _WRAPPERS = (fused_tti_step, fused_tti_hist_step, fused_tti_adjoint_step)
 
-
-def reset_launch_counts() -> None:
-    for fn in _WRAPPERS:
-        fn.launches = 0
-
-
-def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
-
-
-reset_launch_counts()
+reset_launch_counts, launch_counts = _launch_counters(_WRAPPERS)

@@ -15,7 +15,8 @@ built by :mod:`jets_tpu_torch.kernels`. As in :mod:`.cuda_wave`, each
 wrapper checks device, dtype, shape and contiguity and raises on anything
 its kernel does not take; for tensors on the CPU it calls the plain
 version, for CUDA tensors it launches the kernel or raises, and it counts
-its launches in ``<wrapper>.launches``.
+its launches in the counter ``launches.<wrapper>`` of
+:mod:`~jets_tpu_torch.utils.profiling`.
 
 The coupled system (axis 0 = z, ``Lh`` the in-plane second derivative,
 ``∂zz`` the vertical one, each axis ``(c0·x + Σ c_s·(lo + hi))·inv_dx2``
@@ -43,7 +44,8 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .cuda_solver import _check_f32, _scalar, _stream
+from ..utils.profiling import count
+from .cuda_solver import _check_f32, _launch_counters, _scalar, _stream
 from .cuda_wave import (_STORE_CODE, _check_factors, _check_grid, _device_of,
                         source_mask, sponge_product)
 from .stencil import d2_axis
@@ -224,7 +226,7 @@ def fused_vti_step(p_prev, p, q_prev, q, C, ah, av, spz, sy, sx, inv_dx2, s_t,
     kernels.check(lib.jt_vti_step(
         *_ptrs(p_prev, p, q_prev, q, C, ah, av, spz, sy, sx, s_t, amp, inv_dx2), src,
         *_ptrs(pn, qn), *p.shape, order, _stream(dev)), name, "vti")
-    fused_vti_step.launches += 1
+    count("launches.fused_vti_step")
     return pn, qn
 
 
@@ -263,7 +265,7 @@ def fused_vti_hist_step(p_prev, p, q_prev, q, C, ah, av, spz, sy, sx, inv_dx2, s
         *_ptrs(p_prev, p, q_prev, q, C, ah, av, spz, sy, sx, s_t, amp, inv_dx2, qfp,
                qfq), src, *_ptrs(pn, qn, penc, qenc, partials), *p.shape, order,
         _STORE_CODE[sdt], _stream(dev)), name, "vti")
-    fused_vti_hist_step.launches += 1
+    count("launches.fused_vti_hist_step")
     peak = torch.amax(partials, dim=1)
     return pn, qn, penc, qenc, torch.maximum(peak, torch.full_like(peak, SCALE_FLOOR))
 
@@ -305,20 +307,10 @@ def fused_vti_adjoint_step(ap1, aq1, ap2, aq2, gC, gah, gav, C, av, ah, p_enc, q
         *_ptrs(ap1, aq1, ap2, aq2, gC, gah, gav, C, av, ah, p_enc, q_enc, psc, qsc,
                inv_dx2, spz, sy, sx), *_ptrs(*outs), *ap1.shape, order,
         _STORE_CODE[p_enc.dtype], _stream(dev)), name, "vti")
-    fused_vti_adjoint_step.launches += 1
+    count("launches.fused_vti_adjoint_step")
     return outs
 
 
 _WRAPPERS = (fused_vti_step, fused_vti_hist_step, fused_vti_adjoint_step)
 
-
-def reset_launch_counts() -> None:
-    for fn in _WRAPPERS:
-        fn.launches = 0
-
-
-def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
-
-
-reset_launch_counts()
+reset_launch_counts, launch_counts = _launch_counters(_WRAPPERS)

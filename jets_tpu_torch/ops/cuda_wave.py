@@ -15,7 +15,8 @@ built by :mod:`jets_tpu_torch.kernels`. Each wrapper checks device, dtype,
 shape and contiguity and raises on anything its kernel does not take. For
 tensors on the CPU it calls the plain version; for CUDA tensors it
 launches the kernel or raises — there is no fallback. Each wrapper counts
-its kernel launches in ``<wrapper>.launches`` (a plain int).
+its kernel launches in the counter ``launches.<wrapper>`` of
+:mod:`~jets_tpu_torch.utils.profiling`.
 
 The sponge enters as its per-axis factors ``spz (D,)``, ``sy (H,)``,
 ``sx (W,)``; the scalars ``s_t``, ``amp`` and ``sc`` are 0-d float32
@@ -32,7 +33,8 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .cuda_solver import _check_f32, _device_of, _scalar, _stream
+from ..utils.profiling import count
+from .cuda_solver import _check_f32, _device_of, _launch_counters, _scalar, _stream
 from .stencil import _D2_COEFFS, laplacian_nd
 
 __all__ = [
@@ -184,7 +186,7 @@ def fused_leapfrog_step(u_prev, u, c2dt2, spz, sy, sx, s_t, src_idx, amp, *,
     kernels.check(lib.jt_leapfrog_step(
         *(t.data_ptr() for t in (u_prev, u, c2dt2, spz, sy, sx, s_t, amp)), src,
         res.data_ptr(), *u.shape, order, _stream(dev)), name, "wave")
-    fused_leapfrog_step.launches += 1
+    count("launches.fused_leapfrog_step")
     return res
 
 
@@ -226,7 +228,7 @@ def fused_adjoint_step(a1, a2, gc2, c2dt2, u_enc, sc, spz, sy, sx, *,
         *(t.data_ptr() for t in (a1, a2, gc2, c2dt2, u_enc, sc, spz, sy, sx, core,
                                  gnew)),
         *a1.shape, order, _STORE_CODE[u_enc.dtype], _stream(dev)), name, "wave")
-    fused_adjoint_step.launches += 1
+    count("launches.fused_adjoint_step")
     return core, gnew
 
 
@@ -264,20 +266,10 @@ def fused_q_step(u_prev, u, c2dt2, g, spz, sy, sx, s_t, src_idx, amp, *,
     kernels.check(lib.jt_q_step(
         *(t.data_ptr() for t in (u_prev, u, c2dt2, g, spz, sy, sx, s_t, amp)), src,
         res.data_ptr(), *u.shape, order, _G_CODE[g.dtype], _stream(dev)), name, "wave")
-    fused_q_step.launches += 1
+    count("launches.fused_q_step")
     return res
 
 
 _WRAPPERS = (fused_leapfrog_step, fused_adjoint_step, fused_q_step)
 
-
-def reset_launch_counts() -> None:
-    for fn in _WRAPPERS:
-        fn.launches = 0
-
-
-def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
-
-
-reset_launch_counts()
+reset_launch_counts, launch_counts = _launch_counters(_WRAPPERS)

@@ -112,6 +112,7 @@ from ..core.spaces import Space, true_div
 from ..parallel.collectives import halo_exchange, max_replicated, sum_replicated
 from ..parallel.sharded import (BlockSharding, ShardedSpace, grid_axis, local_slices,
                                 stacked_block_operator)
+from ..utils.profiling import count, span
 from ..utils.tree import tmap
 from . import cuda_tti, cuda_vti, cuda_wave
 from .sampling import _axis_contract, kaiser_sinc_matrix, kaiser_sinc_matrix_np
@@ -393,24 +394,46 @@ def _store_codec(store: str, dtype, mesh=None, axes=None):
     with ``s = max(max|u|, 1e-30)``; with ``mesh`` (``u`` a rank's slab of a
     grid split over the mesh ``axes``) the max is over the whole grid, one
     MAX ``all_reduce`` over those axes per snapshot, so the stored bytes are
-    those of the unsharded grid."""
+    those of the unsharded grid. Each ``enc`` call is a span
+    ``codec.encode`` and counts one in ``snapshots.encoded`` and its code's
+    and scale's bytes in ``history.bytes`` (a vmapped batch's: the whole
+    batch, once)."""
     if store == "f32":
-        return ((lambda u: (u, torch.ones((), dtype=dtype, device=u.device))),
-                (lambda q, s: q))
-    if store == "bf16":
-        return ((lambda u: (u.to(torch.bfloat16),
-                            torch.ones((), dtype=dtype, device=u.device))),
-                (lambda q, s: q.to(dtype)))
-    if store == "int8":
-        def enc(u):
+        code, dec = ((lambda u: (u, torch.ones((), dtype=dtype, device=u.device))),
+                     (lambda q, s: q))
+    elif store == "bf16":
+        code, dec = ((lambda u: (u.to(torch.bfloat16),
+                                 torch.ones((), dtype=dtype, device=u.device))),
+                     (lambda q, s: q.to(dtype)))
+    elif store == "int8":
+        def code(u):
             amax = torch.linalg.vector_norm(u, float("inf"))  # max|u|
             if mesh is not None:
                 amax = max_replicated(amax, mesh, axes)
             s = torch.maximum(amax, torch.tensor(1e-30, dtype=dtype, device=u.device))
             return torch.round(u * (torch.full_like(s, 127.0) / s)).to(torch.int8), s
 
-        return enc, (lambda q, s: q.to(dtype) * true_div(s, 127.0))
-    raise ValueError(f"store must be one of {_STORES}, got {store!r}")
+        def dec(q, s):
+            return q.to(dtype) * true_div(s, 127.0)
+    else:
+        raise ValueError(f"store must be one of {_STORES}, got {store!r}")
+
+    def enc(u):
+        with span("codec.encode"):
+            q, s = code(u)
+        count("snapshots.encoded")
+        count("history.bytes", _stored_bytes(q) + _stored_bytes(s))
+        return q, s
+
+    return enc, dec
+
+
+def _stored_bytes(t) -> int:
+    """The bytes ``t`` holds on its device; inside ``torch.func.vmap``, those
+    of the whole batch."""
+    while torch._C._functorch.is_batchedtensor(t):
+        t = torch._C._functorch.get_unwrapped(t)
+    return t.numel() * t.element_size()
 
 
 _ON_GRID_ONLY = ("fused wave step requires a 3-D float32 grid with the default "
@@ -502,7 +525,9 @@ def _field_loop(step, nfields: int, shape, dtype, dev, src_wavelet, rcv_idx,
     through :func:`_time_loop` (``params``, ``consts`` and ``vmapped`` as it
     takes them). Each step's trace is the field gathered at the flat
     indices ``rcv_idx`` (in place: into a preallocated trace tensor) or, with
-    ``extract``, ``extract(field)`` of any shape."""
+    ``extract``, ``extract(field)`` of any shape. The loop is a span
+    ``sweep.forward`` and counts its steps in ``steps.forward`` (a vmapped
+    batch's step once)."""
     def advance(carry, nxt):
         nxt = (nxt,) if torch.is_tensor(nxt) else tuple(nxt)
         return tuple(x for i, n in enumerate(nxt) for x in (carry[2 * i + 1], n)), nxt[0]
@@ -510,26 +535,28 @@ def _field_loop(step, nfields: int, shape, dtype, dev, src_wavelet, rcv_idx,
     def record(u):
         return _gather(u, rcv_idx, vmapped) if extract is None else extract(u)
 
-    carry = tuple(torch.zeros(shape, dtype=dtype, device=dev) for _ in range(2 * nfields))
-    if not inplace:
-        def body(carry, s_t, params, consts):
-            carry, first = advance(carry, step(*carry, s_t, *params, *consts))
-            return carry, record(first)
-
-        return _time_loop(body, carry, src_wavelet, remat_blocks, tape, params, consts,
-                          vmapped)
     nt = int(src_wavelet.shape[0])
-    _remat_segments(nt, remat_blocks)  # the same warning on every path
-    traces = (None if extract is not None
-              else torch.empty((nt, int(rcv_idx.shape[0])), dtype=dtype, device=dev))
-    recs = []
-    for k in range(nt):
-        carry, first = advance(carry, step(*carry, src_wavelet[k], *params, *consts))
-        if traces is None:  # custom extractors run on the plain steps' fresh fields
-            recs.append(extract(first))
-        else:
-            torch.index_select(first.reshape(-1), 0, rcv_idx, out=traces[k])
-    return torch.stack(recs) if traces is None else traces
+    count("steps.forward", nt)
+    with span("sweep.forward"):
+        carry = tuple(torch.zeros(shape, dtype=dtype, device=dev) for _ in range(2 * nfields))
+        if not inplace:
+            def body(carry, s_t, params, consts):
+                carry, first = advance(carry, step(*carry, s_t, *params, *consts))
+                return carry, record(first)
+
+            return _time_loop(body, carry, src_wavelet, remat_blocks, tape, params, consts,
+                              vmapped)
+        _remat_segments(nt, remat_blocks)  # the same warning on every path
+        traces = (None if extract is not None
+                  else torch.empty((nt, int(rcv_idx.shape[0])), dtype=dtype, device=dev))
+        recs = []
+        for k in range(nt):
+            carry, first = advance(carry, step(*carry, src_wavelet[k], *params, *consts))
+            if traces is None:  # custom extractors run on the plain steps' fresh fields
+                recs.append(extract(first))
+            else:
+                torch.index_select(first.reshape(-1), 0, rcv_idx, out=traces[k])
+        return torch.stack(recs) if traces is None else traces
 
 
 def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
@@ -837,29 +864,34 @@ def _adjoint_stored_sharded(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, spo
     c2dt2 = _c2dt2(c, dt, dx)
     enc, dec = sl.codec(store, dtype)
     dd = dd.to(dtype)
+    nt = int(src_wavelet.shape[0])
     hist = []
-    u_prev = torch.zeros(shape, dtype=dtype, device=dev)
-    u = torch.zeros(shape, dtype=dtype, device=dev)
-    for k in range(int(src_wavelet.shape[0])):
-        hist.append(enc(u))
-        u_prev, u = u, step(u_prev, u, src_wavelet[k])
-    del u_prev, u
+    count("steps.history", nt)
+    with span("sweep.history"):
+        u_prev = torch.zeros(shape, dtype=dtype, device=dev)
+        u = torch.zeros(shape, dtype=dtype, device=dev)
+        for k in range(nt):
+            hist.append(enc(u))
+            u_prev, u = u, step(u_prev, u, src_wavelet[k])
+        del u_prev, u
 
     def lap(u):
         return sl.apply(lambda v: _laplacian(v, order=order), u)
 
-    S = sl.interior(sl.S)
-    dd_shift = torch.cat([torch.zeros_like(dd[:1]), dd[:-1]])
-    a_next = sl.inject(dd[-1])
-    ebar_next = torch.zeros(shape, dtype=dtype, device=dev)
-    gc2 = torch.zeros(shape, dtype=dtype, device=dev)
-    for k in range(len(hist) - 1, -1, -1):
-        q, s = hist[k]
-        hist[k] = None
-        ebar = a_next * S
-        gc2 = gc2 + lap(dec(q, s)) * ebar
-        a_next = ((2.0 * ebar + lap(c2dt2 * ebar)) - ebar_next + sl.inject(dd_shift[k]))
-        ebar_next = ebar
+    count("steps.reverse", nt)
+    with span("sweep.reverse"):
+        S = sl.interior(sl.S)
+        dd_shift = torch.cat([torch.zeros_like(dd[:1]), dd[:-1]])
+        a_next = sl.inject(dd[-1])
+        ebar_next = torch.zeros(shape, dtype=dtype, device=dev)
+        gc2 = torch.zeros(shape, dtype=dtype, device=dev)
+        for k in range(nt - 1, -1, -1):
+            q, s = hist[k]
+            hist[k] = None
+            ebar = a_next * S
+            gc2 = gc2 + lap(dec(q, s)) * ebar
+            a_next = ((2.0 * ebar + lap(c2dt2 * ebar)) - ebar_next + sl.inject(dd_shift[k]))
+            ebar_next = ebar
     scale = torch.tensor((dt * dt) / (dx * dx), dtype=dtype, device=dev)
     return gc2 * (2.0 * c) * scale
 
@@ -881,7 +913,9 @@ def _adjoint_stored(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
     XLA sweep, tree for tree. ``src_mask`` and ``inject`` (``trace row ->
     full-grid field``, the transpose of the forward's ``extract``) replace
     the on-grid source and the receiver scatter; either one takes the plain
-    route."""
+    route. The forward sweep is a span ``sweep.history``, the reverse one a
+    span ``sweep.reverse``, and each counts its steps (``steps.history``,
+    ``steps.reverse``; a vmapped batch's step once)."""
     if wavefield_sharding is not None:
         return _adjoint_stored_sharded(c, dd, src_wavelet, src_idx, rcv_idx, dt=dt, dx=dx,
                                        sponge=sponge, order=order, store=store,
@@ -902,59 +936,65 @@ def _adjoint_stored(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
 
     scale = torch.tensor((dt * dt) / (dx * dx), dtype=dtype, device=dev)
     hist, scales = [], []
+    count("steps.history", nt)
+    count("steps.reverse", nt)
     if _kernel_route(fused, c, sponge, order, _ON_GRID_ONLY if custom else None):
         spz, sy, sx = _factors_1d(sponge)
         src = int(src_idx)
-        u_prev = torch.zeros(shape, dtype=dtype, device=dev)
-        u = torch.zeros(shape, dtype=dtype, device=dev)
-        for k in range(nt):
-            q, s = enc(u)
-            hist.append(q)
-            scales.append(s)
-            u_next = cuda_wave.fused_leapfrog_step(
-                u_prev, u, c2dt2, spz, sy, sx, src_wavelet[k], src, amp, order=order,
-                out=None if store == "f32" else u_prev)
-            u_prev, u = u, u_next
-        del u_prev, u, u_next  # the history holds what the reverse sweep needs
-        scs = (true_div(torch.stack(scales), 127.0) if store == "int8"
-               else torch.ones(nt, dtype=dtype, device=dev))
-        a1 = inject(dd[-1])
-        a2 = torch.zeros(shape, dtype=dtype, device=dev)
-        gc2 = torch.zeros(shape, dtype=dtype, device=dev)
-        for k in range(nt - 1, -1, -1):
-            core, gc2 = cuda_wave.fused_adjoint_step(
-                a1, a2, gc2, c2dt2, hist[k], scs[k], spz, sy, sx, order=order,
-                inplace=True)
-            hist[k] = None  # release the snapshot as the sweep passes it
-            if k > 0:  # ḡ_{k-1}; the JAX sweep adds a zero row at k = 0
-                core.reshape(-1).index_add_(0, rcv_idx, dd[k - 1])
-            a1, a2 = core, a1
+        with span("sweep.history"):
+            u_prev = torch.zeros(shape, dtype=dtype, device=dev)
+            u = torch.zeros(shape, dtype=dtype, device=dev)
+            for k in range(nt):
+                q, s = enc(u)
+                hist.append(q)
+                scales.append(s)
+                u_next = cuda_wave.fused_leapfrog_step(
+                    u_prev, u, c2dt2, spz, sy, sx, src_wavelet[k], src, amp, order=order,
+                    out=None if store == "f32" else u_prev)
+                u_prev, u = u, u_next
+            del u_prev, u, u_next  # the history holds what the reverse sweep needs
+        with span("sweep.reverse"):
+            scs = (true_div(torch.stack(scales), 127.0) if store == "int8"
+                   else torch.ones(nt, dtype=dtype, device=dev))
+            a1 = inject(dd[-1])
+            a2 = torch.zeros(shape, dtype=dtype, device=dev)
+            gc2 = torch.zeros(shape, dtype=dtype, device=dev)
+            for k in range(nt - 1, -1, -1):
+                core, gc2 = cuda_wave.fused_adjoint_step(
+                    a1, a2, gc2, c2dt2, hist[k], scs[k], spz, sy, sx, order=order,
+                    inplace=True)
+                hist[k] = None  # release the snapshot as the sweep passes it
+                if k > 0:  # ḡ_{k-1}; the JAX sweep adds a zero row at k = 0
+                    core.reshape(-1).index_add_(0, rcv_idx, dd[k - 1])
+                a1, a2 = core, a1
         return gc2 * (2.0 * c) * scale
 
     S = _sponge_full(sponge)
     mask = cuda_wave.source_mask(shape, src_idx, amp) if src_mask is None else src_mask
-    u_prev = torch.zeros(shape, dtype=dtype, device=dev)
-    u = torch.zeros(shape, dtype=dtype, device=dev)
-    for k in range(nt):
-        hist.append(enc(u))  # history entry k holds u_k
-        u_next = cuda_wave.leapfrog_plain(u_prev, u, c2dt2, S, src_wavelet[k], mask,
-                                          order)
-        u_prev, u = u, u_next
-    # ḡ_{k-1} aligned to reverse step k (rec_k samples u_{k+1})
-    dd_shift = torch.cat([torch.zeros_like(dd[:1]), dd[:-1]])
-    a_next = inject(dd[-1])
-    ebar_next = torch.zeros(shape, dtype=dtype, device=dev)
-    gc2 = torch.zeros(shape, dtype=dtype, device=dev)
-    for k in range(nt - 1, -1, -1):
-        q, s = hist[k]
-        hist[k] = None
-        ebar = a_next * S
-        gc2 = gc2 + _laplacian(dec(q, s), order=order) * ebar
-        # sum order of the kernel's tree: the stencil/sponge core first, the
-        # (sparse) receiver injection added last
-        a_next = ((2.0 * ebar + _laplacian(c2dt2 * ebar, order=order)) - ebar_next
-                  + inject(dd_shift[k]))
-        ebar_next = ebar
+    with span("sweep.history"):
+        u_prev = torch.zeros(shape, dtype=dtype, device=dev)
+        u = torch.zeros(shape, dtype=dtype, device=dev)
+        for k in range(nt):
+            hist.append(enc(u))  # history entry k holds u_k
+            u_next = cuda_wave.leapfrog_plain(u_prev, u, c2dt2, S, src_wavelet[k], mask,
+                                              order)
+            u_prev, u = u, u_next
+    with span("sweep.reverse"):
+        # ḡ_{k-1} aligned to reverse step k (rec_k samples u_{k+1})
+        dd_shift = torch.cat([torch.zeros_like(dd[:1]), dd[:-1]])
+        a_next = inject(dd[-1])
+        ebar_next = torch.zeros(shape, dtype=dtype, device=dev)
+        gc2 = torch.zeros(shape, dtype=dtype, device=dev)
+        for k in range(nt - 1, -1, -1):
+            q, s = hist[k]
+            hist[k] = None
+            ebar = a_next * S
+            gc2 = gc2 + _laplacian(dec(q, s), order=order) * ebar
+            # sum order of the kernel's tree: the stencil/sponge core first, the
+            # (sparse) receiver injection added last
+            a_next = ((2.0 * ebar + _laplacian(c2dt2 * ebar, order=order)) - ebar_next
+                      + inject(dd_shift[k]))
+            ebar_next = ebar
     return gc2 * (2.0 * c) * scale
 
 
@@ -1133,7 +1173,9 @@ def _windowing(grid_shape, window_shape, device):
     batched under ``torch.func.vmap``): ``take(m, corner)`` gathers the
     window, ``place(g, corner)`` scatter-adds a window-shaped gradient into a
     zero full grid. Both index through flat offsets, so a corner needs no
-    host read and ``vmap`` batches them."""
+    host read and ``vmap`` batches them. Each call is a span
+    (``window.take``, ``window.place``) and counts one in ``windows.take``
+    or ``windows.place`` (a vmapped batch's call once)."""
     size = math.prod(grid_shape)
     strides = torch.tensor([math.prod(grid_shape[i + 1:]) for i in range(len(grid_shape))],
                            device=device)
@@ -1146,11 +1188,15 @@ def _windowing(grid_shape, window_shape, device):
         return base + torch.sum(corner * strides)
 
     def take(m, corner):
-        return m.reshape(-1).index_select(0, flat(corner)).reshape(window_shape)
+        count("windows.take")
+        with span("window.take"):
+            return m.reshape(-1).index_select(0, flat(corner)).reshape(window_shape)
 
     def place(g, corner):
-        return torch.zeros(size, dtype=g.dtype, device=g.device).index_add(
-            0, flat(corner), g.reshape(-1)).reshape(grid_shape)
+        count("windows.place")
+        with span("window.place"):
+            return torch.zeros(size, dtype=g.dtype, device=g.device).index_add(
+                0, flat(corner), g.reshape(-1)).reshape(grid_shape)
 
     return take, place
 
@@ -1166,7 +1212,7 @@ def _sharded_windowing(dom, window_shape):
     shot then propagates unsharded in its window on its block rank, and
     ``take``'s backward (the sum's is the identity) returns each owner its
     planes of the window's gradient. What moves is one window per shot, not
-    the model."""
+    the model. Spans and counters as :func:`_windowing`'s."""
     z0, Dl = dom.slices[0].start, dom.local_shape[0]
     rest_shape = tuple(window_shape[1:])
 
@@ -1179,20 +1225,24 @@ def _sharded_windowing(dom, window_shape):
         return torch.nn.functional.pad(x, [w for pair in reversed(widths) for w in pair])
 
     def take(m, corner):
-        cz, (lo, hi) = int(corner[0]), planes(corner)
-        rest = tuple(slice(int(c), int(c) + n) for c, n in zip(corner[1:], rest_shape))
-        part = m[(slice(lo - z0, hi - z0),) + rest]
-        w = pad(part, [(lo - cz, cz + window_shape[0] - hi)] + [(0, 0)] * len(rest))
-        return sum_replicated(w, dom.mesh, dom.axes)
+        count("windows.take")
+        with span("window.take"):
+            cz, (lo, hi) = int(corner[0]), planes(corner)
+            rest = tuple(slice(int(c), int(c) + n) for c, n in zip(corner[1:], rest_shape))
+            part = m[(slice(lo - z0, hi - z0),) + rest]
+            w = pad(part, [(lo - cz, cz + window_shape[0] - hi)] + [(0, 0)] * len(rest))
+            return sum_replicated(w, dom.mesh, dom.axes)
 
     def place(g, corner):
-        cz, (lo, hi) = int(corner[0]), planes(corner)
-        if hi == lo:  # the window misses this rank's planes
-            return g.new_zeros(dom.local_shape)
-        widths = [(lo - z0, z0 + Dl - hi)] + [
-            (int(c), n - int(c) - k) for c, k, n in zip(corner[1:], rest_shape,
-                                                        dom.local_shape[1:])]
-        return pad(g[lo - cz:hi - cz], widths)
+        count("windows.place")
+        with span("window.place"):
+            cz, (lo, hi) = int(corner[0]), planes(corner)
+            if hi == lo:  # the window misses this rank's planes
+                return g.new_zeros(dom.local_shape)
+            widths = [(lo - z0, z0 + Dl - hi)] + [
+                (int(c), n - int(c) - k) for c, k, n in zip(corner[1:], rest_shape,
+                                                            dom.local_shape[1:])]
+            return pad(g[lo - cz:hi - cz], widths)
 
     return take, place
 
@@ -1237,7 +1287,11 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
     without windows ``gsp`` is that slab and each shot's wavefields are
     sharded over the grid axis (``wavefield_sharding``, the sponge or the
     CPML boundary); with windows each shot gathers its window from the
-    planes' owners and propagates it unsharded (:func:`_sharded_windowing`)."""
+    planes' owners and propagates it unsharded (:func:`_sharded_windowing`).
+    The forward and the adjoint are spans (``multishot.f``,
+    ``multishot.adjoint``), each shot of ``"map"`` mode a span ``shot`` with
+    its ``index`` in the stack, and the forward counts the rank's
+    shots in ``shots``."""
     dtype = gsp.dtype
     if isinstance(gsp, ShardedSpace):
         propagate, adjoint = _with_sharding(BlockSharding(gsp.mesh, gsp.spec), propagate,
@@ -1276,8 +1330,11 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
         ``map`` mode, a ``vmap`` over the stack otherwise."""
         corners = bs.get("corner")
         if is_map:
-            return fn(bs["src"][0], None if corners is None else corners[0],
-                      *(t[0] for t in stacked))
+            # bs holds rows b:b+1 of the stacked state (parallel.sharded._blocks),
+            # so the offset of its source row is the shot's index b
+            with span("shot", index=bs["src"].storage_offset()):
+                return fn(bs["src"][0], None if corners is None else corners[0],
+                          *(t[0] for t in stacked))
         src_b = bs["src"].to(gsp.device)  # the batched source index meets the grid
         if corners is None:
             return torch.func.vmap(lambda s, *r: fn(s, None, *r))(src_b, *stacked)
@@ -1331,7 +1388,7 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
         def stack_dft(dd, m0, bs):
             return _vjp_by_autograd(lambda m: child(m, bs, False), m0, dd)
 
-    return stacked_block_operator(
+    op = stacked_block_operator(
         nblocks=int(src.shape[0]),
         dom=dom,
         rng_block=Space((ntrec, nrcv), dtype, gsp.device),
@@ -1347,6 +1404,17 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
         axis=axis,
         shot_map=shot_map,
     )
+
+    def stack_f(m, state):
+        count("shots", state["nblocks"])
+        with span("multishot.f"):
+            return op.jet.f(m, state)
+
+    def stack_adjoint(dd, m0, state):
+        with span("multishot.adjoint"):
+            return op.jet.dft(dd, m0, state)
+
+    return Operator(op.jet.replace(f=stack_f, dft=stack_adjoint))
 
 
 def born_operator(F: Operator, c0) -> LinearOperator:

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import count, counters, span
 from ..utils.tree import tmap
 
 __all__ = ["sum_replicated", "max_replicated", "gather_blocks", "halo_exchange",
@@ -92,18 +93,19 @@ def halo_transport(mesh) -> str:
     return f"{mesh.backend} batch_isend_irecv"
 
 
-_HALO_COUNTS = {}
+_HALO = "halo_exchanges.dim"  # the registry's counters, one per tensor dimension
 
 
 def halo_counts() -> dict:
     """The exchanges :func:`halo_exchange` made with a neighbour on this
     rank since :func:`reset_halo_counts`, by tensor dimension (forward,
-    tangent and backward exchanges alike)."""
-    return dict(_HALO_COUNTS)
+    tangent and backward exchanges alike): a view of the counters
+    ``halo_exchanges.dim<d>`` of :mod:`~jets_tpu_torch.utils.profiling`."""
+    return {int(k[len(_HALO):]): n for k, n in counters().items() if k.startswith(_HALO)}
 
 
 def reset_halo_counts() -> None:
-    _HALO_COUNTS.clear()
+    counters([k for k in counters() if k.startswith(_HALO)], reset=True)
 
 
 def _exchange(lo_send, hi_send, mesh, dim, axis):
@@ -124,8 +126,8 @@ def _exchange(lo_send, hi_send, mesh, dim, axis):
         buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         return buf.copy_(t)
 
-    _HALO_COUNTS[dim] = _HALO_COUNTS.get(dim, 0) + 1
-    with torch.profiler.record_function(f"jets_tpu_torch::halo_exchange_dim{dim}"):
+    count(_HALO + str(dim))
+    with span("halo_exchange", dim=dim):
         recvs, ops = [], []
         for peer, send, recv in ((r - 1, lo_send, from_lo), (r + 1, hi_send, from_hi)):
             if 0 <= peer < n:

@@ -31,6 +31,7 @@ from torch.utils import _pytree as pytree
 
 from ..core.jet import Operator, adjoint, linearize
 from ..utils import tree as tr
+from ..utils.profiling import span
 
 __all__ = [
     "nlcg",
@@ -45,12 +46,14 @@ __all__ = [
 def least_squares_objective(F: Operator, d) -> Callable:
     """``fg(m) -> (phi, grad)`` for ``phi = ½‖F(m) − d‖²``, the gradient by
     the adjoint-state route ``g = J(m)ᴴ r`` (the operator's own adjoint, not
-    autodiff through the propagator)."""
+    autodiff through the propagator). Each evaluation is a span
+    ``objective``."""
 
     def fg(m):
-        r = tr.sub(F(m), d)
-        phi = 0.5 * torch.real(F.rng.dot(r, r))
-        g = adjoint(linearize(F, m))(r)
+        with span("objective"):
+            r = tr.sub(F(m), d)
+            phi = 0.5 * torch.real(F.rng.dot(r, r))
+            g = adjoint(linearize(F, m))(r)
         return phi, g
 
     return fg
