@@ -104,7 +104,15 @@ bitwise its ``mesh=None`` run; then 2 ranks on the one card over gloo
 (this script run as ``--rank r 2 dir`` in two subprocesses under a hard
 time limit): the flagship's LSQR with 8 shots a rank, the z-slab forward
 and int8 gradient in 2 slabs of 128 planes, bitwise the unsharded K4 run,
-and the 16-shot multishot gradient. Each path runs with the kernels'
+and the 16-shot multishot gradient — and, last (phase 70), the batched 2-D
+pair K4-2D/K5-2D: bitwise their plain versions at the Marmousi window batch
+(4, 751, 895), order 8, int8 history, and at small shapes (B = 1,
+unbatched, orders 2/4/8, f32/bf16/int8 histories, shared operands, in
+place, under ``torch.func.vmap``), their times against the plain versions
+and the bound, and a 4-shot 2-D vmap gradient in those windows whose
+launches are counted (3·nt K4-2D, nt K5-2D with the traces again) and whose
+traces, φ and gradient equal the plain route's bit for bit (``python3
+tools/smoke_wave2d.py`` runs it alone). Each path runs with the kernels'
 launch counts set to 0 just before it and read just after. Every phase asserts; a failure
 raises and exits non-zero. Every entry point runs on the card by default;
 the CPU runs ask for ``device="cpu"``.
@@ -122,6 +130,7 @@ card it runs on; compare two versions only within one run.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -2880,8 +2889,8 @@ def rank2d_main(rank, world, tmp):
 # Phase 69: every example of examples_torch/, run as a user runs it on the
 # card (in this process, as __main__), and its main(device="cpu") in a
 # subprocess beside it. EXAMPLE_KERNELS is the set of kernels each example's
-# main path launches on the card (the float64 solves, the 2-D grids and the
-# plain-only physics launch none); EXAMPLE_TOL holds each printed number of
+# main path launches on the card (the float64 solves and the plain-only
+# physics launch none; a 2-D float32 isotropic grid rides K4-2D/K5-2D); EXAMPLE_TOL holds each printed number of
 # the card's run to the CPU's, in print order: "it" (an iteration count that
 # stops on tol: within 2) or a relative tolerance set from what four runs of
 # this phase read (H100 80GB HBM3, 700 W; PERF.md section 5): 3x the largest
@@ -2898,7 +2907,8 @@ EXAMPLES = ("01_deconvolution", "02_distributed_seismic", "03_fwi_gauss_newton",
             "11_production_fwi", "12_multishot_imaging", "13_anisotropic_denq_gradient")
 EXAMPLE_KERNELS = {
     "01_deconvolution": {"xw_update"}, "02_distributed_seismic": {"xw_update"},
-    "07_deblending": {"xw_update"}, "08_rtm_imaging": {"xw_update"},
+    "07_deblending": {"xw_update"}, "08_rtm_imaging": {"xw_update", "fused_leapfrog_step2d"},
+    "11_production_fwi": {"fused_leapfrog_step2d", "fused_adjoint_step2d"},
     "12_multishot_imaging": {"fused_leapfrog_step", "fused_adjoint_step", "fused_tti_step",
                              "fused_tti_hist_step", "fused_tti_adjoint_step"}}
 EXAMPLE_TOL = {
@@ -3036,6 +3046,201 @@ def examples_phase(smi):
     log(69, "; ".join(msgs) + f"; phase 69 in {time.perf_counter() - t_ph:.1f} s (the CPU "
             f"runs in a subprocess beside the card's) [{smi}]")
     return launched
+
+
+# Phase 70: the batched 2-D pair K4-2D/K5-2D (ops/cuda_wave.fused_*2d), which
+# replaces no TPU kernel: held bitwise against the plain versions at the
+# Marmousi window batch (4, 751, 895), order 8, int8 history, and at small
+# shapes (B = 1, unbatched, ragged; orders 2/4/8; f32/bf16/int8 histories;
+# operands shared by the batch; in place; under torch.func.vmap with the batch
+# dimension elsewhere than 0); timed against the plain versions and the bound;
+# and a 2-D "vmap" gradient whose launches are counted and whose traces, phi
+# and gradient are held bitwise against the plain route.
+PAIR2D_BATCH = (4, 751, 895)
+
+
+def _pair2d_operands(shape, order, store, dev, gen):
+    """Seeded operands of one K4-2D and one K5-2D call at ``shape`` (B, H, W):
+    fields of unit scale, c2dt2 in [0.05, 0.15], a free-surface sponge, one
+    source a shot, and the history ``store`` (int8 codes in [-127, 127] with
+    scales ~1/127, or the field itself in f32 or bf16)."""
+    from jets_tpu_torch.ops import wave as tw
+    B, H, W = shape
+
+    def rnd(*s):
+        return torch.randn(*s, generator=gen).to(dev)
+
+    S = tw._sponge((H, W), min(20, H // 4), free_surface=True).to(dev)
+    c2 = 0.05 + 0.1 * torch.rand(B, H, W, generator=gen).to(dev)
+    src = torch.tensor([(H // 3 + b) * W + (W // (B + 1)) * (b + 1) for b in range(B)],
+                       device=dev)
+    q = rnd(B, H, W)
+    if store == torch.int8:
+        q = torch.round(127.0 * q / q.abs().amax()).to(torch.int8)
+        sc = (q.abs().amax() / 127.0) * (0.5 + torch.rand(B, generator=gen).to(dev))
+    else:
+        q, sc = q.to(store), torch.ones(B, device=dev)
+    return dict(up=rnd(B, H, W), u=rnd(B, H, W), c2=c2, S=S, s_t=torch.tensor(0.37, device=dev),
+                src=src, amp=torch.tensor(1.3e-3, device=dev), a1=rnd(B, H, W),
+                a2=rnd(B, H, W), g=rnd(B, H, W), q=q, sc=sc)
+
+
+def _pair2d_check(o, order, name):
+    """K4-2D and K5-2D against their plain versions on the operands ``o``:
+    fresh, in place, with c2dt2 and the sponge shared, unbatched (shot 0 as
+    ``(H, W)``), and under ``torch.func.vmap`` with the batch on dim 1."""
+    from jets_tpu_torch.ops import cuda_wave as cw
+    up, u, c2, S, s_t, src, amp = (o[k] for k in ("up", "u", "c2", "S", "s_t", "src", "amp"))
+    a1, a2, g, q, sc = (o[k] for k in ("a1", "a2", "g", "q", "sc"))
+    ref = cw.fused_leapfrog_step2d_torch(up, u, c2, S, s_t, src, amp, order=order)
+    same(cw.fused_leapfrog_step2d(up, u, c2, S, s_t, src, amp, order=order), ref, name + " K4-2D")
+    upk = up.clone()
+    same(cw.fused_leapfrog_step2d(upk, u, c2, S, s_t, src, amp, order=order, out=upk), ref,
+         name + " K4-2D in place")
+    shared = cw.fused_leapfrog_step2d_torch(up, u, c2[0], S, s_t, src, amp, order=order)
+    same(cw.fused_leapfrog_step2d(up, u, c2[0], S, s_t, src, amp, order=order), shared,
+         name + " K4-2D c2dt2 shared")
+    same(cw.fused_leapfrog_step2d(up[0], u[0], c2[0], S, s_t, src[0], amp, order=order),
+         ref[0], name + " K4-2D unbatched")
+    vm = torch.func.vmap(lambda a, b_, s_: cw.fused_leapfrog_step2d(a, b_, c2[0], S, s_t, s_,
+                                                                    amp, order=order),
+                         in_dims=(1, 0, 0))(up.transpose(0, 1).contiguous(), u, src)
+    same(vm, shared, name + " K4-2D under vmap")
+    core_r, g_r = cw.fused_adjoint_step2d_torch(a1, a2, g, c2, q, sc, S, order=order)
+    core, gn = cw.fused_adjoint_step2d(a1, a2, g, c2, q, sc, S, order=order)
+    same(core, core_r, name + " K5-2D core")
+    same(gn, g_r, name + " K5-2D gc2")
+    a2k, gk = a2.clone(), g.clone()
+    cw.fused_adjoint_step2d(a1, a2k, gk, c2, q, sc, S, order=order, inplace=True)
+    same(a2k, core_r, name + " K5-2D core in place")
+    same(gk, g_r, name + " K5-2D gc2 in place")
+    c0, g0 = cw.fused_adjoint_step2d(a1[0], a2[0], g[0], c2[0], q[0], sc[0], S, order=order)
+    same(c0, core_r[0], name + " K5-2D unbatched core")
+    same(g0, g_r[0], name + " K5-2D unbatched gc2")
+    cv_, gv = torch.func.vmap(lambda a, b_, gg, qq, s_: cw.fused_adjoint_step2d(
+        a, b_, gg, c2[0], qq, s_, S, order=order), in_dims=(0, 1, 0, 0, 0))(
+        a1, a2.transpose(0, 1).contiguous(), g, q, sc)
+    cs_r, gs_r = cw.fused_adjoint_step2d_torch(a1, a2, g, c2[0], q, sc, S, order=order)
+    same(cv_, cs_r, name + " K5-2D under vmap core")
+    same(gv, gs_r, name + " K5-2D under vmap gc2")
+
+
+def wave2d_pair(smi):
+    """Phase 70: the batched 2-D pair (see the note above). Returns the
+    launches and the two kernels' rows of the final table."""
+    from jets_tpu_torch import kernels
+    from jets_tpu_torch.ops import cuda_wave as cw
+    from jets_tpu_torch.ops import wave as tw
+    from jets_tpu_torch.solvers import least_squares_objective
+
+    t_ph = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(70)
+    _reset_all()
+    checked = []
+    cases = [(PAIR2D_BATCH, 8, (torch.int8,))] + [
+        (shape, order, (torch.float32, torch.bfloat16, torch.int8))
+        for shape in ((1, 37, 70), (3, 45, 33)) for order in (2, 4, 8)]
+    for shape, order, stores in cases:
+        for store in stores:
+            _pair2d_check(_pair2d_operands(shape, order, store, dev, gen), order,
+                          f"{shape} order {order} {str(store)[6:]}")
+            checked.append(f"{shape}/{order}/{str(store)[6:]}")
+    n_check = _counts_all()
+    # times at the Marmousi window batch, order 8, int8 history (CUDA events)
+    o = _pair2d_operands(PAIR2D_BATCH, 8, torch.int8, dev, gen)
+    up, u, c2, S, s_t, src, amp = (o[k] for k in ("up", "u", "c2", "S", "s_t", "src", "amp"))
+    a1, a2, g, q, sc = (o[k] for k in ("a1", "a2", "g", "q", "sc"))
+    cells = math.prod(PAIR2D_BATCH)
+    fwd_bytes, rev_bytes = 16 * cells + nbytes(S), 25 * cells + nbytes(S)
+    # the kernel alone: its C entry point called with fixed arguments, back to
+    # back (the wrapper's host time per call exceeds the kernel's, so timing
+    # through it measures the host); the wrapper and the plain version as calls
+    lib = kernels.load_library("wave")
+    st_ = torch.cuda.current_stream().cuda_stream
+    Bn, Hn, Wn = PAIR2D_BATCH
+    hw_ = Hn * Wn
+    out_f, core_o, g_o = (torch.empty_like(up) for _ in range(3))
+    fargs = (up.data_ptr(), hw_, u.data_ptr(), hw_, c2.data_ptr(), hw_, S.data_ptr(), 0,
+             s_t.data_ptr(), 0, amp.data_ptr(), 0, src.data_ptr(), 1, out_f.data_ptr(),
+             Bn, Hn, Wn, 8, st_)
+    aargs = (a1.data_ptr(), hw_, a2.data_ptr(), hw_, g.data_ptr(), hw_, c2.data_ptr(), hw_,
+             q.data_ptr(), hw_, sc.data_ptr(), 1, S.data_ptr(), 0, core_o.data_ptr(),
+             g_o.data_ptr(), Bn, Hn, Wn, 8, 2, st_)
+    rows = []
+    for k, raw, fn, plain, nb, nops in (
+            ("fused_leapfrog_step2d", lambda: lib.jt_leapfrog_step2d(*fargs),
+             lambda: cw.fused_leapfrog_step2d(up, u, c2, S, s_t, src, amp, order=8),
+             lambda: cw.fused_leapfrog_step2d_torch(up, u, c2, S, s_t, src, amp, order=8),
+             fwd_bytes, 31),
+            ("fused_adjoint_step2d", lambda: lib.jt_adjoint_step2d(*aargs),
+             lambda: cw.fused_adjoint_step2d(a1, a2, g, c2, q, sc, S, order=8),
+             lambda: cw.fused_adjoint_step2d_torch(a1, a2, g, c2, q, sc, S, order=8),
+             rev_bytes, 60)):
+        t_b, t_f = nb / HBM_BYTES_PER_S, nops * cells / F32_FLOPS_PER_S
+        rows.append({"name": k, "route": "cuda", "source": "jets_tpu_torch/csrc/wave_kernels.cu",
+                     "replaces": "none: the JAX package's 2-D step is XLA",
+                     "max_abs_err": 0.0, "ms": cuda_ms(raw, 200), "wrapper_ms": cuda_ms(fn, 50),
+                     "plain_ms": cuda_ms(plain, 5), "bound_ms": 1e3 * max(t_b, t_f),
+                     "bound_by": "bytes" if t_b >= t_f else "operations", "library_ms": None})
+    same(out_f, cw.fused_leapfrog_step2d_torch(up, u, c2, S, s_t, src, amp, order=8),
+         "K4-2D timed")
+    del o, up, u, c2, a1, a2, g, q
+    # a 2-D vmap gradient: launches counted, bitwise the plain route
+    grid, win, nt = (751, 1500), (751, 895), 240
+    rs = np.random.default_rng(70)
+    c_true = torch.full(grid, 1500.0, device=dev)
+    c_true[20:] += torch.linspace(100.0, 3500.0, grid[0] - 20, device=dev)[:, None]
+    c0 = 0.97 * c_true  # a slow starting model: the direct wave differs too
+    corners = [[0, int(x)] for x in rs.integers(0, grid[1] - win[1], 4)]
+    srcs = [2 * win[1] + 600 - 40 * b for b in range(4)]
+    rcv = [3 * win[1] + x for x in range(100, 700, 8)]
+    kw = dict(nt=nt, dt=2.6e-4, dx=4.0, freq=15.0, rcv_idx=rcv, sponge_width=20,
+              space_order=8, window_shape=win, window_corners=corners, dtrec=4e-3,
+              store_adjoint="int8", free_surface=True, shot_map="vmap", device=dev)
+    F = tw.multishot_wave_operator(grid, srcs, **kw)
+    d_obs = F(c_true)
+    fg = least_squares_objective(F, d_obs)
+    runs, walls = {}, {}
+    for route in ("pair", "plain", "pair"):
+        keep = tw._kernel_route
+        if route == "plain":  # the parent's route: the plain steps under vmap
+            tw._kernel_route = lambda *a, **k_: False
+        try:
+            _reset_all()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            phi, grad = fg(c0)
+            torch.cuda.synchronize()
+            walls.setdefault(route, []).append(time.perf_counter() - t0)
+            n_grad = _counts_all()
+            traces = F(c0)
+            runs[route] = (phi, grad, traces, n_grad, _counts_all())
+        finally:
+            tw._kernel_route = keep
+    phi, grad, traces, n_grad, counts = runs["pair"]
+    # a gradient: the forward and history sweeps on K4-2D, the reverse on K5-2D,
+    # one launch a step for the batch; the traces again: nt more
+    assert n_grad == {"fused_leapfrog_step2d": 2 * nt, "fused_adjoint_step2d": nt}, n_grad
+    assert counts == {"fused_leapfrog_step2d": 3 * nt, "fused_adjoint_step2d": nt}, counts
+    assert runs["plain"][4] == {}, runs["plain"][4]
+    msgs = [same(traces, runs["plain"][2], "vmap traces"),
+            same(grad, runs["plain"][1], "vmap int8 gradient"),
+            same(phi.reshape(1), runs["plain"][0].reshape(1), "phi")]
+    launched = {}
+    _add(launched, n_check)
+    _add(launched, counts)
+    log(70, f"K4-2D/K5-2D bitwise their plain versions at {len(checked)} cases "
+            f"({', '.join(checked)}); at {PAIR2D_BATCH} order 8 int8, us per call (CUDA "
+            "events): " + ", ".join(f"{r['name']} {1e3 * r['ms']:.1f} (through the wrapper "
+                                    f"{1e3 * r['wrapper_ms']:.1f}, plain "
+                                    f"{1e3 * r['plain_ms']:.1f}, bound {1e3 * r['bound_ms']:.1f}"
+                                    f", {r['bound_ms'] / r['ms']:.1%} of it)" for r in rows)
+            + f"; 4-shot vmap gradient at window {win}, nt {nt}: launches {n_grad} (then the "
+            f"traces again: {counts}); {'; '.join(msgs)}; gradient wall s pair "
+            f"{', '.join(f'{w:.3f}' for w in walls['pair'])}, plain "
+            f"{walls['plain'][0]:.3f}; phase 70 in {time.perf_counter() - t_ph:.1f} s [{smi}]")
+    return launched, rows
 
 
 def wave_model(dev):
@@ -4458,6 +4663,7 @@ def main() -> int:
     main_path.update(tti_path)
     main_path.update(krylov_path)
     main_path.update(q_path)
+    main_path.update({"fused_leapfrog_step2d": 0, "fused_adjoint_step2d": 0})
     log(37, f"paths 1-6 done in {time.perf_counter() - t_start:.1f} s, kernel build "
             "included")
     for k, n in baseline_configs(smi).items():
@@ -4477,6 +4683,9 @@ def main() -> int:
     for k, n in block_by_grid(smi, c_true, src0, wkw, flagship_ref).items():
         main_path[k] += n
     for k, n in examples_phase(smi).items():
+        main_path[k] += n
+    pair_counts, pair_rows = wave2d_pair(smi)
+    for k, n in pair_counts.items():
         main_path[k] += n
     sources = {"solver": "jets_tpu_torch/csrc/solver_kernels.cu",
                "wave": "jets_tpu_torch/csrc/wave_kernels.cu",
@@ -4509,6 +4718,7 @@ def main() -> int:
                      "launches": main_path[k], "max_abs_err": err[k], "ms": kt[k][0],
                      "plain_ms": kt[k][1], "bound_ms": bms, "bound_by": by,
                      "library_ms": lib_ms.get(k)})
+    rows += [{**r, "launches": main_path[r["name"]]} for r in pair_rows]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) kernels of the isotropic acoustic wave path: the forward
-// leapfrog step (K4), the stored-wavefield adjoint step (K5) and the
-// Kosloff constant-Q (visco-acoustic) step (K14).
+// leapfrog step (K4), the stored-wavefield adjoint step (K5), the Kosloff
+// constant-Q (visco-acoustic) step (K14), and the batched 2-D pair K4-2D and
+// K5-2D (the same two steps over a (B, H, W) batch of 2-D shots; design
+// note at their definitions).
 //
 // Built by jets_tpu_torch/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -50,6 +52,7 @@ struct Stencil<2> {
   static constexpr int HW = 1;
   static constexpr bool UNIT = true;  // the only tap coefficient is 1.0
   __device__ static float center() { return (float)(-2.0 * 3); }
+  __device__ static float center2d() { return (float)(-2.0 * 2); }
   __device__ static float coef(int) { return 1.0f; }
 };
 
@@ -58,6 +61,7 @@ struct Stencil<4> {
   static constexpr int HW = 2;
   static constexpr bool UNIT = false;
   __device__ static float center() { return (float)((-5.0 / 2.0) * 3); }
+  __device__ static float center2d() { return (float)((-5.0 / 2.0) * 2); }
   __device__ static float coef(int s) {
     return s == 1 ? (float)(4.0 / 3.0) : (float)(-1.0 / 12.0);
   }
@@ -68,6 +72,7 @@ struct Stencil<8> {
   static constexpr int HW = 4;
   static constexpr bool UNIT = false;
   __device__ static float center() { return (float)((-205.0 / 72.0) * 3); }
+  __device__ static float center2d() { return (float)((-205.0 / 72.0) * 2); }
   __device__ static float coef(int s) {
     return s == 1   ? (float)(8.0 / 5.0)
            : s == 2 ? (float)(-1.0 / 5.0)
@@ -258,7 +263,202 @@ q_step_kernel(const float* u_prev, const float* __restrict__ u,
   out[i] = __fadd_rn(__fmul_rn(e, sponge), __fmul_rn(*s_tp, mask));
 }
 
+// ---------------------------------------------------------------------------
+// K4-2D and K5-2D: K4's and K5's functions over a batch of B two-dimensional
+// shots, (B, H, W), in one launch each.
+//
+// Replaces no TPU kernel: the JAX package's 2-D step is XLA (pallas_wave.py
+// has 3-D kernels only). Added because a 2-D gradient stacks its shots
+// under torch.func.vmap, where each plain step was ~37 device operations a
+// shot and the host's dispatch of them, not the card, set the pace. The
+// batching rule of ops/cuda_wave.py hands the stacked shots to these kernels
+// as their leading dimension, so a step of the whole batch is one launch.
+//
+//   K4-2D: u' = ((2u - u_prev) + c2dt2*L(u))*S + s_t*amp*[cell == src_b]
+//   K5-2D: ebar = S*a1,  a_core = (2*ebar + L(c2dt2*ebar)) - S*a2,
+//          gc2' = gc2 + L(q*sc)*ebar
+//
+// with S the full-grid 2-D sponge (a 2-D grid keeps its sponge whole) and
+// L the 2-D tree of ops/stencil.laplacian_nd: ((c0*2)*c), then axis 0's
+// (y's) taps, then axis 1's (x's). Every operand has a batch stride in
+// elements, 0 for one the batch shares (S, s_t, amp, a field made before
+// the batch diverged) or H*W (one for the per-shot scalars src, sc). The
+// per-shot source index src_b and history scale sc_b are read from device
+// memory, so a vmapped loop needs no host read of a batched value.
+//
+// Bound: device memory. A cell moves 16 B forward (u_prev, u, c2dt2 read,
+// u' written; S is shared by the batch and stays in the 50 MB L2 while the
+// shots pass) and 25 B reverse (a1, a2, gc2, c2dt2 and the int8 q read,
+// a_core and gc2' written), against ~30 and ~70 operations. At the
+// Marmousi window (751, 895) one f32 field of one shot is 2.69 MB. Each
+// block stages a (32 + 2*HW) x (32 + 2*HW) tile of the stencilled field(s)
+// with their order/2-cell halos in shared memory (40 x 40 floats at order
+// 8; K5-2D stages w = c2dt2*ebar and q*sc, 12.8 KB), so the 17-point cross
+// is read from shared memory and each input cell leaves device memory once
+// (the halos, 1.56x the tile at order 8, come from L2). 256 threads, 32
+// along x (coalesced rows) by 8 along y, each computing 4 rows of the
+// 32 x 32 tile. Grid (W/32, H/32, B): one launch covers the batch.
+// Out-of-grid taps read +0.0f, as the zero padding does.
+// ---------------------------------------------------------------------------
+
+constexpr int kT2 = 32;  // 2-D tile: 32 x 32 cells
+constexpr int kR2 = 8;   // thread rows; each thread computes kT2 / kR2 rows
+
+template <int ORDER, class At>
+__device__ __forceinline__ float lap_tree2d(const At& at) {
+  constexpr int HW = Stencil<ORDER>::HW;
+  float acc = __fmul_rn(Stencil<ORDER>::center2d(), at(0, 0));
+#pragma unroll
+  for (int s = 1; s <= HW; ++s) acc = tap<ORDER>(acc, s, at(-s, 0), at(s, 0));
+#pragma unroll
+  for (int s = 1; s <= HW; ++s) acc = tap<ORDER>(acc, s, at(0, -s), at(0, s));
+  return acc;
+}
+
+// Fills a (kT2 + 2HW)^2 shared tile, row-major, with value(j) at each cell
+// j = y*W + x of the tile and its halo that lies in the grid, +0.0f outside.
+template <int HW, class Value>
+__device__ __forceinline__ void fill_tile(float (*tile)[kT2 + 2 * HW], int64_t y0,
+                                          int64_t x0, int64_t H, int64_t W,
+                                          const Value& value) {
+  constexpr int SW = kT2 + 2 * HW;
+  for (int k = threadIdx.y * kT2 + threadIdx.x; k < SW * SW; k += kT2 * kR2) {
+    const int r = k / SW, c = k - (k / SW) * SW;
+    const int64_t y = y0 + r - HW, x = x0 + c - HW;
+    tile[r][c] = (y >= 0 && y < H && x >= 0 && x < W) ? value(y * W + x) : 0.0f;
+  }
+}
+
+template <int ORDER>
+__global__ void __launch_bounds__(kT2 * kR2)
+leapfrog2d_kernel(const float* u_prev, int64_t sb_up, const float* __restrict__ u,
+                  int64_t sb_u, const float* __restrict__ c2, int64_t sb_c2,
+                  const float* __restrict__ sp, int64_t sb_sp,
+                  const float* __restrict__ s_tp, int64_t sb_st,
+                  const float* __restrict__ ampp, int64_t sb_amp,
+                  const int64_t* __restrict__ src, int64_t sb_src, float* out,
+                  int64_t H, int64_t W) {
+  constexpr int HW = Stencil<ORDER>::HW;
+  __shared__ float tile[kT2 + 2 * HW][kT2 + 2 * HW];
+  const int64_t b = blockIdx.z, HWn = H * W;
+  const int64_t y0 = (int64_t)blockIdx.y * kT2, x0 = (int64_t)blockIdx.x * kT2;
+  const float* ub = u + b * sb_u;
+  fill_tile<HW>(tile, y0, x0, H, W, [&](int64_t j) { return __ldg(ub + j); });
+  __syncthreads();
+  const int64_t x = x0 + threadIdx.x;
+  if (x >= W) return;
+  const float* upb = u_prev + b * sb_up;
+  const float* c2b = c2 + b * sb_c2;
+  const float* spb = sp + b * sb_sp;
+  float* ob = out + b * HWn;
+  const float s_t = s_tp[b * sb_st], amp = ampp[b * sb_amp];
+  const int64_t sb = src[b * sb_src];
+#pragma unroll
+  for (int k = 0; k < kT2 / kR2; ++k) {
+    const int ly = threadIdx.y + k * kR2;
+    const int64_t y = y0 + ly;
+    if (y >= H) break;
+    auto at = [&](int dy, int dx) -> float {
+      return tile[ly + HW + dy][threadIdx.x + HW + dx];
+    };
+    const float lap = lap_tree2d<ORDER>(at);
+    const int64_t i = y * W + x;
+    const float e = __fadd_rn(__fsub_rn(__fmul_rn(2.0f, at(0, 0)), upb[i]),
+                              __fmul_rn(c2b[i], lap));
+    const float mask = i == sb ? amp : 0.0f;
+    ob[i] = __fadd_rn(__fmul_rn(e, spb[i]), __fmul_rn(s_t, mask));
+  }
+}
+
+template <int ORDER, typename Q>
+__global__ void __launch_bounds__(kT2 * kR2)
+adjoint2d_kernel(const float* __restrict__ a1, int64_t sb_a1, const float* a2,
+                 int64_t sb_a2, const float* gc2, int64_t sb_g,
+                 const float* __restrict__ c2, int64_t sb_c2, const Q* __restrict__ q,
+                 int64_t sb_q, const float* __restrict__ scp, int64_t sb_sc,
+                 const float* __restrict__ sp, int64_t sb_sp, float* core_out,
+                 float* gc2_out, int64_t H, int64_t W) {
+  constexpr int HW = Stencil<ORDER>::HW;
+  __shared__ float wt[kT2 + 2 * HW][kT2 + 2 * HW];  // c2dt2 * (a1 * S)
+  __shared__ float ut[kT2 + 2 * HW][kT2 + 2 * HW];  // dec(q) = q * sc
+  const int64_t b = blockIdx.z, HWn = H * W;
+  const int64_t y0 = (int64_t)blockIdx.y * kT2, x0 = (int64_t)blockIdx.x * kT2;
+  const float* a1b = a1 + b * sb_a1;
+  const float* c2b = c2 + b * sb_c2;
+  const float* spb = sp + b * sb_sp;
+  const Q* qb = q + b * sb_q;
+  const float sc = scp[b * sb_sc];
+  fill_tile<HW>(wt, y0, x0, H, W, [&](int64_t j) {
+    return __fmul_rn(__ldg(c2b + j), __fmul_rn(__ldg(a1b + j), __ldg(spb + j)));
+  });
+  fill_tile<HW>(ut, y0, x0, H, W,
+                [&](int64_t j) { return __fmul_rn(to_f32<Q>(__ldg(qb + j)), sc); });
+  __syncthreads();
+  const int64_t x = x0 + threadIdx.x;
+  if (x >= W) return;
+  const float* a2b = a2 + b * sb_a2;
+  const float* gb = gc2 + b * sb_g;
+  float* cob = core_out + b * HWn;
+  float* gob = gc2_out + b * HWn;
+#pragma unroll
+  for (int k = 0; k < kT2 / kR2; ++k) {
+    const int ly = threadIdx.y + k * kR2;
+    const int64_t y = y0 + ly;
+    if (y >= H) break;
+    const int tx = threadIdx.x + HW, ty = ly + HW;
+    const float lap_w = lap_tree2d<ORDER>(
+        [&](int dy, int dx) -> float { return wt[ty + dy][tx + dx]; });
+    const float lap_u = lap_tree2d<ORDER>(
+        [&](int dy, int dx) -> float { return ut[ty + dy][tx + dx]; });
+    const int64_t i = y * W + x;
+    const float s = spb[i];
+    const float ebar = __fmul_rn(a1b[i], s);
+    const float ebar_next = __fmul_rn(a2b[i], s);
+    const float g_new = __fadd_rn(gb[i], __fmul_rn(lap_u, ebar));
+    const float core = __fsub_rn(__fadd_rn(__fmul_rn(2.0f, ebar), lap_w), ebar_next);
+    gob[i] = g_new;
+    cob[i] = core;
+  }
+}
+
 inline int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+inline dim3 grid2d_of(int64_t B, int64_t H, int64_t W) {
+  return dim3((unsigned)cdiv(W, kT2), (unsigned)cdiv(H, kT2), (unsigned)B);
+}
+
+template <typename Q>
+int launch_adjoint2d(int order, const void* a1, int64_t sb_a1, const void* a2,
+                     int64_t sb_a2, const void* gc2, int64_t sb_g, const void* c2,
+                     int64_t sb_c2, const void* q, int64_t sb_q, const void* sc,
+                     int64_t sb_sc, const void* sp, int64_t sb_sp, void* core_out,
+                     void* gc2_out, int64_t B, int64_t H, int64_t W, cudaStream_t st) {
+  const dim3 grid = grid2d_of(B, H, W), block(kT2, kR2);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const Q* qq = static_cast<const Q*>(q);
+  float* co = static_cast<float*>(core_out);
+  float* go = static_cast<float*>(gc2_out);
+  switch (order) {
+    case 2:
+      adjoint2d_kernel<2, Q><<<grid, block, 0, st>>>(
+          f(a1), sb_a1, f(a2), sb_a2, f(gc2), sb_g, f(c2), sb_c2, qq, sb_q, f(sc), sb_sc,
+          f(sp), sb_sp, co, go, H, W);
+      break;
+    case 4:
+      adjoint2d_kernel<4, Q><<<grid, block, 0, st>>>(
+          f(a1), sb_a1, f(a2), sb_a2, f(gc2), sb_g, f(c2), sb_c2, qq, sb_q, f(sc), sb_sc,
+          f(sp), sb_sp, co, go, H, W);
+      break;
+    case 8:
+      adjoint2d_kernel<8, Q><<<grid, block, 0, st>>>(
+          f(a1), sb_a1, f(a2), sb_a2, f(gc2), sb_g, f(c2), sb_c2, qq, sb_q, f(sc), sb_sc,
+          f(sp), sb_sp, co, go, H, W);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
 
 inline dim3 grid_of(const Grid& g) {
   return dim3((unsigned)cdiv(g.W, kBX), (unsigned)cdiv(g.H, kBY), (unsigned)g.D);
@@ -400,6 +600,72 @@ int jt_q_step(const void* u_prev, const void* u, const void* c2, const void* gf,
     case 1:
       return launch_q<__nv_bfloat16>(order, u_prev, u, c2, gf, spz, sy, sx, s_t, amp,
                                      src, out, g, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K4-2D over a (B, H, W) batch. Each operand comes with its batch stride in
+// elements (0: shared by the batch). src is int64. out is (B, H, W) dense
+// and may equal u_prev when u_prev is (in place); u must be another buffer.
+int jt_leapfrog_step2d(const void* u_prev, int64_t sb_up, const void* u, int64_t sb_u,
+                       const void* c2, int64_t sb_c2, const void* sp, int64_t sb_sp,
+                       const void* s_t, int64_t sb_st, const void* amp, int64_t sb_amp,
+                       const void* src, int64_t sb_src, void* out, int64_t B, int64_t H,
+                       int64_t W, int order, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid = grid2d_of(B, H, W), block(kT2, kR2);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const int64_t* s = static_cast<const int64_t*>(src);
+  float* o = static_cast<float*>(out);
+  switch (order) {
+    case 2:
+      leapfrog2d_kernel<2><<<grid, block, 0, st>>>(f(u_prev), sb_up, f(u), sb_u, f(c2),
+                                                   sb_c2, f(sp), sb_sp, f(s_t), sb_st,
+                                                   f(amp), sb_amp, s, sb_src, o, H, W);
+      break;
+    case 4:
+      leapfrog2d_kernel<4><<<grid, block, 0, st>>>(f(u_prev), sb_up, f(u), sb_u, f(c2),
+                                                   sb_c2, f(sp), sb_sp, f(s_t), sb_st,
+                                                   f(amp), sb_amp, s, sb_src, o, H, W);
+      break;
+    case 8:
+      leapfrog2d_kernel<8><<<grid, block, 0, st>>>(f(u_prev), sb_up, f(u), sb_u, f(c2),
+                                                   sb_c2, f(sp), sb_sp, f(s_t), sb_st,
+                                                   f(amp), sb_amp, s, sb_src, o, H, W);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K5-2D over a (B, H, W) batch, batch strides as for K4-2D. store: 0 = f32,
+// 1 = bf16, 2 = int8 history. core_out may equal a2 and gc2_out may equal
+// gc2 when those are (B, H, W) dense (in place); a1, c2 and q must be other
+// buffers.
+int jt_adjoint_step2d(const void* a1, int64_t sb_a1, const void* a2, int64_t sb_a2,
+                      const void* gc2, int64_t sb_g, const void* c2, int64_t sb_c2,
+                      const void* q, int64_t sb_q, const void* sc, int64_t sb_sc,
+                      const void* sp, int64_t sb_sp, void* core_out, void* gc2_out,
+                      int64_t B, int64_t H, int64_t W, int order, int store,
+                      void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (store) {
+    case 0:
+      return launch_adjoint2d<float>(order, a1, sb_a1, a2, sb_a2, gc2, sb_g, c2, sb_c2,
+                                     q, sb_q, sc, sb_sc, sp, sb_sp, core_out, gc2_out, B,
+                                     H, W, st);
+    case 1:
+      return launch_adjoint2d<__nv_bfloat16>(order, a1, sb_a1, a2, sb_a2, gc2, sb_g, c2,
+                                             sb_c2, q, sb_q, sc, sb_sc, sp, sb_sp,
+                                             core_out, gc2_out, B, H, W, st);
+    case 2:
+      return launch_adjoint2d<int8_t>(order, a1, sb_a1, a2, sb_a2, gc2, sb_g, c2, sb_c2,
+                                      q, sb_q, sc, sb_sc, sp, sb_sp, core_out, gc2_out,
+                                      B, H, W, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

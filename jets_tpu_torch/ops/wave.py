@@ -48,6 +48,9 @@ Every constructor builds on the CUDA card unless ``device`` says otherwise
 On a 3-D float32 grid on a CUDA card the isotropic forward step is the
 hand-written kernel K4 (:func:`cuda_wave.fused_leapfrog_step`) and the
 reverse step of its stored adjoint K5 (:func:`cuda_wave.fused_adjoint_step`);
+on a 2-D one they are the batched pair K4-2D and K5-2D
+(:func:`cuda_wave.fused_leapfrog_step2d`, :func:`cuda_wave.fused_adjoint_step2d`),
+which the ``"vmap"`` shot stacks launch once a step for all their shots;
 the VTI step is K8 (:func:`cuda_vti.fused_vti_step`), its stored adjoint's
 forward sweep K9 (:func:`cuda_vti.fused_vti_hist_step`, which also encodes
 the history) and reverse sweep K10 (:func:`cuda_vti.fused_vti_adjoint_step`);
@@ -268,6 +271,13 @@ def _records(*model) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in model)
 
 
+def _records_within(*model) -> bool:
+    """:func:`_records` of the tensors inside ``torch.func`` transforms: a
+    vmapped or dual tensor does not show that a tape records the tensor it
+    wraps. The 2-D pair, which has no backward, decides by it."""
+    return _records(*map(cuda_wave._unwrapped, model))
+
+
 def _vjp_by_autograd(fn, m0, dd):
     """``vjp(fn, m0)(dd)`` by :func:`torch.autograd.grad` on a detached leaf
     copy of ``m0`` (a tensor or a BlockVector): every propagator's derived
@@ -436,20 +446,28 @@ def _stored_bytes(t) -> int:
     return t.numel() * t.element_size()
 
 
-_ON_GRID_ONLY = ("fused wave step requires a 3-D float32 grid with the default "
+_ON_GRID_ONLY = ("fused wave step requires a 2-D or 3-D float32 grid with the default "
                  "on-grid source and receivers")
 
 
-def _kernel_route(fused, c, sponge, order: int, refuse: Optional[str] = None) -> bool:
+def _kernel_route(fused, c, sponge, order: int, refuse: Optional[str] = None,
+                  pair2d: bool = False) -> bool:
     """Whether the time loop rides the kernels: ``fused=None`` takes them
     for a 3-D float32 grid on a CUDA card; ``fused=True`` insists (on a CPU
     tensor the wrappers then run their plain versions) and raises where the
     kernels cannot go, as the JAX package does. ``refuse`` names what the
     call asks that no kernel computes (a custom source mask, extractor or
     injector; static-Q friction): it turns the route off, and ``fused=True``
-    raises it."""
-    can = refuse is None and isinstance(sponge, tuple) and cuda_wave.fits_wave_kernel(
-        c.shape, c.dtype, order)
+    raises it. ``pair2d``: the caller (the isotropic sweeps) also has the
+    batched 2-D pair K4-2D/K5-2D, for a 2-D float32 grid with its full-grid
+    sponge; every other physics leaves it False, so a 2-D grid never reaches
+    a 3-D kernel."""
+    if pair2d and len(c.shape) == 2:
+        can = refuse is None and torch.is_tensor(sponge) and cuda_wave.fits_wave2d_kernel(
+            c.shape, c.dtype, order)
+    else:
+        can = refuse is None and isinstance(sponge, tuple) and cuda_wave.fits_wave_kernel(
+            c.shape, c.dtype, order)
     if fused is None:
         return can and c.device.type == "cuda"
     if fused and not can:
@@ -459,6 +477,12 @@ def _kernel_route(fused, c, sponge, order: int, refuse: Optional[str] = None) ->
 
 def _factors_1d(sponge):
     return tuple(f.reshape(-1).contiguous() for f in sponge)
+
+
+def _on_device(src_idx, dev):
+    """A source index as an int64 tensor on ``dev``, made once a sweep; a
+    vmapped batch's indices already are."""
+    return torch.as_tensor(src_idx).to(device=dev, dtype=torch.int64)
 
 
 class _LeapfrogStep(torch.autograd.Function):
@@ -565,8 +589,10 @@ def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
                vmap_tape: Optional[bool] = None):
     """Leapfrog time stepping; returns receiver traces ``(nt, nrcv)``.
 
-    ``fused`` selects the kernel route (see :func:`_kernel_route`).
-    ``inplace=True`` allows the no-autodiff fast path: ``u_next`` written
+    ``fused`` selects the kernel route (see :func:`_kernel_route`): K4 on a
+    3-D grid, K4-2D (batched under the ``"vmap"`` stacks) on a 2-D one,
+    which has no backward: while a tape records ``c`` the 2-D step is the
+    plain one. ``inplace=True`` allows the no-autodiff fast path: ``u_next`` written
     into ``u_prev``'s buffer and the traces gathered into a preallocated
     tensor. It is ignored while a tape records ``c``; callers inside a
     ``torch.func`` transform (or ``vmap``) pass ``inplace=False``.
@@ -588,12 +614,21 @@ def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
     c2dt2 = _c2dt2(c, dt, dx)
     amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
     custom = src_mask is not None or extract is not None
-    kernel = _kernel_route(fused, c, sponge, order, _ON_GRID_ONLY if custom else None)
+    kernel = _kernel_route(fused, c, sponge, order, _ON_GRID_ONLY if custom else None,
+                           pair2d=True)
     tape = _records(c) if vmap_tape is None else vmap_tape
     inplace = inplace and not tape
     params = consts = ()
 
-    if kernel:
+    if kernel and len(shape) == 2:  # the 2-D pair has no backward
+        kernel = not (tape or _records_within(c))
+    if kernel and len(shape) == 2:
+        step2d = cuda_wave.leapfrog2d_stepper(c2dt2, sponge, _on_device(src_idx, dev), amp,
+                                              order=order)
+
+        def step(up, uu, s_t):
+            return step2d(up, uu, s_t, out=up if inplace else None)
+    elif kernel:
         spz, sy, sx = _factors_1d(sponge)
         src = int(src_idx)
         if inplace:
@@ -909,7 +944,10 @@ def _adjoint_stored(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
     On the kernel route the forward sweep is K4 (in place, except for an
     f32 history, which keeps the fields themselves) and the reverse sweep
     K5 (``a_k`` into ``a_{k+2}``'s buffer, ``gc2`` in place) followed by the
-    receiver injection ``index_add_``. The plain route is the JAX package's
+    receiver injection ``index_add_``; a 2-D grid runs K4-2D and K5-2D the
+    same way (one launch a step for a vmapped batch, whose outputs are fresh
+    tensors), where no tape records ``c`` or ``dd`` and no transform but
+    one ``vmap`` watches. The plain route is the JAX package's
     XLA sweep, tree for tree. ``src_mask`` and ``inject`` (``trace row ->
     full-grid field``, the transpose of the forward's ``extract``) replace
     the on-grid source and the receiver scatter; either one takes the plain
@@ -938,9 +976,27 @@ def _adjoint_stored(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
     hist, scales = [], []
     count("steps.history", nt)
     count("steps.reverse", nt)
-    if _kernel_route(fused, c, sponge, order, _ON_GRID_ONLY if custom else None):
-        spz, sy, sx = _factors_1d(sponge)
-        src = int(src_idx)
+    kernel = _kernel_route(fused, c, sponge, order, _ON_GRID_ONLY if custom else None,
+                           pair2d=True)
+    if kernel and len(shape) == 2:  # the 2-D pair has no backward and no tangent
+        kernel = not _records_within(c, dd) and cuda_wave._lone_vmap_level() is not False
+    if kernel:
+        if len(shape) == 2:
+            fwd = cuda_wave.leapfrog2d_stepper(c2dt2, sponge, _on_device(src_idx, dev), amp,
+                                               order=order)
+            rev = functools.partial(cuda_wave.adjoint2d_stepper(c2dt2, sponge, order=order),
+                                    inplace=True)
+        else:
+            spz, sy, sx = _factors_1d(sponge)
+            src = int(src_idx)
+
+            def fwd(up, uu, s_t, out):
+                return cuda_wave.fused_leapfrog_step(up, uu, c2dt2, spz, sy, sx, s_t, src,
+                                                     amp, order=order, out=out)
+
+            def rev(a1, a2, gc2, q, sc):
+                return cuda_wave.fused_adjoint_step(a1, a2, gc2, c2dt2, q, sc, spz, sy, sx,
+                                                    order=order, inplace=True)
         with span("sweep.history"):
             u_prev = torch.zeros(shape, dtype=dtype, device=dev)
             u = torch.zeros(shape, dtype=dtype, device=dev)
@@ -948,9 +1004,7 @@ def _adjoint_stored(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
                 q, s = enc(u)
                 hist.append(q)
                 scales.append(s)
-                u_next = cuda_wave.fused_leapfrog_step(
-                    u_prev, u, c2dt2, spz, sy, sx, src_wavelet[k], src, amp, order=order,
-                    out=None if store == "f32" else u_prev)
+                u_next = fwd(u_prev, u, src_wavelet[k], None if store == "f32" else u_prev)
                 u_prev, u = u, u_next
             del u_prev, u, u_next  # the history holds what the reverse sweep needs
         with span("sweep.reverse"):
@@ -960,9 +1014,7 @@ def _adjoint_stored(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
             a2 = torch.zeros(shape, dtype=dtype, device=dev)
             gc2 = torch.zeros(shape, dtype=dtype, device=dev)
             for k in range(nt - 1, -1, -1):
-                core, gc2 = cuda_wave.fused_adjoint_step(
-                    a1, a2, gc2, c2dt2, hist[k], scs[k], spz, sy, sx, order=order,
-                    inplace=True)
+                core, gc2 = rev(a1, a2, gc2, hist[k], scs[k])
                 hist[k] = None  # release the snapshot as the sweep passes it
                 if k > 0:  # ḡ_{k-1}; the JAX sweep adds a zero row at k = 0
                     core.reshape(-1).index_add_(0, rcv_idx, dd[k - 1])
@@ -1038,7 +1090,8 @@ def wave_propagator(
     Range: ``(ntrec, nrcv)`` receiver traces (``ntrec = nt`` unless the
     recording interval ``dtrec`` is given). ``space_order`` ∈ {2, 4, 8}.
     ``fused``: ``None`` rides the kernels K4/K5 on a 3-D float32 grid on a
-    CUDA card, ``True`` insists, ``False`` takes the plain step. ``store_adjoint`` ∈ {None, "f32",
+    CUDA card (K4-2D/K5-2D on a 2-D one), ``True`` insists, ``False`` takes
+    the plain step. ``store_adjoint`` ∈ {None, "f32",
     "bf16", "int8"} switches the adjoint from autograd through the time
     loop (:func:`_vjp_by_autograd`) to the stored-history sweep
     (:func:`_adjoint_stored`).
@@ -1071,8 +1124,9 @@ def wave_propagator(
         prop = functools.partial(_propagate, wavefield_sharding=ws)
         adj = functools.partial(_adjoint_stored, wavefield_sharding=ws)
     else:
-        if fused and not cuda_wave.fits_wave_kernel(grid_shape, dtype, space_order):
-            raise ValueError("fused wave step requires a 3-D float32 grid")
+        if fused and not (cuda_wave.fits_wave_kernel(grid_shape, dtype, space_order)
+                          or cuda_wave.fits_wave2d_kernel(grid_shape, dtype, space_order)):
+            raise ValueError("fused wave step requires a 2-D or 3-D float32 grid")
         sp, prop, adj = Space(grid_shape, dtype, device), _propagate, _adjoint_stored
     return _single_shot_operator(
         sp, sp, prop, adj, nt=nt, dt=dt, dx=dx, freq=freq,
@@ -1269,8 +1323,11 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
     block state, everything else is shared. ``shot_map="map"`` runs the
     shots one after another with ``fused=None`` (the kernels where they
     apply), each shot's derived adjoint by :func:`_vjp_by_autograd`;
-    ``"vmap"`` runs them as one ``torch.func.vmap`` of the plain step, its
-    derived adjoint :func:`_vjp_by_autograd` of the whole vmapped forward.
+    ``"vmap"`` runs them as one ``torch.func.vmap`` of the plain step (the
+    3-D kernels do not batch; a 2-D stack passes ``fused=None``, on which
+    the isotropic sweeps take the batched pair K4-2D/K5-2D and every other
+    physics' :func:`_kernel_route` stays plain), its derived adjoint
+    :func:`_vjp_by_autograd` of the whole vmapped forward.
     While a tape records the model (which a batched tensor does not show, so
     the stack tells each shot's loop through ``vmap_tape``), the vmap stack
     hands every shot its own expanded copy of the model: a coefficient's
@@ -1307,7 +1364,10 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
     rt = (_resample_transpose(resample, (nt, nrcv), dtype)
           if resample is not None else None)
     is_map = shot_map == "map"
-    cfg = dict(dt=dt, dx=dx, order=order, fused=None if is_map else False)
+    # a 2-D batch may ride the batched pair K4-2D/K5-2D (each physics' own route
+    # decides: only the isotropic sweeps have it); the 3-D kernels do not batch
+    cfg = dict(dt=dt, dx=dx, order=order,
+               fused=None if is_map or len(gsp.shape) == 2 else False)
     bstate = {"src": src}
     take = place = None
     if windows is not None:
@@ -1454,7 +1514,9 @@ def multishot_wave_operator(
     Per-shot state is the source location; receivers are shared. With
     ``shot_map="map"`` the shots run one after another, each on the
     kernels K4/K5 where they apply; with ``"vmap"`` the shots run as one
-    batched plain program (``torch.func.vmap``; the kernels do not batch).
+    batched program (``torch.func.vmap``): on a 2-D float32 grid on the
+    card its steps are the batched pair K4-2D/K5-2D, one launch a step for
+    the batch; a 3-D batch runs plain (the 3-D kernels do not batch).
     ``store_adjoint`` switches the per-shot adjoint to the stored-history
     sweep, summed over shots; without it the adjoint is derived: per shot
     (:func:`_vjp_by_autograd` of the shot) in ``map`` mode, over the whole

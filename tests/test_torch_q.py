@@ -39,7 +39,8 @@ KW3 = dict(nt=21, dt=6e-4, dx=10.0, freq=16.0, src_idx=SRC3, rcv_idx=RCV3,
 SHAPE2 = (20, 20)
 KW2 = dict(nt=35, dt=8e-4, dx=10.0, freq=18.0, src_idx=20 * 10 + 10, sponge_width=4)
 WIDTHS = [(None, None), (jnp.bfloat16, torch.bfloat16)]
-ZERO = {"fused_leapfrog_step": 0, "fused_adjoint_step": 0, "fused_q_step": 0}
+ZERO = {"fused_leapfrog_step": 0, "fused_adjoint_step": 0, "fused_q_step": 0,
+        "fused_leapfrog_step2d": 0, "fused_adjoint_step2d": 0}
 
 
 def _live(x):

@@ -192,7 +192,8 @@ def test_kernel_route_on_cpu_equals_plain_route():
     torch.sum(Fp(cp) ** 2).backward()
     _close(ck.grad, cp.grad)
     assert cw.launch_counts() == {"fused_leapfrog_step": 0, "fused_adjoint_step": 0,
-                                 "fused_q_step": 0}
+                                 "fused_q_step": 0, "fused_leapfrog_step2d": 0,
+                                 "fused_adjoint_step2d": 0}
 
 
 def _multishot_pair(shot_map, store):
@@ -245,8 +246,11 @@ def test_validation_and_what_is_not_ported():
         tw.wave_propagator(SHAPE2, space_order=3, device=CPU)
     with pytest.raises(ValueError, match="store_adjoint"):
         tw.wave_propagator(SHAPE2, store_adjoint="int4", device=CPU)
+    # a 2-D float32 grid has the 2-D pair; float64 and 1-D grids have no kernel
     with pytest.raises(ValueError, match="fused wave step"):
-        tw.wave_propagator(SHAPE2, nt=4, fused=True, device=CPU)
+        tw.wave_propagator(SHAPE2, nt=4, fused=True, dtype=torch.float64, device=CPU)
+    with pytest.raises(ValueError, match="fused wave step"):
+        tw.wave_propagator((64,), nt=4, fused=True, device=CPU)
     with pytest.raises(ValueError, match="dtrec"):
         tw.wave_propagator(SHAPE2, nt=4, dt=1e-3, dtrec=5e-4, device=CPU)
     c = _T(_velocity(SHAPE2))
