@@ -112,7 +112,13 @@ place, under ``torch.func.vmap``), their times against the plain versions
 and the bound, and a 4-shot 2-D vmap gradient in those windows whose
 launches are counted (3·nt K4-2D, nt K5-2D with the traces again) and whose
 traces, φ and gradient equal the plain route's bit for bit (``python3
-tools/smoke_wave2d.py`` runs it alone). Each path runs with the kernels'
+tools/smoke_wave2d.py`` runs it alone) — and phase 71, the visco
+benchmark cell's ``multishot_q_wave_operator`` at its geometry (the
+Overthrust grid, two shots in (187, 401, 401) windows, order 8, free
+surface, int8, nt 60): K14 launched 2·nt times a shot in a gradient,
+``steps.*`` counted, and φ, (δc, δQ) and the traces bitwise the plain
+route's (``python3 tools/smoke_visco.py`` runs it, with K14 at that
+window, alone). Each path runs with the kernels'
 launch counts set to 0 just before it and read just after. Every phase asserts; a failure
 raises and exits non-zero. Every entry point runs on the card by default;
 the CPU runs ask for ``device="cpu"``.
@@ -346,7 +352,9 @@ SOLVER_SHAPES_TEXT = ("256^3, 2048^2, 128x128x64, 128^2, 1000 and 1000003 "
 # grid), the halo-extended z-slabs of phases 65-66 (the 256^3 grid in one
 # and in two slabs, an order-2 halo plane on each side; K4 there also with no
 # source, -1, as on the ranks that do not hold it), the grid of phase 69's
-# example 12 and, for K11-K13, two ragged shapes. The FWI and distribution phases assert that the shapes they
+# example 12 and, for K11-K13, two ragged shapes; for K14 also the window of
+# the visco benchmark cell (phase 71), a partial tile in y and x, with its
+# free-surface sponge. The FWI and distribution phases assert that the shapes they
 # run are listed here.
 SLAB_SHAPES = ((258, 256, 256), (130, 256, 256))
 ISO_SHAPES = ((256, 256, 256), (256, 128, 128), (32, 32, 32), (48, 32, 32),
@@ -354,7 +362,8 @@ ISO_SHAPES = ((256, 256, 256), (256, 128, 128), (32, 32, 32), (48, 32, 32),
 VTI_SHAPES = ((256, 256, 256), (32, 64, 128))  # K8, K9, K10
 TTI_SHAPES = ((256, 256, 256), (37, 45, 70), (5, 19, 33), (32, 64, 128),
               (16, 32, 128))  # K11-K13
-Q_SHAPES = ((256, 256, 256), (32, 64, 128))  # K14
+Q_WINDOW = (187, 401, 401)  # the Overthrust visco cell's Ginsu window
+Q_SHAPES = ((256, 256, 256), (32, 64, 128), Q_WINDOW)  # K14
 
 
 def shapes_text(shapes):
@@ -3243,6 +3252,135 @@ def wave2d_pair(smi):
     return launched, rows
 
 
+def q_step_check(up, u, c2, gq, sponge, src, s_t, amp):
+    """K14 against ``fused_q_step_torch`` at orders 2/4/8 and each friction
+    width of ``gq`` (``{dtype: g}``), bitwise and in place; returns the
+    largest error (0.0)."""
+    from jets_tpu_torch.ops import cuda_wave as cw
+
+    err = 0.0
+    for gdt, gg in gq.items():
+        for order in (2, 4, 8):
+            ref = cw.fused_q_step_torch(up, u, c2, gg, *sponge, s_t, src, amp, order=order)
+            upk = up.clone()
+            out = cw.fused_q_step(upk, u, c2, gg, *sponge, s_t, src, amp, order=order,
+                                  out=upk)
+            torch.cuda.synchronize()
+            assert out is upk, "K14 not in place"
+            assert torch.equal(out, ref), \
+                f"K14 not bitwise ({gdt}, order {order}, {tuple(u.shape)})"
+            err = max(err, float((out - ref).abs().max()))
+    return err
+
+
+def k14_window(gen):
+    """K14 at the visco cell's window ``Q_WINDOW`` (phase 1): random fields
+    from ``gen`` (a CUDA generator), C and g in their ranges, the cell's
+    sponge of 20 cells with a free surface (the top plane undamped) and a
+    source at depth index 2. 401 is not a whole number of K14's tiles, so
+    the last tile in y and x is partial. Returns the largest error."""
+    from jets_tpu_torch.ops import wave as tw
+
+    dev = torch.device("cuda")
+    up, u = (torch.randn(Q_WINDOW, generator=gen, device=dev) for _ in range(2))
+    c2 = 0.3 * torch.rand(Q_WINDOW, generator=gen, device=dev)
+    g = 0.01 + 0.05 * torch.rand(Q_WINDOW, generator=gen, device=dev)
+    sponge = tuple(f.to(dev) for f in tw._factors_1d(
+        tw._make_sponge(Q_WINDOW, 20, free_surface=True)))
+    assert float(sponge[0][0]) == 1.0 and float(sponge[1][0]) < 1.0, "no free surface"
+    src = int(np.ravel_multi_index((2, 200, 200), Q_WINDOW))
+    return q_step_check(up, u, c2, {torch.float32: g, torch.bfloat16: g.to(torch.bfloat16)},
+                        sponge, src, torch.tensor(-0.37, device=dev),
+                        torch.tensor(2.5e-7, device=dev))
+
+
+# Phase 71: the operator of the benchmark cell overthrust-visco-grad
+# (multishot_q_wave_operator in "map" mode) at the cell's geometry with a
+# short record: the Overthrust grid (187, 801, 801) at 25 m, two shots in
+# their (187, 401, 401) Ginsu windows (each clipped at an edge of the model),
+# order 8, dt 1.5 ms, 8 Hz, f0 8 Hz, a sponge of 20 cells under a free
+# surface, 201 x 201 receivers at depth index 2, an int8 history, nt 60.
+Q_GRID, Q_NT = (187, 801, 801), 60
+
+
+def visco_window(smi):
+    """Phase 71 (see the note above): one objective-and-gradient evaluation
+    on K14 launches it 2·nt times a shot (the objective's forward and the
+    stored adjoint's history sweep) and counts nt ``steps.history`` and nt
+    ``steps.reverse`` a shot; its φ, (δc, δQ) and the traces equal those of
+    the plain route (the kernels off) bit for bit. Returns the launches."""
+    from jets_tpu_torch import BlockVector
+    from jets_tpu_torch.ops import wave as tw
+    from jets_tpu_torch.solvers import least_squares_objective
+    from jets_tpu_torch.utils import profiling
+
+    t_ph = time.perf_counter()
+    dev = torch.device("cuda")
+    nz, ny, nx = Q_GRID
+    z = torch.arange(nz, dtype=torch.float32, device=dev)[:, None, None]
+    c0 = (2200.0 + 3800.0 * z / (nz - 1)).expand(Q_GRID).contiguous()
+    # a fast layer a few cells under the sources, which the short record
+    # reaches: the residual and both gradient blocks are live
+    c_true = c0 + 400.0 * torch.exp(-0.5 * ((z - 6.0) / 3.0) ** 2)
+
+    def q_law(c):
+        return (14.0 * (c.double() / 1000.0) ** 2.2).float()
+
+    # window corners centred on the source and clipped to the model; sources
+    # and receivers window-relative
+    _, wy, wx = Q_WINDOW
+    shots = [(32, 400), (400, 752)]
+    corners = [[0, min(max(sy - wy // 2, 0), ny - wy), min(max(sx - wx // 2, 0), nx - wx)]
+               for sy, sx in shots]
+    srcs = [int(np.ravel_multi_index((2, sy - cy, sx - cx), Q_WINDOW))
+            for (sy, sx), (_, cy, cx) in zip(shots, corners)]
+    rcv = [int(np.ravel_multi_index((2, ry, rx), Q_WINDOW))
+           for ry in range(0, wy, 2) for rx in range(0, wx, 2)]
+    F = tw.multishot_q_wave_operator(
+        Q_GRID, srcs, nt=Q_NT, dt=1.5e-3, dx=25.0, freq=8.0, f0=8.0, rcv_idx=rcv,
+        sponge_width=20, space_order=8, window_corners=corners, window_shape=Q_WINDOW,
+        store_adjoint="int8", free_surface=True, shot_map="map", device=dev)
+    d_obs = F(BlockVector((c_true, q_law(c_true)), F.dom))
+    m0 = BlockVector((c0, q_law(c0)), F.dom)
+    fg = least_squares_objective(F, d_obs)
+    names = ["steps.history", "steps.reverse", "launches.fused_q_step"]
+    runs = {}
+    for route in ("k14", "plain"):
+        keep = tw._kernel_route
+        if route == "plain":
+            tw._kernel_route = lambda *a, **k_: False
+        try:
+            _reset_all()
+            before = profiling.counters(names)
+            phi, grad = fg(m0)
+            torch.cuda.synchronize()
+            after = profiling.counters(names)
+            n_grad = _counts_all()
+            traces = F(m0)
+            torch.cuda.synchronize()
+            runs[route] = (phi, grad, traces, n_grad, _counts_all(),
+                           {k: after[k] - before[k] for k in names})
+        finally:
+            tw._kernel_route = keep
+    phi, grad, traces, n_grad, counts, counted = runs["k14"]
+    ns = len(srcs)
+    assert n_grad == {"fused_q_step": 2 * Q_NT * ns}, n_grad
+    assert counts == {"fused_q_step": 3 * Q_NT * ns}, counts
+    assert counted == {"steps.history": Q_NT * ns, "steps.reverse": Q_NT * ns,
+                       "launches.fused_q_step": 2 * Q_NT * ns}, counted
+    assert runs["plain"][4] == {}, runs["plain"][4]
+    assert runs["plain"][5]["launches.fused_q_step"] == 0, runs["plain"][5]
+    msgs = [same(traces, runs["plain"][2], "traces"),
+            same(grad, runs["plain"][1], "int8 (c, Q) gradient"),
+            same(phi.reshape(1), runs["plain"][0].reshape(1), "phi")]
+    log(71, f"multishot_q_wave_operator on {Q_GRID}, {ns} shots in {Q_WINDOW} windows at "
+            f"corners {corners}, order 8, free surface, {len(rcv)} receivers, int8, nt "
+            f"{Q_NT}: gradient launches {n_grad} (then the traces again: {counts}), "
+            f"counters {counted}; against the plain route: {'; '.join(msgs)}; phase 71 in "
+            f"{time.perf_counter() - t_ph:.1f} s [{smi}]")
+    return counts
+
+
 def wave_model(dev):
     """The wave paths' 256^3 model and geometry: ``c_true``, 1500 m/s plus
     four smooth Gaussian anomalies drawn from a numpy seed; the source at
@@ -3644,28 +3782,17 @@ def main() -> int:
         g = 0.01 + 0.05 * torch.rand(shape, generator=gen, device=dev)
         return {torch.float32: g, torch.bfloat16: g.to(torch.bfloat16)}
 
-    def q_kernel_check(up, u, c2, gq, spz, spy, spx, src):
-        shape = tuple(u.shape)
-        for gdt, gg in gq.items():
-            for order in (2, 4, 8):
-                ref = cw.fused_q_step_torch(up, u, c2, gg, spz, spy, spx, vst, src, amp,
-                                            order=order)
-                upk = up.clone()
-                out = cw.fused_q_step(upk, u, c2, gg, spz, spy, spx, vst, src, amp,
-                                      order=order, out=upk)
-                torch.cuda.synchronize()
-                assert out is upk, "K14 not in place"
-                assert torch.equal(out, ref), f"K14 not bitwise ({gdt}, order {order}, {shape})"
-                maxerr("fused_q_step", (out,), (ref,))
-
     gq = friction(wshape)
-    q_kernel_check(up, u, c2, gq, spz, spy, spx, src_flat)
+    err["fused_q_step"] = q_step_check(up, u, c2, gq, (spz, spy, spx), src_flat, vst, amp)
     for shape in Q_SHAPES[1:]:
-        q_kernel_check(rnd(shape), rnd(shape), 0.3 * torch.rand(shape, generator=gen, device=dev),
-                       friction(shape), *sponges(shape), centre(shape))
+        err["fused_q_step"] = max(err["fused_q_step"], k14_window(gen) if shape == Q_WINDOW
+                                  else q_step_check(
+            rnd(shape), rnd(shape), 0.3 * torch.rand(shape, generator=gen, device=dev),
+            friction(shape), sponges(shape), centre(shape), vst, amp))
     log(1, f"K6a (x, r), K6b and K7 bitwise and in place at {SOLVER_SHAPES_TEXT}, "
            f"K6a rho rel err {rho_rel:.3e} vs f64 (<= 1e-6); K14 bitwise and in place at "
-           f"{shapes_text(Q_SHAPES)}, orders 2/4/8, f32 and bf16 friction fields")
+           f"{shapes_text(Q_SHAPES)} ({Q_WINDOW} with the visco cell's free-surface "
+           "sponge), orders 2/4/8, f32 and bf16 friction fields")
 
     # ---- phase 2: the 3-D flagship at full width -----------------------------
     grid3, nshots3, nrecv = (256, 256, 256), 16, 4096
@@ -4686,6 +4813,8 @@ def main() -> int:
         main_path[k] += n
     pair_counts, pair_rows = wave2d_pair(smi)
     for k, n in pair_counts.items():
+        main_path[k] += n
+    for k, n in visco_window(smi).items():
         main_path[k] += n
     sources = {"solver": "jets_tpu_torch/csrc/solver_kernels.cu",
                "wave": "jets_tpu_torch/csrc/wave_kernels.cu",

@@ -75,6 +75,7 @@ from .kernels import has_cuda
 from .ops.diagonal import diagonal_operator
 from .ops.wave import (
     cpml_wave_propagator,
+    multishot_q_wave_operator,
     multishot_tti_wave_operator,
     multishot_vti_wave_operator,
     offgrid_wave_propagator,

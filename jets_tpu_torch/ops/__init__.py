@@ -35,8 +35,9 @@ from .transforms import (circshift_operator, dct_operator, flip_operator, identi
                          imag_operator, pad_operator, permutation_operator,
                          projection_operator, real_operator, reshape_operator,
                          restriction_operator, transpose_operator)
-from .wave import (born_operator, cpml_wave_propagator, multishot_tti_wave_operator,
-                   multishot_vti_wave_operator, multishot_wave_operator,
+from .wave import (born_operator, cpml_wave_propagator, multishot_q_wave_operator,
+                   multishot_tti_wave_operator, multishot_vti_wave_operator,
+                   multishot_wave_operator,
                    offgrid_wave_propagator, q_wave_propagator, tti_wave_propagator,
                    vd_wave_propagator, vdq_wave_propagator, vti_wave_propagator,
                    wave_propagator)
@@ -50,7 +51,8 @@ __all__ = ["WAVELETS", "atan_operator", "bandpass_operator", "blend_operator",
            "fft_operator", "flip_operator", "gradient_operator", "identity_operator",
            "imag_operator", "integration_operator", "interp_operator", "kaiser_sinc_matrix",
            "laplacian_nd", "laplacian_operator", "lmo_operator", "log_operator",
-           "matrix_operator", "mix_operator", "multishot_tti_wave_operator",
+           "matrix_operator", "mix_operator", "multishot_q_wave_operator",
+           "multishot_tti_wave_operator",
            "multishot_vti_wave_operator", "multishot_wave_operator", "mute_operator",
            "nim_operator",
            "nonlinear_elementwise", "offgrid_wave_propagator", "pad_operator",

@@ -29,11 +29,13 @@ taper at the boundaries::
   the tilted system: VTI's operators rotated onto the symmetry axis, model
   ``(c, ε, δ, θ, φ)`` on five blocks in 3-D (``(c, ε, δ, θ)`` on four in
   2-D), optionally with its five coefficient fields in bfloat16.
-* :func:`q_wave_propagator` — visco-acoustic modelling with Kosloff
-  constant-Q friction, model ``(c, Q)`` on ``BlockSpace([grid, grid])``,
-  the friction field optionally in bfloat16, with the same tangent,
-  autodiff adjoint and stored-history adjoint. ``q=`` on the VTI and TTI
-  propagators adds the same friction as a static modelling parameter.
+* :func:`q_wave_propagator` and :func:`multishot_q_wave_operator` —
+  visco-acoustic modelling with Kosloff constant-Q friction, model
+  ``(c, Q)`` on ``BlockSpace([grid, grid])``, the friction field optionally
+  in bfloat16, with the same tangent, autodiff adjoint and stored-history
+  adjoint, the multishot one with Ginsu windows of both blocks. ``q=`` on
+  the VTI and TTI propagators adds the same friction as a static modelling
+  parameter.
 * :func:`vd_wave_propagator` and :func:`vdq_wave_propagator` — variable
   density (model ``(c, b)``, buoyancy ``b = 1/ρ``) and the full IsoDenQ
   physics (``(c, b, Q)``), with the same tangent, autodiff adjoint and
@@ -131,6 +133,7 @@ __all__ = [
     "tti_wave_propagator",
     "multishot_tti_wave_operator",
     "q_wave_propagator",
+    "multishot_q_wave_operator",
     "cpml_wave_propagator",
     "vd_wave_propagator",
     "vdq_wave_propagator",
@@ -1221,15 +1224,19 @@ def _single_shot_operator(dom, gsp, propagate, adjoint, *, nt, dt, dx, freq, src
     return Operator(j)
 
 
-def _windowing(grid_shape, window_shape, device):
+def _windowing(grid_shape, window_shape, device, blocks=None):
     """``(take, place)`` of per-shot Ginsu windows of ``window_shape`` in a
     ``grid_shape`` model, each at a corner tensor (a row of ``window_corners``,
     batched under ``torch.func.vmap``): ``take(m, corner)`` gathers the
     window, ``place(g, corner)`` scatter-adds a window-shaped gradient into a
     zero full grid. Both index through flat offsets, so a corner needs no
-    host read and ``vmap`` batches them. Each call is a span
-    (``window.take``, ``window.place``) and counts one in ``windows.take``
-    or ``windows.place`` (a vmapped batch's call once)."""
+    host read and ``vmap`` batches them. ``blocks=(dom, wdom)``, the model's
+    :class:`BlockSpace` and the window's, makes both act block by block on a
+    :class:`BlockVector` (the ``(c, Q)`` pair): ``take`` gives a member of
+    ``wdom``, ``place`` one of ``dom``, the offsets made once a call. Each
+    call is a span (``window.take``, ``window.place``) and counts one in
+    ``windows.take`` or ``windows.place`` (a vmapped batch's call once, a
+    BlockVector's once)."""
     size = math.prod(grid_shape)
     strides = torch.tensor([math.prod(grid_shape[i + 1:]) for i in range(len(grid_shape))],
                            device=device)
@@ -1241,16 +1248,22 @@ def _windowing(grid_shape, window_shape, device):
     def flat(corner):
         return base + torch.sum(corner * strides)
 
+    def each(fn, x, i):
+        return fn(x) if blocks is None else BlockVector([fn(b) for b in x.blocks], blocks[i])
+
     def take(m, corner):
         count("windows.take")
         with span("window.take"):
-            return m.reshape(-1).index_select(0, flat(corner)).reshape(window_shape)
+            idx = flat(corner)
+            return each(lambda b: b.reshape(-1).index_select(0, idx).reshape(window_shape),
+                        m, 1)
 
     def place(g, corner):
         count("windows.place")
         with span("window.place"):
-            return torch.zeros(size, dtype=g.dtype, device=g.device).index_add(
-                0, flat(corner), g.reshape(-1)).reshape(grid_shape)
+            idx = flat(corner)
+            return each(lambda b: torch.zeros(size, dtype=b.dtype, device=b.device).index_add(
+                0, idx, b.reshape(-1)).reshape(grid_shape), g, 0)
 
     return take, place
 
@@ -1317,7 +1330,7 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
                         rcv_idx, boundary, dtrec, store_adjoint, shot_map, order,
                         remat_blocks=1, windows=None, mesh=None, axis="block"):
     """The multi-shot propagator of :func:`multishot_wave_operator` and the
-    VTI and TTI ones (``propagate``/``adjoint``/``boundary`` as for
+    VTI, TTI and Q ones (``propagate``/``adjoint``/``boundary`` as for
     :func:`_single_shot_operator`, ``gsp`` the grid each shot propagates
     on): the shots' source indices (and window corners) are the stacked
     block state, everything else is shared. ``shot_map="map"`` runs the
@@ -1335,7 +1348,8 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
     straight loop and in the :class:`_Segment` segments of
     ``remat_blocks > 1``, which therefore give the same bits.
     ``windows=(window_shape, corners)`` runs each shot in its window of the
-    model (:func:`_windowing`). ``mesh``/``axis`` shard the shots over a
+    model (:func:`_windowing`; of each block of a :class:`BlockSpace`
+    model). ``mesh``/``axis`` shard the shots over a
     mesh's ranks: each rank runs its slab of shots as above, and their
     contributions to the adjoint meet in one ``all_reduce`` over ``axis``
     (:func:`stacked_block_operator`). When ``dom`` is a rank's slab (a 2-D
@@ -1371,10 +1385,15 @@ def _multishot_operator(dom, gsp, propagate, adjoint, src_indices, *, nt, dt, dx
     bstate = {"src": src}
     take = place = None
     if windows is not None:
-        take, place = (_sharded_windowing(dom, windows[0]) if sharded
-                       else _windowing(dom.shape, windows[0], gsp.device))
+        if sharded:
+            take, place = _sharded_windowing(dom, windows[0])
+        elif isinstance(dom, BlockSpace):  # a window of each block
+            take, place = _windowing(dom.spaces[0].shape, windows[0], gsp.device,
+                                     (dom, BlockSpace([gsp] * dom.nblocks)))
+        else:
+            take, place = _windowing(dom.shape, windows[0], gsp.device)
         bstate["corner"] = _index_tensor(windows[1], "cpu" if sharded else gsp.device
-                                         ).reshape(int(src.shape[0]), len(dom.shape))
+                                         ).reshape(int(src.shape[0]), len(windows[0]))
 
     def local(m, corner):
         return m if take is None else take(m, corner)
@@ -1484,6 +1503,31 @@ def born_operator(F: Operator, c0) -> LinearOperator:
     return F.linearize(c0)
 
 
+def _ginsu_windows(grid_shape, src_indices, window_shape, window_corners):
+    """``(window_shape, corners)`` of a multishot operator's Ginsu windows,
+    checked against the grid (a gather past it would fault or read another
+    shot's model, so the corners are checked here, once), or None without
+    windows."""
+    if (window_shape is None) != (window_corners is None):
+        raise ValueError("ginsu windowing needs BOTH window_shape and "
+                         "window_corners (or neither)")
+    if window_shape is None:
+        return None
+    nshots = int(np.asarray(src_indices).reshape(-1).shape[0])
+    prop_shape = tuple(int(s) for s in window_shape)
+    corners = np.asarray(window_corners, np.int64)
+    if corners.shape != (nshots, len(grid_shape)):
+        raise ValueError("window_corners must be (nshots, ndim) when window_shape "
+                         "is given")
+    out = (corners < 0).any(axis=1) | (corners + np.asarray(prop_shape)
+                                       > np.asarray(grid_shape)).any(axis=1)
+    if out.any():
+        raise ValueError(f"ginsu window out of bounds for shots "
+                         f"{np.nonzero(out)[0].tolist()}: need 0 <= corner and "
+                         f"corner + {prop_shape} <= {grid_shape}")
+    return prop_shape, corners
+
+
 def multishot_wave_operator(
     grid_shape: Sequence[int],
     src_indices,
@@ -1549,27 +1593,8 @@ def multishot_wave_operator(
     grid_shape = tuple(int(s) for s in grid_shape)
     space_order = _check_space_order(space_order)
     _check_store(store_adjoint)
-    nshots = int(np.asarray(src_indices).reshape(-1).shape[0])
-    prop_shape = grid_shape
-    if (window_shape is None) != (window_corners is None):
-        raise ValueError("ginsu windowing needs BOTH window_shape and "
-                         "window_corners (or neither)")
-    windows = None
-    if window_shape is not None:
-        prop_shape = tuple(int(s) for s in window_shape)
-        corners = np.asarray(window_corners, np.int64)
-        if corners.shape != (nshots, len(grid_shape)):
-            raise ValueError("window_corners must be (nshots, ndim) when window_shape "
-                             "is given")
-        # a gather past the grid would fault or read another shot's model:
-        # the corners are checked here, once
-        out = (corners < 0).any(axis=1) | (corners + np.asarray(prop_shape)
-                                           > np.asarray(grid_shape)).any(axis=1)
-        if out.any():
-            raise ValueError(f"ginsu window out of bounds for shots "
-                             f"{np.nonzero(out)[0].tolist()}: need 0 <= corner and "
-                             f"corner + {prop_shape} <= {grid_shape}")
-        windows = (prop_shape, corners)
+    windows = _ginsu_windows(grid_shape, src_indices, window_shape, window_corners)
+    prop_shape = grid_shape if windows is None else windows[0]
     if boundary not in ("sponge", "cpml"):
         raise ValueError(f"boundary must be 'sponge' or 'cpml', got {boundary!r}")
     use_cpml = boundary == "cpml"
@@ -3144,14 +3169,17 @@ class _QStep(_PlainRuleStep):
 
 def _propagate_q(c, q, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0, sponge,
                  order: int = 2, fused=None, inplace: bool = False,
-                 coeff16: bool = False, remat_blocks: int = 1):
+                 coeff16: bool = False, remat_blocks: int = 1,
+                 vmap_tape: Optional[bool] = None):
     """Leapfrog with Kosloff constant-Q friction; returns the receiver
-    traces ``(nt, nrcv)``. ``fused``, ``inplace`` and ``remat_blocks`` as
-    for :func:`_propagate`: on the kernel route (a 3-D float32 grid on a CUDA
-    card, with either g width) the step is K14, in place on sweeps no
-    transform watches and inside :class:`_QStep` otherwise; 2-D grids and
-    ``fused=False`` take the plain step (the JAX package's XLA step, tree for
-    tree, with its full-grid ``1 − g`` and ``1/(1 + g)``). With ``coeff16``
+    traces ``(nt, nrcv)``. ``fused``, ``inplace``, ``remat_blocks`` and
+    ``vmap_tape`` as for :func:`_propagate`: on the kernel route (a 3-D
+    float32 grid on a CUDA card, with either g width) the step is K14, in
+    place on sweeps no transform watches and inside :class:`_QStep`
+    otherwise; 2-D grids and ``fused=False`` take the plain step (the JAX
+    package's XLA step, tree for tree, with its full-grid ``1 − g`` and
+    ``1/(1 + g)`` handed to the loop beside ``c²dt²`` as the model's
+    coefficients, as :func:`_propagate`'s plain step hands it). With ``coeff16``
     the friction field is rounded to bfloat16 straight through (the primal
     is the rounded value, the tangent flows in float32) and K14 streams the
     bfloat16 field itself."""
@@ -3164,8 +3192,9 @@ def _propagate_q(c, q, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0, sponge,
         g = g + (_r16(g) - g).detach()
     amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
     kernel = _kernel_route(fused, c, sponge, order)
-    tape = _records(c, q)
+    tape = _records(c, q) if vmap_tape is None else vmap_tape
     inplace = inplace and not tape
+    params = consts = ()
 
     if kernel:
         spz, sy, sx = _factors_1d(sponge)
@@ -3181,13 +3210,13 @@ def _propagate_q(c, q, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0, sponge,
     else:
         S = _sponge_full(sponge)
         mask = cuda_wave.source_mask(shape, src_idx, amp)
-        om1g, inv1pg = 1.0 - g, 1.0 / (1.0 + g)
 
-        def step(up, uu, s_t):
-            return cuda_wave.q_plain(up, uu, c2dt2, om1g, inv1pg, S, s_t, mask, order)
+        def step(up, uu, s_t, c2, om1g, inv1pg, S, mask):
+            return cuda_wave.q_plain(up, uu, c2, om1g, inv1pg, S, s_t, mask, order)
 
+        params, consts = (c2dt2, 1.0 - g, 1.0 / (1.0 + g)), (S, mask)
     return _field_loop(step, 1, shape, dtype, dev, src_wavelet, rcv_idx, inplace,
-                       remat_blocks, tape)
+                       remat_blocks, tape, None, params, consts, vmap_tape is not None)
 
 
 def _adjoint_stored_q(c, qf, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0, sponge,
@@ -3212,8 +3241,10 @@ def _adjoint_stored_q(c, qf, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0, s
     f32 history, which keeps the fields themselves) and the plain step
     otherwise, the same tree (so the two routes agree bit for bit); the
     reverse sweep is plain PyTorch on both (there is no reverse-Q kernel in
-    the JAX package either), the receiver injection an ``index_add_``.
-    Returns ``(gc, gQ)``."""
+    the JAX package either), the receiver injection an ``index_add_``. The
+    forward sweep is a span ``sweep.history``, the reverse one a span
+    ``sweep.reverse``, both with ``physics="q"``, and each counts its steps
+    (``steps.history``, ``steps.reverse``). Returns ``(gc, gQ)``."""
     shape, dtype, dev = c.shape, c.dtype, c.device
     nt = int(src_wavelet.shape[0])
     C = _c2dt2(c, dt, dx)
@@ -3243,28 +3274,33 @@ def _adjoint_stored_q(c, qf, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0, s
             return cuda_wave.q_plain(up, uu, C, og, ig, S, s_t, mask, order)
 
     hist = []
-    u_prev, u = zeros(), zeros()
-    for k in range(nt):
-        hist.append(enc(u))  # history entry k holds u_k
-        u_next = step(u_prev, u, src_wavelet[k])
-        u_prev, u = u, u_next
-    del u_prev, u, u_next  # the history holds what the reverse sweep needs
-    a_nxt = zeros().reshape(-1).index_add_(0, rcv_idx, dd[-1]).reshape(shape)
-    ebar_nxt, sbar_nxt, gC, gig, gog = (zeros() for _ in range(5))
-    for k in range(nt - 1, -1, -1):
-        qh, sc = hist[k]
-        hist[k] = None  # release the snapshot as the sweep passes it
-        u_k = dec(qh, sc)
-        sbar = a_nxt * S
-        ebar = ig * sbar
-        lap_k = _laplacian(u_k, order=order)
-        gC = gC + lap_k * ebar
-        gig = gig + (sbar * (2.0 * u_k + C * lap_k) - og * (u_k * sbar_nxt))
-        gog = gog - u_k * ebar_nxt
-        a_nxt = (2.0 * ebar + _laplacian(C * ebar, order=order)) - og * ebar_nxt
-        if k > 0:  # ḡ_{k-1}; the JAX sweep adds a zero row at k = 0
-            a_nxt.reshape(-1).index_add_(0, rcv_idx, dd[k - 1])
-        ebar_nxt, sbar_nxt = ebar, sbar
+    count("steps.history", nt)
+    count("steps.reverse", nt)
+    with span("sweep.history", physics="q"):
+        u_prev, u = zeros(), zeros()
+        for k in range(nt):
+            hist.append(enc(u))  # history entry k holds u_k
+            u_next = step(u_prev, u, src_wavelet[k])
+            u_prev, u = u, u_next
+        del u_prev, u, u_next  # the history holds what the reverse sweep needs
+    with span("sweep.reverse", physics="q"):
+        # out of place: under vmap the zeros are not batched and the row is
+        a_nxt = zeros().reshape(-1).index_add(0, rcv_idx, dd[-1]).reshape(shape)
+        ebar_nxt, sbar_nxt, gC, gig, gog = (zeros() for _ in range(5))
+        for k in range(nt - 1, -1, -1):
+            qh, sc = hist[k]
+            hist[k] = None  # release the snapshot as the sweep passes it
+            u_k = dec(qh, sc)
+            sbar = a_nxt * S
+            ebar = ig * sbar
+            lap_k = _laplacian(u_k, order=order)
+            gC = gC + lap_k * ebar
+            gig = gig + (sbar * (2.0 * u_k + C * lap_k) - og * (u_k * sbar_nxt))
+            gog = gog - u_k * ebar_nxt
+            a_nxt = (2.0 * ebar + _laplacian(C * ebar, order=order)) - og * ebar_nxt
+            if k > 0:  # ḡ_{k-1}; the JAX sweep adds a zero row at k = 0
+                a_nxt.reshape(-1).index_add_(0, rcv_idx, dd[k - 1])
+            ebar_nxt, sbar_nxt = ebar, sbar
     gc = gC * (2.0 * c) * torch.tensor((dt * dt) / (dx * dx), dtype=dtype, device=dev)
     gg = -gog - (ig * ig) * gig
     return gc, -gg * (g_raw / qf)
@@ -3281,6 +3317,22 @@ def _adjoint_stored_q_m(m, dd, *args, **kw):
     return BlockVector(_adjoint_stored_q(*m.blocks, dd, *args, **kw), m.space)
 
 
+def _q_coeff16(coeff_dtype) -> bool:
+    """Whether the friction field is rounded to bfloat16 (``coeff_dtype``
+    None or float32: no)."""
+    if coeff_dtype is not None and coeff_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("coeff_dtype must be float32 or bfloat16")
+    return coeff_dtype == torch.bfloat16
+
+
+def _q_sweeps(freq: float, f0, coeff16: bool):
+    """``(propagate, adjoint)`` of the Q operators on ``(c, Q)`` members, at
+    the reference frequency ``f0`` (default: the source ``freq``)."""
+    f0 = float(freq if f0 is None else f0)
+    return (functools.partial(_propagate_q_m, f0=f0, coeff16=coeff16),
+            functools.partial(_adjoint_stored_q_m, f0=f0, coeff16=coeff16))
+
+
 def q_wave_propagator(
     grid_shape: Sequence[int],
     *,
@@ -3294,6 +3346,7 @@ def q_wave_propagator(
     sponge_width: int = 12,
     space_order: int = 2,
     remat_blocks: int = 1,
+    free_surface: bool = False,
     fused=None,
     dtrec: Optional[float] = None,
     coeff_dtype=None,
@@ -3320,25 +3373,74 @@ def q_wave_propagator(
     rounding in float32. ``store_adjoint`` ∈ {None, "f32", "bf16", "int8"}
     switches the adjoint from autograd through the time loop to the
     stored-history sweep (:func:`_adjoint_stored_q`), which returns the
-    ``(δc, δQ)`` pair. ``remat_blocks`` as for :func:`wave_propagator`."""
+    ``(δc, δQ)`` pair. ``remat_blocks`` as for :func:`wave_propagator`.
+    ``free_surface=True`` leaves the top edge of axis 0 undamped, as for
+    :func:`multishot_wave_operator`."""
     grid_shape = tuple(int(s) for s in grid_shape)
     space_order = _check_space_order(space_order)
     _check_store(store_adjoint)
-    if coeff_dtype is not None and coeff_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError("coeff_dtype must be float32 or bfloat16")
-    coeff16 = coeff_dtype == torch.bfloat16
+    coeff16 = _q_coeff16(coeff_dtype)
     if fused and not cuda_wave.fits_wave_kernel(grid_shape, dtype, space_order):
         raise ValueError("fused Q step requires a 3-D float32 grid")
     gsp = Space(grid_shape, dtype, device)
-    f0 = float(freq if f0 is None else f0)
     return _single_shot_operator(
-        BlockSpace([gsp, gsp]), gsp,
-        functools.partial(_propagate_q_m, f0=f0, coeff16=coeff16),
-        functools.partial(_adjoint_stored_q_m, f0=f0, coeff16=coeff16), nt=nt, dt=dt,
+        BlockSpace([gsp, gsp]), gsp, *_q_sweeps(freq, f0, coeff16), nt=nt, dt=dt,
         dx=dx, freq=freq, src_idx=src_idx, rcv_idx=rcv_idx, dtrec=dtrec,
         store_adjoint=store_adjoint, fused=fused, order=space_order,
         remat_blocks=remat_blocks,
-        boundary={"sponge": _make_sponge(grid_shape, sponge_width, dtype=dtype)})
+        boundary={"sponge": _make_sponge(grid_shape, sponge_width,
+                                         free_surface=free_surface, dtype=dtype)})
+
+
+def multishot_q_wave_operator(
+    grid_shape: Sequence[int],
+    src_indices,
+    *,
+    nt: int = 128,
+    dt: float = 0.001,
+    dx: float = 10.0,
+    freq: float = 15.0,
+    f0: Optional[float] = None,
+    rcv_idx=None,
+    sponge_width: int = 12,
+    space_order: int = 2,
+    window_corners=None,
+    window_shape: Optional[Sequence[int]] = None,
+    dtrec: Optional[float] = None,
+    store_adjoint: Optional[str] = None,
+    free_surface: bool = False,
+    coeff_dtype=None,
+    shot_map: str = "vmap",
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str | None = None,
+) -> Operator:
+    """Multi-shot visco-acoustic modelling ``F: (c, Q) → (nshots, ntrec,
+    nrcv)`` through :func:`stacked_block_operator`, as
+    :func:`multishot_wave_operator` does for the isotropic physics and with
+    the same windows and boundaries. The model is one :class:`BlockVector`
+    ``(c, Q)`` on ``BlockSpace([grid, grid])`` shared by every shot (``f0``
+    and ``coeff_dtype`` as for :func:`q_wave_propagator`).
+    ``shot_map="map"`` runs the shots one after another, each on the kernel
+    K14 where it applies (its sweeps and the stored adjoint's forward sweep;
+    the reverse sweep is plain); ``"vmap"`` runs them as one batched plain
+    program. ``store_adjoint`` switches the per-shot adjoint to the
+    stored-history sweep, which returns the ``(δc, δQ)`` pair; with
+    ``window_shape``/``window_corners`` each shot propagates in its Ginsu
+    window of both blocks and its pair is scatter-added into the full grid."""
+    grid_shape = tuple(int(s) for s in grid_shape)
+    space_order = _check_space_order(space_order)
+    _check_store(store_adjoint)
+    coeff16 = _q_coeff16(coeff_dtype)
+    windows = _ginsu_windows(grid_shape, src_indices, window_shape, window_corners)
+    prop_shape = grid_shape if windows is None else windows[0]
+    gsp = Space(grid_shape, dtype, device)
+    return _multishot_operator(
+        BlockSpace([gsp, gsp]), gsp if windows is None else Space(prop_shape, dtype, gsp.device),
+        *_q_sweeps(freq, f0, coeff16), src_indices, nt=nt, dt=dt, dx=dx, freq=freq,
+        rcv_idx=rcv_idx, dtrec=dtrec, store_adjoint=store_adjoint, shot_map=shot_map,
+        order=space_order, windows=windows,
+        boundary={"sponge": _make_sponge(prop_shape, sponge_width,
+                                         free_surface=free_surface, dtype=dtype)})
 
 
 def with_wave_arrays(op: Operator, *, wavelet, sponge, src_idx, rcv_idx) -> Operator:
