@@ -115,10 +115,14 @@ traces, φ and gradient equal the plain route's bit for bit (``python3
 tools/smoke_wave2d.py`` runs it alone) — and phase 71, the visco
 benchmark cell's ``multishot_q_wave_operator`` at its geometry (the
 Overthrust grid, two shots in (187, 401, 401) windows, order 8, free
-surface, int8, nt 60): K14 launched 2·nt times a shot in a gradient,
-``steps.*`` counted, and φ, (δc, δQ) and the traces bitwise the plain
+surface, int8, nt 60): K14 launched 2·nt times and K15 nt times a shot in a
+gradient, ``steps.*`` counted, and φ, (δc, δQ) and the traces bitwise the plain
 route's (``python3 tools/smoke_visco.py`` runs it, with K14 at that
-window, alone). Each path runs with the kernels'
+window, alone) — and phase 72, K15 (the reverse constant-Q step) bitwise
+its plain twin at that window and at two ragged shapes, orders 2/4/8, g in
+f32 and bf16, int8/bf16/f32 histories, fresh and in place, and timed
+against its bound (``python3 tools/smoke_q_adjoint.py`` runs it alone).
+Each path runs with the kernels'
 launch counts set to 0 just before it and read just after. Every phase asserts; a failure
 raises and exits non-zero. Every entry point runs on the card by default;
 the CPU runs ask for ``device="cpu"``.
@@ -3305,10 +3309,11 @@ Q_GRID, Q_NT = (187, 801, 801), 60
 
 def visco_window(smi):
     """Phase 71 (see the note above): one objective-and-gradient evaluation
-    on K14 launches it 2·nt times a shot (the objective's forward and the
-    stored adjoint's history sweep) and counts nt ``steps.history`` and nt
-    ``steps.reverse`` a shot; its φ, (δc, δQ) and the traces equal those of
-    the plain route (the kernels off) bit for bit. Returns the launches."""
+    on the kernels launches K14 2·nt times a shot (the objective's forward
+    and the stored adjoint's history sweep) and K15 nt times (the reverse
+    sweep), as many as it counts ``steps.history`` and ``steps.reverse``;
+    its φ, (δc, δQ) and the traces equal those of the plain route (the
+    kernels off) bit for bit. Returns the launches."""
     from jets_tpu_torch import BlockVector
     from jets_tpu_torch.ops import wave as tw
     from jets_tpu_torch.solvers import least_squares_objective
@@ -3343,9 +3348,10 @@ def visco_window(smi):
     d_obs = F(BlockVector((c_true, q_law(c_true)), F.dom))
     m0 = BlockVector((c0, q_law(c0)), F.dom)
     fg = least_squares_objective(F, d_obs)
-    names = ["steps.history", "steps.reverse", "launches.fused_q_step"]
+    names = ["steps.history", "steps.reverse", "launches.fused_q_step",
+             "launches.fused_q_adjoint_step"]
     runs = {}
-    for route in ("k14", "plain"):
+    for route in ("kernels", "plain"):
         keep = tw._kernel_route
         if route == "plain":
             tw._kernel_route = lambda *a, **k_: False
@@ -3362,14 +3368,18 @@ def visco_window(smi):
                            {k: after[k] - before[k] for k in names})
         finally:
             tw._kernel_route = keep
-    phi, grad, traces, n_grad, counts, counted = runs["k14"]
+    phi, grad, traces, n_grad, counts, counted = runs["kernels"]
     ns = len(srcs)
-    assert n_grad == {"fused_q_step": 2 * Q_NT * ns}, n_grad
-    assert counts == {"fused_q_step": 3 * Q_NT * ns}, counts
+    assert n_grad == {"fused_q_step": 2 * Q_NT * ns, "fused_q_adjoint_step": Q_NT * ns}, \
+        n_grad
+    assert counts == {"fused_q_step": 3 * Q_NT * ns, "fused_q_adjoint_step": Q_NT * ns}, \
+        counts
     assert counted == {"steps.history": Q_NT * ns, "steps.reverse": Q_NT * ns,
-                       "launches.fused_q_step": 2 * Q_NT * ns}, counted
+                       "launches.fused_q_step": 2 * Q_NT * ns,
+                       "launches.fused_q_adjoint_step": Q_NT * ns}, counted
     assert runs["plain"][4] == {}, runs["plain"][4]
     assert runs["plain"][5]["launches.fused_q_step"] == 0, runs["plain"][5]
+    assert runs["plain"][5]["launches.fused_q_adjoint_step"] == 0, runs["plain"][5]
     msgs = [same(traces, runs["plain"][2], "traces"),
             same(grad, runs["plain"][1], "int8 (c, Q) gradient"),
             same(phi.reshape(1), runs["plain"][0].reshape(1), "phi")]
@@ -3379,6 +3389,111 @@ def visco_window(smi):
             f"counters {counted}; against the plain route: {'; '.join(msgs)}; phase 71 in "
             f"{time.perf_counter() - t_ph:.1f} s [{smi}]")
     return counts
+
+
+# Phase 72: K15, the reverse constant-Q step (cuda_wave.fused_q_adjoint_step),
+# bitwise its plain twin (fused_q_adjoint_step_torch) fresh and in place at
+# orders 2/4/8, with g in f32 and bf16 and the history in int8, bf16 and f32,
+# at the visco cell's window (187, 401, 401) with its 20-cell free-surface
+# sponge (401 is no whole number of K15's 32 x 16 tiles, 187 none of its
+# 32-plane z-chunks) and at the ragged (5, 19, 33) and (37, 45, 70); then
+# timed at the window, order 8, int8 history, through its C entry point with
+# CUDA events (the wrapper's host time is not the kernel's), against its
+# bound (45 B a cell) and the twin.
+Q_ADJ_SHAPES = ((5, 19, 33), (37, 45, 70), Q_WINDOW)
+
+
+def _q_adjoint_operands(shape, gdt, store, dev, gen):
+    """K15's operands ``(a1, a2, gC, gig, gog, c2dt2, g, q, sc, spz, sy,
+    sx)``: random fields from ``gen``, C and g in their ranges, the history
+    ``u`` encoded at ``store`` as the sweeps encode it, and the free-surface
+    sponge (20 cells at the window, 3 at the small shapes)."""
+    from jets_tpu_torch.core.spaces import true_div
+    from jets_tpu_torch.ops import wave as tw
+
+    a1, a2, gC, gig, gog, u = (torch.randn(shape, generator=gen, device=dev)
+                               for _ in range(6))
+    c2 = 0.3 * torch.rand(shape, generator=gen, device=dev)
+    g = (0.01 + 0.05 * torch.rand(shape, generator=gen, device=dev)).to(gdt)
+    if store == torch.int8:
+        s = u.abs().max()
+        q, sc = torch.round(u * (127.0 / s)).to(torch.int8), true_div(s, 127.0)
+    else:
+        q, sc = u.to(store), torch.ones((), device=dev)
+    sponge = tuple(f.to(dev) for f in tw._factors_1d(
+        tw._make_sponge(shape, 20 if shape == Q_WINDOW else 3, free_surface=True)))
+    return [a1, a2, gC, gig, gog, c2, g, q, sc, *sponge]
+
+
+def q_adjoint(smi):
+    """Phase 72 (see the note above). Returns the launches and K15's row of
+    the final table."""
+    from jets_tpu_torch import kernels
+    from jets_tpu_torch.ops import cuda_wave as cw
+
+    t_ph = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(72)
+    _reset_all()
+    checked = 0
+    for shape in Q_ADJ_SHAPES:
+        for order in (2, 4, 8):
+            for gdt in (torch.float32, torch.bfloat16):
+                for store in (torch.int8, torch.bfloat16, torch.float32):
+                    o = _q_adjoint_operands(shape, gdt, store, dev, gen)
+                    what = f"{shape} order {order} g {str(gdt)[6:]} history {str(store)[6:]}"
+                    ref = cw.fused_q_adjoint_step_torch(*o, order=order)
+                    fresh = cw.fused_q_adjoint_step(*o, order=order, inplace=False)
+                    torch.cuda.synchronize()
+                    for k, (x, y) in enumerate(zip(fresh, ref)):
+                        live(y, f"K15 output {k} at {what}")
+                        assert torch.equal(x, y), f"K15 output {k} not bitwise at {what}"
+                    placed = cw.fused_q_adjoint_step(*o, order=order)
+                    torch.cuda.synchronize()
+                    assert all(x is y for x, y in zip(placed, o[1:5])), "K15 not in place"
+                    assert all(torch.equal(x, y) for x, y in zip(placed, ref)), \
+                        f"K15 in place not bitwise at {what}"
+                    checked += 1
+                    del o, ref, fresh, placed
+    launched = _counts_all()
+    assert launched == {"fused_q_adjoint_step": 2 * checked}, launched
+    # times at the window, order 8, int8 history (the visco cell's reverse step)
+    cells = math.prod(Q_WINDOW)
+    lib = kernels.load_library("wave")
+    st_ = torch.cuda.current_stream().cuda_stream
+    timed = []
+    for gdt in (torch.float32, torch.bfloat16):
+        o = _q_adjoint_operands(Q_WINDOW, gdt, torch.int8, dev, gen)
+        outs = [torch.empty_like(o[0]) for _ in range(4)]
+        args = ([t.data_ptr() for t in o + outs] + list(Q_WINDOW)
+                + [8, cw._STORE_CODE[torch.int8], cw._G_CODE[gdt], st_])
+        moved = nbytes(*o[:9], *outs, *o[9:])
+        t_b = moved / HBM_BYTES_PER_S
+        row = {"name": "fused_q_adjoint_step" + ("" if gdt == torch.float32 else "_bf16g"),
+               "route": "cuda", "source": "jets_tpu_torch/csrc/wave_kernels.cu",
+               "replaces": "none: the JAX package's reverse Q sweep is XLA",
+               "max_abs_err": 0.0,
+               "ms": cuda_ms(lambda: lib.jt_q_adjoint_step(*args), 50),
+               "wrapper_ms": cuda_ms(lambda: cw.fused_q_adjoint_step(
+                   *o, order=8, inplace=False), 20),
+               "plain_ms": cuda_ms(lambda: cw.fused_q_adjoint_step_torch(*o, order=8), 3),
+               "bound_ms": 1e3 * t_b, "bound_by": "bytes", "library_ms": None}
+        for k, (x, y) in enumerate(zip(outs, cw.fused_q_adjoint_step_torch(*o, order=8))):
+            same(x, y, f"K15 timed output {k}")
+        timed.append(row)
+        del o, outs
+    log(72, f"K15 bitwise its plain twin, fresh and in place, at {checked} cases "
+            f"({shapes_text(Q_ADJ_SHAPES)}; orders 2/4/8; g f32/bf16; history "
+            "int8/bf16/f32; the window with the visco cell's free-surface sponge of 20 "
+            f"cells); launches {launched}; at {Q_WINDOW} order 8 int8, us per call (CUDA "
+            "events, through the C entry point): "
+            + ", ".join(f"{'g bf16' if r['name'].endswith('_bf16g') else 'g f32'} "
+                        f"{1e3 * r['ms']:.1f} (through the wrapper {1e3 * r['wrapper_ms']:.1f},"
+                        f" plain twin {1e3 * r['plain_ms']:.1f}, bound "
+                        f"{1e3 * r['bound_ms']:.1f}, {r['bound_ms'] / r['ms']:.1%} of it; "
+                        f"{cells} cells)" for r in timed)
+            + f"; phase 72 in {time.perf_counter() - t_ph:.1f} s [{smi}]")
+    return launched, timed[:1]
 
 
 def wave_model(dev):
@@ -4623,8 +4738,8 @@ def main() -> int:
     # ---- phases 31-37: the constant-Q path, launches counted --------------------
     from jets_tpu_torch.ops.wave import q_wave_propagator
 
-    def qdelta(before):
-        return cw.launch_counts()["fused_q_step"] - before["fused_q_step"]
+    def qdelta(before, k="fused_q_step"):
+        return cw.launch_counts()[k] - before[k]
 
     # Q = 50 with one smooth seeded low-Q anomaly down to 25; f0 = 15 Hz
     (qz, qy, qx), qsig = rs.uniform(64, 192, 3), 24.0
@@ -4659,10 +4774,12 @@ def main() -> int:
     b_ = cw.launch_counts()
     gq_k = Fg.linearize(mq_true).H(qres)
     assert qdelta(b_) == 120, qdelta(b_)
+    assert qdelta(b_, "fused_q_adjoint_step") == 120, qdelta(b_, "fused_q_adjoint_step")
     gq_p = Fgp.linearize(mq_true).H(qres)
     assert qdelta(b_) == 120, "the plain route launched a kernel"
-    log(32, "Q int8-stored gradient 256^3, nt=120: K14 120 launches (the forward sweep; "
-            "the reverse sweep is plain); kernel vs plain route "
+    assert qdelta(b_, "fused_q_adjoint_step") == 120, "the plain route launched K15"
+    log(32, "Q int8-stored gradient 256^3, nt=120: K14 120 launches (the forward sweep) "
+            "and K15 120 (the reverse sweep); kernel vs plain route "
             + same(gq_k, gq_p, "(gc, gQ)"))
     del gq_p, Fgp
 
@@ -4734,7 +4851,7 @@ def main() -> int:
             "int8 vs f32 history gradient cosines (c, Q) "
             + ", ".join(f"{c_:.6f}" for c_ in qcos) + " (> 0.95)")
     del Fb, g32, g8, qres60
-    q_path = {"fused_q_step": cw.launch_counts()["fused_q_step"]}
+    q_path = {k: cw.launch_counts()[k] for k in ("fused_q_step", "fused_q_adjoint_step")}
     assert q_path["fused_q_step"] > 0, "kernel fused_q_step was not launched on the Q path"
 
     # ---- phase 36: Q times ----------------------------------------------------------
@@ -4816,6 +4933,9 @@ def main() -> int:
         main_path[k] += n
     for k, n in visco_window(smi).items():
         main_path[k] += n
+    k15_counts, k15_rows = q_adjoint(smi)
+    for k, n in k15_counts.items():
+        main_path[k] += n
     sources = {"solver": "jets_tpu_torch/csrc/solver_kernels.cu",
                "wave": "jets_tpu_torch/csrc/wave_kernels.cu",
                "vti": "jets_tpu_torch/csrc/vti_kernels.cu",
@@ -4847,7 +4967,7 @@ def main() -> int:
                      "launches": main_path[k], "max_abs_err": err[k], "ms": kt[k][0],
                      "plain_ms": kt[k][1], "bound_ms": bms, "bound_by": by,
                      "library_ms": lib_ms.get(k)})
-    rows += [{**r, "launches": main_path[r["name"]]} for r in pair_rows]
+    rows += [{**r, "launches": main_path[r["name"]]} for r in pair_rows + k15_rows]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

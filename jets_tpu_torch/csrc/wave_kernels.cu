@@ -1,8 +1,9 @@
 // Hopper (sm_90a) kernels of the isotropic acoustic wave path: the forward
 // leapfrog step (K4), the stored-wavefield adjoint step (K5), the Kosloff
-// constant-Q (visco-acoustic) step (K14), and the batched 2-D pair K4-2D and
-// K5-2D (the same two steps over a (B, H, W) batch of 2-D shots; design
-// note at their definitions).
+// constant-Q (visco-acoustic) step (K14), the batched 2-D pair K4-2D and
+// K5-2D (the same two steps over a (B, H, W) batch of 2-D shots), and the
+// reverse constant-Q step of the stored-history (c, Q) adjoint (K15, a
+// z-marching kernel). Design notes of the last three at their definitions.
 //
 // Built by jets_tpu_torch/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -421,6 +422,228 @@ adjoint2d_kernel(const float* __restrict__ a1, int64_t sb_a1, const float* a2,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K15  reverse constant-Q step of the stored-history (c, Q) adjoint, with
+// og = 1-g, ig = 1/(1+g), S = (sz*sy)*sx and u = dec(q) = float(q)*sc:
+//   sbar = a1*S,  ebar = ig*sbar,  sbar_next = a2*S,  ebar_next = ig*sbar_next
+//   gC'  = gC + L(u)*ebar
+//   gig' = gig + (sbar*(2u + C*L(u)) - og*(u*sbar_next))
+//   gog' = gog - u*ebar_next
+//   core = (2*ebar + L(w)) - og*ebar_next,   w = C*ebar
+//
+// Replaces no TPU kernel: the JAX package's reverse Q sweep
+// (jets_tpu/ops/wave.py, _adjoint_stored_q) is XLA. Added because that
+// sweep, as plain PyTorch, ran each reverse step as ~100 device operations
+// over whole fields, more than 25 times the bytes of one fused pass. Every
+// term is formed in the order of ops/cuda_wave.q_adjoint_plain, as K14 forms
+// og and ig from the loaded g (f32, or bf16 upcast: template G), and the
+// history q is read at its stored width (template Q), so the kernel is
+// bitwise equal to the plain step. core may be written into a2's buffer and
+// gC', gig', gog' into their inputs' (each is read only at the output
+// point, by the thread that writes it); a1 is stencilled and never written.
+// The receiver injection is not part of the kernel (ops/wave.py adds it with
+// index_add_).
+//
+// Bound: device memory. A cell moves 45 B: a1, a2, C, g, gC, gig, gog read
+// (f32) with the int8 snapshot, core, gC', gig', gog' written; about 130
+// operations, far below the card's balance point. 404 us at the (187, 401,
+// 401) window. K5's layout (one point a thread, each tap re-read through
+// the caches and w rebuilt per tap) reaches 14% of its bound at order 8 and
+// would pay a division per tap here, so K15 stages instead:
+//
+// Layout: z-marching (K11-K13's pattern, with a register ring). A block of
+// 32 (x, one warp per row) by 8 (y) threads owns a 32 x 8 tile of (y, x),
+// one point a thread, and walks kQZChunk = 32 consecutive z-planes. Each
+// thread keeps the stencilled values w and u of its point on the planes
+// z-HW .. z+HW in a register ring (the z taps; HW = ORDER/2); plane z of
+// both, with the in-plane halo of the cross (HW rows above and below the
+// tile, HW columns on each side; no corners), is staged in shared memory for
+// the y and x taps, two planes' buffers in turn, so a plane needs one
+// barrier. w and u are computed once per staged point and block: the tile's
+// points as they enter the ring (coalesced rows of a1, C, g and q), the
+// halo's per plane from L2 (320 halo points to the tile's 256 at order 8).
+// Every load of plane z+1 (the ring's new plane z+1+HW, the halo, a1, a2,
+// C, g and the accumulators at the thread's point; a1, C and g again, mostly
+// from L2) is issued before plane z's outputs are computed, and kept as the
+// bits read until its use, so the memory's latency hides behind a plane of
+// work. The chunk ends re-read 2*HW planes into the ring. Out-of-grid values
+// are +0.0f (the zero padding); threads past the grid's edge stage zeros and
+// write nothing, and no barrier is skipped.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W; order 8, int8 history, f32 g, the
+// (187, 401, 401) window): 80 registers (3 blocks an SM; 44 bytes of spill
+// loads), 0.80 ms, 50% of the bound. Latency, not bytes, is what is left. With each
+// plane's loads issued at the start of that plane (two barriers a plane),
+// the same layout took 1.23-1.47 ms, and 1.90 ms with the point's loads
+// after the barriers; 2 points a thread (a 32 x 16 tile, less halo, 128
+// registers, 2 blocks) 0.79 ms; chunks of 48 or 64 planes were no faster.
+// ---------------------------------------------------------------------------
+
+constexpr int kQX = 32;         // threads along x: one warp per tile row
+constexpr int kQY = 8;          // threads along y: the tile is 32 x 8
+constexpr int kQZChunk = 32;    // z-planes a block walks
+constexpr int kQMinBlocks = 3;  // blocks an SM holds: at most 80 registers
+
+// laplacian_nd's tree at a point whose z column is the ring zr (planes
+// z-HW .. z+HW) and whose plane lies in shared memory around p (row pitch
+// PITCH): the same taps in the same order as lap_tree.
+template <int ORDER, int PITCH>
+__device__ __forceinline__ float lap_ring(const float (&zr)[2 * Stencil<ORDER>::HW + 1],
+                                          const float* p) {
+  constexpr int HW = Stencil<ORDER>::HW;
+  float acc = __fmul_rn(Stencil<ORDER>::center(), zr[HW]);
+#pragma unroll
+  for (int s = 1; s <= HW; ++s) acc = tap<ORDER>(acc, s, zr[HW - s], zr[HW + s]);
+#pragma unroll
+  for (int s = 1; s <= HW; ++s) acc = tap<ORDER>(acc, s, p[-s * PITCH], p[s * PITCH]);
+#pragma unroll
+  for (int s = 1; s <= HW; ++s) acc = tap<ORDER>(acc, s, p[-s], p[s]);
+  return acc;
+}
+
+// What K15 reads of a1, C and g at one point to form w there: the bits as
+// loaded (g unconverted), so that a load waits on nothing until its use.
+template <typename G>
+struct WBits {
+  float a1, c2;
+  G g;
+};
+
+template <int ORDER, typename Q, typename G>
+__global__ void __launch_bounds__(kQX * kQY, kQMinBlocks)
+q_adjoint_kernel(const float* __restrict__ a1, const float* a2, const float* gC,
+                 const float* gig, const float* gog, const float* __restrict__ c2,
+                 const G* __restrict__ gf, const Q* __restrict__ q,
+                 const float* __restrict__ scp, const float* __restrict__ spz,
+                 const float* __restrict__ sy, const float* __restrict__ sx,
+                 float* core_out, float* gC_out, float* gig_out, float* gog_out, Grid g) {
+  constexpr int HW = Stencil<ORDER>::HW;
+  constexpr int R = 2 * HW + 1;                        // ring: planes z-HW .. z+HW
+  constexpr int SY = kQY + 2 * HW, SX = kQX + 2 * HW;  // shared plane with its halo
+  constexpr int NT = kQX * kQY;
+  constexpr int NH = 2 * HW * (kQX + kQY);             // halo points of the cross
+  constexpr int NHT = (NH + NT - 1) / NT;              // of them, per thread
+  __shared__ float ws[2][SY][SX];  // w = C*(ig*(a1*S)), even and odd planes z
+  __shared__ float us[2][SY][SX];  // u = q*sc
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * kQX + tx;
+  const int64_t x = (int64_t)blockIdx.x * kQX + tx, y = (int64_t)blockIdx.y * kQY + ty;
+  const int64_t z0 = (int64_t)blockIdx.z * kQZChunk;
+  const int64_t z1 = z0 + kQZChunk < g.D ? z0 + kQZChunk : g.D;
+  const int64_t plane = g.H * g.W;
+  const bool on = x < g.W && y < g.H;  // this thread's point lies in the grid
+  const float sc = *scp;
+  auto w_bits = [&](int64_t z, int64_t yy, int64_t xx) -> WBits<G> {
+    if (!g.inside(z, yy, xx)) return {0.0f, 0.0f, G()};
+    const int64_t j = z * plane + yy * g.W + xx;
+    return {__ldg(a1 + j), __ldg(c2 + j), __ldg(gf + j)};
+  };
+  auto q_bits = [&](int64_t z, int64_t yy, int64_t xx) -> Q {
+    return g.inside(z, yy, xx) ? __ldg(q + z * plane + yy * g.W + xx) : Q();
+  };
+  auto w_of = [&](int64_t z, int64_t yy, int64_t xx, const WBits<G>& b) -> float {
+    if (!g.inside(z, yy, xx)) return 0.0f;
+    const float s = __fmul_rn(__fmul_rn(__ldg(spz + z), __ldg(sy + yy)), __ldg(sx + xx));
+    const float ig = __fdiv_rn(1.0f, __fadd_rn(1.0f, to_f32<G>(b.g)));
+    return __fmul_rn(b.c2, __fmul_rn(ig, __fmul_rn(b.a1, s)));
+  };
+  auto u_of = [&](int64_t z, int64_t yy, int64_t xx, Q b) -> float {
+    return g.inside(z, yy, xx) ? __fmul_rn(to_f32<Q>(b), sc) : 0.0f;
+  };
+  // this thread's halo points of the cross, the same in every plane: the
+  // strips above and below the tile, then those left and right of it
+  int hrow[NHT], hcol[NHT];
+#pragma unroll
+  for (int t = 0; t < NHT; ++t) {
+    const int k = tid + t * NT;
+    if (k < 2 * HW * kQX) {
+      const int j = k / kQX;
+      hrow[t] = j < HW ? j : kQY + j;
+      hcol[t] = HW + k % kQX;
+    } else {
+      const int k2 = k - 2 * HW * kQX, j = k2 % (2 * HW);
+      hrow[t] = HW + k2 / (2 * HW);
+      hcol[t] = j < HW ? j : kQX + j;
+    }
+  }
+  auto mine = [&](int t) { return tid + t * NT < NH; };
+  auto hy = [&](int t) { return y - ty + hrow[t] - HW; };
+  auto hx = [&](int t) { return x - tx + hcol[t] - HW; };
+  // the bits plane z's step reads: the ring's new plane z+HW, the halo and
+  // this thread's point
+  WBits<G> rw, hwb[NHT], pw;
+  Q rq, hq[NHT];
+  float pa2, pgC, pgig, pgog;
+  auto load_plane = [&](int64_t z) {
+    rw = w_bits(z + HW, y, x);
+    rq = q_bits(z + HW, y, x);
+    pw = w_bits(z, y, x);
+    const int64_t i = z * plane + y * g.W + x;
+    pa2 = on ? a2[i] : 0.0f;
+    pgC = on ? gC[i] : 0.0f;
+    pgig = on ? gig[i] : 0.0f;
+    pgog = on ? gog[i] : 0.0f;
+#pragma unroll
+    for (int t = 0; t < NHT; ++t) {
+      hwb[t] = mine(t) ? w_bits(z, hy(t), hx(t)) : WBits<G>{0.0f, 0.0f, G()};
+      hq[t] = mine(t) ? q_bits(z, hy(t), hx(t)) : Q();
+    }
+  };
+  float wr[R], ur[R];  // the ring up to plane z0+HW-1
+#pragma unroll
+  for (int k = 0; k < R - 1; ++k) {
+    wr[k] = w_of(z0 - HW + k, y, x, w_bits(z0 - HW + k, y, x));
+    ur[k] = u_of(z0 - HW + k, y, x, q_bits(z0 - HW + k, y, x));
+  }
+  load_plane(z0);
+  for (int64_t z = z0; z < z1; ++z) {
+    const int b = (int)(z & 1);
+    wr[R - 1] = w_of(z + HW, y, x, rw);
+    ur[R - 1] = u_of(z + HW, y, x, rq);
+    ws[b][ty + HW][tx + HW] = wr[HW];
+    us[b][ty + HW][tx + HW] = ur[HW];
+#pragma unroll
+    for (int t = 0; t < NHT; ++t) {
+      if (mine(t)) {
+        ws[b][hrow[t]][hcol[t]] = w_of(z, hy(t), hx(t), hwb[t]);
+        us[b][hrow[t]][hcol[t]] = u_of(z, hy(t), hx(t), hq[t]);
+      }
+    }
+    // plane z is staged; the buffer written next (plane z+1) was last read
+    // at plane z-1, before this barrier
+    __syncthreads();
+    const WBits<G> cw = pw;
+    const float ca2 = pa2, cgC = pgC, cgig = pgig, cgog = pgog;
+    if (z + 1 < z1) load_plane(z + 1);  // in flight while plane z is computed
+    if (on) {
+      const float lap_w = lap_ring<ORDER, SX>(wr, &ws[b][ty + HW][tx + HW]);
+      const float lap_u = lap_ring<ORDER, SX>(ur, &us[b][ty + HW][tx + HW]);
+      const int64_t i = z * plane + y * g.W + x;
+      const float s = __fmul_rn(__fmul_rn(__ldg(spz + z), __ldg(sy + y)), __ldg(sx + x));
+      const float gv = to_f32<G>(cw.g);
+      const float og = __fsub_rn(1.0f, gv);
+      const float ig = __fdiv_rn(1.0f, __fadd_rn(1.0f, gv));
+      const float sbar = __fmul_rn(cw.a1, s);
+      const float ebar = __fmul_rn(ig, sbar);
+      const float sbar_next = __fmul_rn(ca2, s);
+      const float ebar_next = __fmul_rn(ig, sbar_next);
+      const float u = ur[HW];
+      const float c_lap = __fmul_rn(cw.c2, lap_u);
+      gC_out[i] = __fadd_rn(cgC, __fmul_rn(lap_u, ebar));
+      gig_out[i] = __fadd_rn(
+          cgig, __fsub_rn(__fmul_rn(sbar, __fadd_rn(__fmul_rn(2.0f, u), c_lap)),
+                          __fmul_rn(og, __fmul_rn(u, sbar_next))));
+      gog_out[i] = __fsub_rn(cgog, __fmul_rn(u, ebar_next));
+      core_out[i] =
+          __fsub_rn(__fadd_rn(__fmul_rn(2.0f, ebar), lap_w), __fmul_rn(og, ebar_next));
+    }
+#pragma unroll
+    for (int k = 0; k < R - 1; ++k) {
+      wr[k] = wr[k + 1];
+      ur[k] = ur[k + 1];
+    }
+  }
+}
+
 inline int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 inline dim3 grid2d_of(int64_t B, int64_t H, int64_t W) {
@@ -519,6 +742,49 @@ int launch_q(int order, const void* u_prev, const void* u, const void* c2,
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+template <int ORDER, typename Q, typename G>
+int launch_q_adjoint_at(const void* const* in, void* const* out, Grid g, cudaStream_t st) {
+  const dim3 grid((unsigned)cdiv(g.W, kQX), (unsigned)cdiv(g.H, kQY),
+                  (unsigned)cdiv(g.D, kQZChunk));
+  const dim3 block(kQX, kQY);
+  auto f = [&](int k) { return static_cast<const float*>(in[k]); };
+  auto o = [&](int k) { return static_cast<float*>(out[k]); };
+  q_adjoint_kernel<ORDER, Q, G><<<grid, block, 0, st>>>(
+      f(0), f(1), f(2), f(3), f(4), f(5), static_cast<const G*>(in[6]),
+      static_cast<const Q*>(in[7]), f(8), f(9), f(10), f(11), o(0), o(1), o(2), o(3), g);
+  return (int)cudaGetLastError();
+}
+
+template <typename Q, typename G>
+int launch_q_adjoint(int order, const void* const* in, void* const* out, Grid g,
+                     cudaStream_t st) {
+  switch (order) {
+    case 2:
+      return launch_q_adjoint_at<2, Q, G>(in, out, g, st);
+    case 4:
+      return launch_q_adjoint_at<4, Q, G>(in, out, g, st);
+    case 8:
+      return launch_q_adjoint_at<8, Q, G>(in, out, g, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename G>
+int launch_q_adjoint_store(int order, int store, const void* const* in, void* const* out,
+                           Grid g, cudaStream_t st) {
+  switch (store) {
+    case 0:
+      return launch_q_adjoint<float, G>(order, in, out, g, st);
+    case 1:
+      return launch_q_adjoint<__nv_bfloat16, G>(order, in, out, g, st);
+    case 2:
+      return launch_q_adjoint<int8_t, G>(order, in, out, g, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -666,6 +932,30 @@ int jt_adjoint_step2d(const void* a1, int64_t sb_a1, const void* a2, int64_t sb_
       return launch_adjoint2d<int8_t>(order, a1, sb_a1, a2, sb_a2, gc2, sb_g, c2, sb_c2,
                                       q, sb_q, sc, sb_sc, sp, sb_sp, core_out, gc2_out,
                                       B, H, W, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K15. store: 0 = f32, 1 = bf16, 2 = int8 history; gtype: 0 = f32, 1 = bf16
+// friction field. core_out may equal a2 and gC_out, gig_out, gog_out may
+// equal gC, gig, gog (in place); a1, c2, gf and q must be other buffers.
+int jt_q_adjoint_step(const void* a1, const void* a2, const void* gC, const void* gig,
+                      const void* gog, const void* c2, const void* gf, const void* q,
+                      const void* sc, const void* spz, const void* sy, const void* sx,
+                      void* core_out, void* gC_out, void* gig_out, void* gog_out,
+                      int64_t D, int64_t H, int64_t W, int order, int store, int gtype,
+                      void* stream) {
+  if (D <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Grid g{D, H, W};
+  const void* in[12] = {a1, a2, gC, gig, gog, c2, gf, q, sc, spz, sy, sx};
+  void* out[4] = {core_out, gC_out, gig_out, gog_out};
+  switch (gtype) {
+    case 0:
+      return launch_q_adjoint_store<float>(order, store, in, out, g, st);
+    case 1:
+      return launch_q_adjoint_store<__nv_bfloat16>(order, store, in, out, g, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -68,6 +68,7 @@ _SIGNATURES = {
         "jt_leapfrog_step2d": ([_P, _I64] * 7 + [_P] + [_I64] * 3 + [_INT, _P], _INT),
         "jt_adjoint_step2d": ([_P, _I64] * 7 + [_P, _P] + [_I64] * 3 + [_INT, _INT, _P],
                               _INT),
+        "jt_q_adjoint_step": ([_P] * 16 + [_I64] * 3 + [_INT] * 3 + [_P], _INT),
     },
     "vti": {
         "jt_error_string": ([_INT], ctypes.c_char_p),

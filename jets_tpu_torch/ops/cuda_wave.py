@@ -2,15 +2,17 @@
 (counterpart of the isotropic half of ``jets_tpu/ops/pallas_wave.py`` and
 its Q step), with their plain PyTorch versions.
 
-=============================  ==============================================  ========
-wrapper                        replaces (TPU kernel)                           plain
-=============================  ==============================================  ========
-:func:`fused_leapfrog_step`    ``pallas_wave.fused_leapfrog_step`` (K4)        :func:`fused_leapfrog_step_torch`
-:func:`fused_adjoint_step`     ``pallas_wave.fused_adjoint_step`` (K5)         :func:`fused_adjoint_step_torch`
-:func:`fused_q_step`           ``pallas_wave.fused_q_step`` (K14)              :func:`fused_q_step_torch`
-:func:`fused_leapfrog_step2d`  none: the JAX package's 2-D step is XLA (K4-2D) :func:`fused_leapfrog_step2d_torch`
-:func:`fused_adjoint_step2d`   none: the JAX package's 2-D step is XLA (K5-2D) :func:`fused_adjoint_step2d_torch`
-=============================  ==============================================  ========
+=============================  ================================================  ========
+wrapper                        replaces (TPU kernel)                             plain
+=============================  ================================================  ========
+:func:`fused_leapfrog_step`    ``pallas_wave.fused_leapfrog_step`` (K4)          :func:`fused_leapfrog_step_torch`
+:func:`fused_adjoint_step`     ``pallas_wave.fused_adjoint_step`` (K5)           :func:`fused_adjoint_step_torch`
+:func:`fused_q_step`           ``pallas_wave.fused_q_step`` (K14)                :func:`fused_q_step_torch`
+:func:`fused_leapfrog_step2d`  none: the JAX package's 2-D step is XLA (K4-2D)   :func:`fused_leapfrog_step2d_torch`
+:func:`fused_adjoint_step2d`   none: the JAX package's 2-D step is XLA (K5-2D)   :func:`fused_adjoint_step2d_torch`
+:func:`fused_q_adjoint_step`   none: the JAX package's reverse Q step is XLA     :func:`fused_q_adjoint_step_torch`
+                               (K15)
+=============================  ================================================  ========
 
 The kernels live in ``csrc/wave_kernels.cu`` (design notes there) and are
 built by :mod:`jets_tpu_torch.kernels`. Each wrapper checks device, dtype,
@@ -70,9 +72,11 @@ __all__ = [
     "fused_leapfrog_step",
     "fused_adjoint_step",
     "fused_q_step",
+    "fused_q_adjoint_step",
     "fused_leapfrog_step_torch",
     "fused_adjoint_step_torch",
     "fused_q_step_torch",
+    "fused_q_adjoint_step_torch",
     "fused_leapfrog_step2d",
     "fused_adjoint_step2d",
     "leapfrog2d_stepper",
@@ -85,17 +89,18 @@ __all__ = [
     "source_mask",
     "leapfrog_plain",
     "q_plain",
+    "q_adjoint_plain",
     "reset_launch_counts",
     "launch_counts",
 ]
 
 _MAX_GRID = 65535  # gridDim.y / gridDim.z limit of the launch
 _STORE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_G_CODE = {torch.float32: 0, torch.bfloat16: 1}  # K14's friction field
+_G_CODE = {torch.float32: 0, torch.bfloat16: 1}  # K14's and K15's friction field
 
 
 def fits_wave_kernel(shape, dtype, order: int) -> bool:
-    """True when K4/K5/K14 (and the VTI and TTI kernels of :mod:`.cuda_vti`
+    """True when K4/K5/K14/K15 (and the VTI and TTI kernels of :mod:`.cuda_vti`
     and :mod:`.cuda_tti`, whose launch grids are no larger) take a grid: 3-D float32, order 2/4/8, and a grid
     the launch limits admit (one block row of 8 per y-block, one z-plane
     per gridDim.z)."""
@@ -153,6 +158,25 @@ def q_plain(u_prev, u, c2dt2, om1g, inv1pg, sponge, s_t, mask, order):
     return e * sponge + s_t * mask
 
 
+def q_adjoint_plain(a1, a2, gC, gig, gog, c2dt2, om1g, inv1pg, sponge, u, order):
+    """One reverse step of the stored-history constant-Q adjoint with the
+    friction factors ``om1g = 1 − g``, ``inv1pg = 1/(1 + g)``, ``S`` and the
+    decoded snapshot ``u`` full grids: ``sē = S⊙a1``, ``ē = inv1pg⊙sē``, the
+    same of ``a2`` for the next step's, and returns ``(a_core, gC', gig',
+    gog')``, each term in the order of ``ops/wave._adjoint_stored_q``'s
+    sweep: the tree of K15 and of that sweep's plain route."""
+    sbar = a1 * sponge
+    ebar = inv1pg * sbar
+    sbar_next = a2 * sponge
+    ebar_next = inv1pg * sbar_next
+    lap_u = laplacian_nd(u, order=order)
+    gC = gC + lap_u * ebar
+    gig = gig + (sbar * (2.0 * u + c2dt2 * lap_u) - om1g * (u * sbar_next))
+    gog = gog - u * ebar_next
+    core = (2.0 * ebar + laplacian_nd(c2dt2 * ebar, order=order)) - om1g * ebar_next
+    return core, gC, gig, gog
+
+
 def fused_q_step_torch(u_prev, u, c2dt2, g, spz, sy, sx, s_t, src_idx, amp, *,
                        order: int = 2):
     """Plain K14: :func:`q_plain` with ``om1g = 1 − g`` and ``inv1pg =
@@ -162,6 +186,17 @@ def fused_q_step_torch(u_prev, u, c2dt2, g, spz, sy, sx, s_t, src_idx, amp, *,
     return q_plain(u_prev, u, c2dt2, 1.0 - g, 1.0 / (1.0 + g),
                    sponge_product(spz, sy, sx), s_t, source_mask(u.shape, src_idx, amp),
                    order)
+
+
+def fused_q_adjoint_step_torch(a1, a2, gC, gig, gog, c2dt2, g, u_enc, sc, spz, sy, sx, *,
+                               order: int = 2):
+    """Plain K15: :func:`q_adjoint_plain` with ``1 − g`` and ``1/(1 + g)``
+    from the friction field ``g`` (float32 or bfloat16, upcast), ``S =
+    (sz·sy)·sx`` and the snapshot decoded as ``u_enc·sc``; returns fresh
+    ``(a_core, gC', gig', gog')``."""
+    g = g.to(torch.float32)
+    return q_adjoint_plain(a1, a2, gC, gig, gog, c2dt2, 1.0 - g, 1.0 / (1.0 + g),
+                           sponge_product(spz, sy, sx), u_enc.to(torch.float32) * sc, order)
 
 
 def fused_leapfrog_step_torch(u_prev, u, c2dt2, spz, sy, sx, s_t, src_idx, amp, *,
@@ -636,6 +671,51 @@ def fused_q_step(u_prev, u, c2dt2, g, spz, sy, sx, s_t, src_idx, amp, *,
     return res
 
 
+def fused_q_adjoint_step(a1, a2, gC, gig, gog, c2dt2, g, u_enc, sc, spz, sy, sx, *,
+                         order: int = 2, inplace: bool = True):
+    """K15: one reverse step of the stored-history constant-Q adjoint in
+    one pass over the grid. Returns ``(a_core, gC', gig', gog')`` of
+    :func:`q_adjoint_plain`; with ``inplace`` they are written into ``a2``'s,
+    ``gC``'s, ``gig``'s and ``gog``'s buffers (each is read only at the
+    output point). ``g`` is the friction field, float32 or bfloat16;
+    ``u_enc`` the history snapshot, float32, bfloat16 or int8, decoded as
+    ``u_enc·sc``."""
+    name = "fused_q_adjoint_step"
+    _check_f32(name, a1, a2, gC, gig, gog, c2dt2)
+    _check_grid(name, a1, order)
+    _check_factors(name, a1, spz, sy, sx)
+    for what, t, codes in (("g", g, _G_CODE), ("history", u_enc, _STORE_CODE)):
+        if t.dtype not in codes:
+            raise TypeError(f"{name}: {what} must be "
+                            f"{' or '.join(str(d)[6:] for d in codes)}, got {t.dtype}")
+        if t.shape != a1.shape or t.device != a1.device:
+            raise ValueError(f"{name}: {what} {tuple(t.shape)} on {t.device}, grid "
+                             f"{tuple(a1.shape)} on {a1.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    fields = {t.data_ptr() for t in (a1, a2, gC, gig, gog)}
+    if len(fields) < 5 or {t.data_ptr() for t in (c2dt2, g, u_enc)} & fields:
+        raise ValueError(f"{name}: a1, a2, gC, gig, gog, c2dt2, g and the history must "
+                         "be distinct buffers")
+    dev = _device_of(name, a1)
+    sc = _scalar(sc, dev)
+    if dev.type == "cpu":
+        res = fused_q_adjoint_step_torch(a1, a2, gC, gig, gog, c2dt2, g, u_enc, sc, spz,
+                                         sy, sx, order=order)
+        if inplace:
+            return tuple(t.copy_(r) for t, r in zip((a2, gC, gig, gog), res))
+        return res
+    outs = (a2, gC, gig, gog) if inplace else tuple(torch.empty_like(a1) for _ in range(4))
+    lib = kernels.load_library("wave")
+    kernels.check(lib.jt_q_adjoint_step(
+        *(t.data_ptr() for t in (a1, a2, gC, gig, gog, c2dt2, g, u_enc, sc, spz, sy, sx,
+                                 *outs)),
+        *a1.shape, order, _STORE_CODE[u_enc.dtype], _G_CODE[g.dtype], _stream(dev)), name,
+        "wave")
+    count("launches.fused_q_adjoint_step")
+    return outs
+
+
 def fused_leapfrog_step2d(u_prev, u, c2dt2, sponge, s_t, src_idx, amp, *,
                           order: int = 2, out=None):
     """K4-2D: one leapfrog step of a batch of 2-D shots in one launch,
@@ -670,6 +750,6 @@ def fused_adjoint_step2d(a1, a2, gc2, c2dt2, u_enc, sc, sponge, *, order: int = 
 
 
 _WRAPPERS = (fused_leapfrog_step, fused_adjoint_step, fused_q_step, fused_leapfrog_step2d,
-             fused_adjoint_step2d)
+             fused_adjoint_step2d, fused_q_adjoint_step)
 
 reset_launch_counts, launch_counts = _launch_counters(_WRAPPERS)

@@ -60,7 +60,8 @@ the 3-D TTI step is K11 (:func:`cuda_tti.fused_tti_step`), its stored
 adjoint's forward sweep K12 (:func:`cuda_tti.fused_tti_hist_step`) and
 reverse sweep K13 (:func:`cuda_tti.fused_tti_adjoint_step`); the 3-D
 constant-Q step is K14 (:func:`cuda_wave.fused_q_step`), also in the forward
-sweep of its stored adjoint, whose reverse sweep is plain. Elsewhere, and
+sweep of its stored adjoint, whose reverse sweep is K15
+(:func:`cuda_wave.fused_q_adjoint_step`). Elsewhere, and
 with ``fused=False``, the plain PyTorch step with the same floating-point
 tree runs. What no kernel computes always takes the plain step, and
 ``fused=True`` raises for it: variable density, static Q on VTI and TTI,
@@ -3236,30 +3237,39 @@ def _adjoint_stored_q(c, qf, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0, s
 
     then ``gc = gC·2c·dt²/dx²``, ``gg = −gog − ig²·gig`` and ``gQ =
     −gg·g/Q`` with the unrounded ``g``. With ``coeff16`` the sweeps use the
-    bfloat16-rounded ``g``, as the forward does. The forward sweep that
-    writes the history is K14 on the kernel route (in place, except for an
-    f32 history, which keeps the fields themselves) and the plain step
-    otherwise, the same tree (so the two routes agree bit for bit); the
-    reverse sweep is plain PyTorch on both (there is no reverse-Q kernel in
-    the JAX package either), the receiver injection an ``index_add_``. The
-    forward sweep is a span ``sweep.history``, the reverse one a span
-    ``sweep.reverse``, both with ``physics="q"``, and each counts its steps
-    (``steps.history``, ``steps.reverse``). Returns ``(gc, gQ)``."""
+    bfloat16-rounded ``g``, as the forward does. A reverse step carries
+    ``(a_{k+1}, a_{k+2})`` and forms ``sē`` and ``ē`` of both from them
+    (:func:`cuda_wave.q_adjoint_plain`'s tree). On the kernel route (a 3-D
+    float32 grid on a CUDA card) the forward sweep that writes the history
+    is K14 (in place, except for an f32 history, which keeps the fields
+    themselves) and the reverse sweep K15 (``a_k`` into ``a_{k+2}``'s
+    buffer, ``gC``, ``gig``, ``gog`` in place), where no autograd tape
+    records ``c``, ``Q`` or ``dd`` (K15 has no backward: a taped call
+    reverses with the plain step); 2-D grids and ``fused=False`` take the
+    plain steps, the same trees, so the routes agree bit for bit (the JAX
+    package has no reverse-Q kernel: its sweep is XLA). The receiver
+    injection is an ``index_add_``. The forward sweep is a span
+    ``sweep.history``, the reverse one a span ``sweep.reverse``, both with
+    ``physics="q"``, and each counts its steps (``steps.history``,
+    ``steps.reverse``). Returns ``(gc, gQ)``."""
     shape, dtype, dev = c.shape, c.dtype, c.device
     nt = int(src_wavelet.shape[0])
     C = _c2dt2(c, dt, dx)
     g_raw = _q_friction(qf, dt, f0)
     g = _r16(g_raw) if coeff16 else g_raw
-    ig, og = 1.0 / (1.0 + g), 1.0 - g
     amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
     enc, dec = _store_codec(store, dtype)
     dd = dd.to(dtype)
-    S = _sponge_full(sponge)
 
     def zeros():
         return torch.zeros(shape, dtype=dtype, device=dev)
 
-    if _kernel_route(fused, c, sponge, order):
+    kernel = _kernel_route(fused, c, sponge, order)
+    k15 = kernel and not _records(c, qf, dd)
+    if not k15:
+        ig, og = 1.0 / (1.0 + g), 1.0 - g
+        S = _sponge_full(sponge)
+    if kernel:
         spz, sy, sx = _factors_1d(sponge)
         src = int(src_idx)
         kg = g.to(torch.bfloat16) if coeff16 else g
@@ -3273,35 +3283,43 @@ def _adjoint_stored_q(c, qf, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0, s
         def step(up, uu, s_t):
             return cuda_wave.q_plain(up, uu, C, og, ig, S, s_t, mask, order)
 
-    hist = []
+    if k15:
+        def rev(a1, a2, gC, gig, gog, q, sc):
+            return cuda_wave.fused_q_adjoint_step(a1, a2, gC, gig, gog, C, kg, q, sc, spz,
+                                                  sy, sx, order=order, inplace=True)
+    else:
+        def rev(a1, a2, gC, gig, gog, q, sc):
+            return cuda_wave.q_adjoint_plain(a1, a2, gC, gig, gog, C, og, ig, S, dec(q, sc),
+                                             order)
+
+    hist, scales = [], []
     count("steps.history", nt)
     count("steps.reverse", nt)
     with span("sweep.history", physics="q"):
         u_prev, u = zeros(), zeros()
         for k in range(nt):
-            hist.append(enc(u))  # history entry k holds u_k
+            q, s = enc(u)  # history entry k holds u_k
+            hist.append(q)
+            scales.append(s)
             u_next = step(u_prev, u, src_wavelet[k])
             u_prev, u = u, u_next
         del u_prev, u, u_next  # the history holds what the reverse sweep needs
     with span("sweep.reverse", physics="q"):
+        if k15:  # K15 decodes q·sc itself: the int8 scales divided by 127 at once
+            scales = (true_div(torch.stack(scales), 127.0) if store == "int8"
+                      else torch.ones(nt, dtype=dtype, device=dev))
         # out of place: under vmap the zeros are not batched and the row is
-        a_nxt = zeros().reshape(-1).index_add(0, rcv_idx, dd[-1]).reshape(shape)
-        ebar_nxt, sbar_nxt, gC, gig, gog = (zeros() for _ in range(5))
+        a1 = zeros().reshape(-1).index_add(0, rcv_idx, dd[-1]).reshape(shape)
+        a2, gC, gig, gog = (zeros() for _ in range(4))
         for k in range(nt - 1, -1, -1):
-            qh, sc = hist[k]
+            core, gC, gig, gog = rev(a1, a2, gC, gig, gog, hist[k], scales[k])
             hist[k] = None  # release the snapshot as the sweep passes it
-            u_k = dec(qh, sc)
-            sbar = a_nxt * S
-            ebar = ig * sbar
-            lap_k = _laplacian(u_k, order=order)
-            gC = gC + lap_k * ebar
-            gig = gig + (sbar * (2.0 * u_k + C * lap_k) - og * (u_k * sbar_nxt))
-            gog = gog - u_k * ebar_nxt
-            a_nxt = (2.0 * ebar + _laplacian(C * ebar, order=order)) - og * ebar_nxt
             if k > 0:  # ḡ_{k-1}; the JAX sweep adds a zero row at k = 0
-                a_nxt.reshape(-1).index_add_(0, rcv_idx, dd[k - 1])
-            ebar_nxt, sbar_nxt = ebar, sbar
+                core.reshape(-1).index_add_(0, rcv_idx, dd[k - 1])
+            a1, a2 = core, a1
     gc = gC * (2.0 * c) * torch.tensor((dt * dt) / (dx * dx), dtype=dtype, device=dev)
+    if k15:
+        ig = 1.0 / (1.0 + g)
     gg = -gog - (ig * ig) * gig
     return gc, -gg * (g_raw / qf)
 
@@ -3365,9 +3383,10 @@ def q_wave_propagator(
     :func:`wave_propagator`'s physics, bit for bit.
 
     ``fused``: ``None`` rides the kernel K14 (forward, tangent, and the
-    forward sweep of the stored adjoint) on a 3-D float32 grid on a CUDA
-    card, with either friction width; ``True`` insists; ``False`` takes the
-    plain step (2-D is plain only). ``coeff_dtype=torch.bfloat16`` rounds
+    forward sweep of the stored adjoint) and K15 (the stored adjoint's
+    reverse sweep, where no autograd tape records the model) on a 3-D
+    float32 grid on a CUDA card, with either friction width; ``True``
+    insists; ``False`` takes the plain steps (2-D is plain only). ``coeff_dtype=torch.bfloat16`` rounds
     the friction field ``g = π·f0·dt/Q`` to bfloat16 for both routes, which
     K14 streams at half width; tangents and gradients flow through the
     rounding in float32. ``store_adjoint`` ∈ {None, "f32", "bf16", "int8"}
@@ -3420,10 +3439,10 @@ def multishot_q_wave_operator(
     the same windows and boundaries. The model is one :class:`BlockVector`
     ``(c, Q)`` on ``BlockSpace([grid, grid])`` shared by every shot (``f0``
     and ``coeff_dtype`` as for :func:`q_wave_propagator`).
-    ``shot_map="map"`` runs the shots one after another, each on the kernel
-    K14 where it applies (its sweeps and the stored adjoint's forward sweep;
-    the reverse sweep is plain); ``"vmap"`` runs them as one batched plain
-    program. ``store_adjoint`` switches the per-shot adjoint to the
+    ``shot_map="map"`` runs the shots one after another, each on the kernels
+    where they apply (K14 in its sweeps and the stored adjoint's forward
+    sweep, K15 in the reverse sweep); ``"vmap"`` runs them as one batched
+    plain program. ``store_adjoint`` switches the per-shot adjoint to the
     stored-history sweep, which returns the ``(δc, δQ)`` pair; with
     ``window_shape``/``window_corners`` each shot propagates in its Ginsu
     window of both blocks and its pair is scatter-added into the full grid."""

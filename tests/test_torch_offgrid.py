@@ -33,7 +33,7 @@ KW3 = dict(src_pos=(6.5, 7.25, 8.0), rcv_depth=3.5,
            rcv_coords=(np.array([4.5, 7.0, 9.5]), np.array([5.25, 10.75])),
            nt=24, dt=0.0008, dx=10.0, freq=18.0, sponge_width=3)
 ZERO = {"fused_leapfrog_step": 0, "fused_adjoint_step": 0, "fused_q_step": 0,
-        "fused_leapfrog_step2d": 0, "fused_adjoint_step2d": 0}
+        "fused_leapfrog_step2d": 0, "fused_adjoint_step2d": 0, "fused_q_adjoint_step": 0}
 
 
 def _live(x):

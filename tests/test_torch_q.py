@@ -40,7 +40,7 @@ SHAPE2 = (20, 20)
 KW2 = dict(nt=35, dt=8e-4, dx=10.0, freq=18.0, src_idx=20 * 10 + 10, sponge_width=4)
 WIDTHS = [(None, None), (jnp.bfloat16, torch.bfloat16)]
 ZERO = {"fused_leapfrog_step": 0, "fused_adjoint_step": 0, "fused_q_step": 0,
-        "fused_leapfrog_step2d": 0, "fused_adjoint_step2d": 0}
+        "fused_leapfrog_step2d": 0, "fused_adjoint_step2d": 0, "fused_q_adjoint_step": 0}
 
 
 def _live(x):

@@ -168,7 +168,8 @@ def test_counter_views_return_what_they_did():
     views = {cuda_solver: ["xw_update", "lap3d_axpy_norm2", "laplacian3d", "cg_update",
                            "p_update", "lsmr_update"],
              cuda_wave: ["fused_leapfrog_step", "fused_adjoint_step", "fused_q_step",
-                         "fused_leapfrog_step2d", "fused_adjoint_step2d"],
+                         "fused_leapfrog_step2d", "fused_adjoint_step2d",
+                         "fused_q_adjoint_step"],
              cuda_vti: ["fused_vti_step", "fused_vti_hist_step", "fused_vti_adjoint_step"],
              cuda_tti: ["fused_tti_step", "fused_tti_hist_step", "fused_tti_adjoint_step"]}
     for mod, names in views.items():

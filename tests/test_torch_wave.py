@@ -193,7 +193,7 @@ def test_kernel_route_on_cpu_equals_plain_route():
     _close(ck.grad, cp.grad)
     assert cw.launch_counts() == {"fused_leapfrog_step": 0, "fused_adjoint_step": 0,
                                  "fused_q_step": 0, "fused_leapfrog_step2d": 0,
-                                 "fused_adjoint_step2d": 0}
+                                 "fused_adjoint_step2d": 0, "fused_q_adjoint_step": 0}
 
 
 def _multishot_pair(shot_map, store):

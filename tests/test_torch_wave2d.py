@@ -25,7 +25,7 @@ from jets_tpu_torch.ops import wave as tw
 CPU = torch.device("cpu")
 B, H, W = 3, 29, 37
 ZERO = {"fused_leapfrog_step": 0, "fused_adjoint_step": 0, "fused_q_step": 0,
-        "fused_leapfrog_step2d": 0, "fused_adjoint_step2d": 0}
+        "fused_leapfrog_step2d": 0, "fused_adjoint_step2d": 0, "fused_q_adjoint_step": 0}
 PLAIN_K4, PLAIN_K5 = cw.fused_leapfrog_step2d_torch, cw.fused_adjoint_step2d_torch
 
 

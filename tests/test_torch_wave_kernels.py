@@ -132,7 +132,7 @@ def test_wrappers_take_plain_versions_on_cpu_in_place():
     assert torch.equal(a2, core_r) and torch.equal(gc2, g_r)
     assert cw.launch_counts() == {"fused_leapfrog_step": 0, "fused_adjoint_step": 0,
                                  "fused_q_step": 0, "fused_leapfrog_step2d": 0,
-                                 "fused_adjoint_step2d": 0}
+                                 "fused_adjoint_step2d": 0, "fused_q_adjoint_step": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -166,7 +166,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         cw.fused_adjoint_step(a1, a1, g, c2, u, 1.0, *f)
     assert cw.launch_counts() == {"fused_leapfrog_step": 0, "fused_adjoint_step": 0,
                                  "fused_q_step": 0, "fused_leapfrog_step2d": 0,
-                                 "fused_adjoint_step2d": 0}
+                                 "fused_adjoint_step2d": 0, "fused_q_adjoint_step": 0}
 
 
 def test_fits_wave_kernel_is_the_hopper_shape_guard():
