@@ -587,6 +587,91 @@ def _field_loop(step, nfields: int, shape, dtype, dev, src_wavelet, rcv_idx,
         return torch.stack(recs) if traces is None else traces
 
 
+def _stored_sweeps(like, src_wavelet, dd, rcv_idx, hist_step, rev_step, nfields: int,
+                   nstate: int, *, inject=None, row_in_place: bool = False, prep=None,
+                   attrs=None):
+    """The two sweeps of every stored-history adjoint, on fields shaped as
+    ``like``; returns the reverse sweep's final state.
+
+    The history sweep runs ``hist_step(prev_0, cur_0, ..., s_t) -> (fields,
+    snap, aux)`` ``nt`` times from ``2·nfields`` zero fields, ``fields`` the
+    rotated pairs, and keeps each step's ``snap`` (the stored snapshot of
+    ``u_k``) and ``aux`` (what else the reverse step reads of step ``k``,
+    such as the encoding scales); ``prep`` maps the list of ``aux`` once
+    before the reverse sweep. The reverse sweep walks ``k = nt-1 … 0``:
+    ``rev_step(a, state, snap_k, aux_k) -> (a, state)``, from ``a`` the last
+    receiver row injected and ``state`` ``nstate`` zero fields; then it
+    releases ``snap_k`` and lands the receiver row ``ḡ_{k-1}`` on ``a``:
+    ``index_add_`` into it for ``k > 0`` with ``row_in_place`` (the kernel
+    routes), else ``a + inject(ḡ_{k-1})``, a zero row at ``k = 0``, the last
+    addition of the JAX package's tree. ``inject`` (``trace row -> field``)
+    defaults to the dense scatter at the flat indices ``rcv_idx``. The sweeps
+    are spans ``sweep.history`` and ``sweep.reverse`` (with ``attrs``), and
+    each counts its steps in ``steps.history`` and ``steps.reverse`` (a
+    vmapped batch's step once)."""
+    shape, dtype, dev = like.shape, like.dtype, like.device
+    nt = int(src_wavelet.shape[0])
+    dd = dd.to(dtype)
+    attrs = attrs or {}
+    if inject is None:
+        size = math.prod(shape)
+
+        def inject(row):  # out of place: under vmap the zeros are not batched and the row is
+            return torch.zeros(size, dtype=dtype, device=dev).index_add(
+                0, rcv_idx, row).reshape(shape)
+
+    snaps, auxs = [], []
+    count("steps.history", nt)
+    with span("sweep.history", **attrs):
+        fields = tuple(torch.zeros(shape, dtype=dtype, device=dev) for _ in range(2 * nfields))
+        for k in range(nt):
+            fields, snap, aux = hist_step(*fields, src_wavelet[k])
+            snaps.append(snap)
+            auxs.append(aux)
+        del fields  # the history holds what the reverse sweep needs
+    count("steps.reverse", nt)
+    with span("sweep.reverse", **attrs):
+        if prep is not None:
+            auxs = prep(auxs)
+        if not row_in_place:  # ḡ_{k-1} aligned to reverse step k (rec_k samples u_{k+1})
+            dd_shift = torch.cat([torch.zeros_like(dd[:1]), dd[:-1]])
+        a = inject(dd[-1])
+        state = tuple(torch.zeros(shape, dtype=dtype, device=dev) for _ in range(nstate))
+        for k in range(nt - 1, -1, -1):
+            a, state = rev_step(a, state, snaps[k], auxs[k])
+            snaps[k] = None  # release the snapshot as the sweep passes it
+            if not row_in_place:
+                a = a + inject(dd_shift[k])
+            elif k > 0:  # the JAX sweep adds a zero row at k = 0
+                a.reshape(-1).index_add_(0, rcv_idx, dd[k - 1])
+    return state
+
+
+def _encoding_step(enc, step, nfields: int):
+    """The history step (as :func:`_stored_sweeps` takes it) of a route that
+    stores ``enc`` of each field's ``u_k`` before ``step(prev_0, cur_0, ...,
+    s_t)`` advances the fields: ``snap`` the codes, ``aux`` their scales."""
+    if nfields == 1:
+        def hist_step(up, u, s_t):
+            q, s = enc(u)
+            return (u, step(up, u, s_t)), q, s
+    else:
+        def hist_step(pp, p, qp, q, s_t):
+            (pc, ps), (qc, qs) = enc(p), enc(q)
+            pn, qn = step(pp, p, qp, q, s_t)
+            return (p, pn, q, qn), (pc, qc), (ps, qs)
+    return hist_step
+
+
+def _kernel_scales(store: str, scales):
+    """The decode factors the reverse kernels read, one row a snapshot: the
+    int8 scales divided by 127 at once, ones for f32 and bf16."""
+    if store == "int8":
+        return true_div(torch.stack(scales), 127.0)
+    s = scales[0]
+    return torch.ones((len(scales),) + tuple(s.shape), dtype=s.dtype, device=s.device)
+
+
 def _propagate(c, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
                remat_blocks: int = 1, order: int = 2, src_mask=None, extract=None,
                fused=None, wavefield_sharding=None, inplace: bool = False,
@@ -888,170 +973,98 @@ def _iso_slab_step(sl, c, dt, dx, order, fused):
     return step
 
 
-def _adjoint_stored_sharded(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
-                            order, store, fused, ws):
-    """:func:`_adjoint_stored` on a sharded grid: the forward sweep is
-    :func:`_propagate_sharded`'s step (K4 where it applies), storing each
-    slab's snapshot with the global int8 scale (one MAX ``all_reduce`` over
-    the wavefield's mesh axes per snapshot); the reverse sweep is the plain
-    one on the slab, with ``L(u_k)`` and ``L(c²dt²·ē_k)`` taken over the
-    halo-extended slab and the receiver rows injected where this rank holds
-    them. Returns the rank's slab of the gradient."""
-    dtype, dev, shape = c.dtype, c.device, c.shape
-    sl = _slab_of(c, src_idx, rcv_idx, sponge, order, ws)
-    step = _iso_slab_step(sl, c, dt, dx, order, fused)
-    c2dt2 = _c2dt2(c, dt, dx)
-    enc, dec = sl.codec(store, dtype)
-    dd = dd.to(dtype)
-    nt = int(src_wavelet.shape[0])
-    hist = []
-    count("steps.history", nt)
-    with span("sweep.history"):
-        u_prev = torch.zeros(shape, dtype=dtype, device=dev)
-        u = torch.zeros(shape, dtype=dtype, device=dev)
-        for k in range(nt):
-            hist.append(enc(u))
-            u_prev, u = u, step(u_prev, u, src_wavelet[k])
-        del u_prev, u
-
-    def lap(u):
-        return sl.apply(lambda v: _laplacian(v, order=order), u)
-
-    count("steps.reverse", nt)
-    with span("sweep.reverse"):
-        S = sl.interior(sl.S)
-        dd_shift = torch.cat([torch.zeros_like(dd[:1]), dd[:-1]])
-        a_next = sl.inject(dd[-1])
-        ebar_next = torch.zeros(shape, dtype=dtype, device=dev)
-        gc2 = torch.zeros(shape, dtype=dtype, device=dev)
-        for k in range(nt - 1, -1, -1):
-            q, s = hist[k]
-            hist[k] = None
-            ebar = a_next * S
-            gc2 = gc2 + lap(dec(q, s)) * ebar
-            a_next = ((2.0 * ebar + lap(c2dt2 * ebar)) - ebar_next + sl.inject(dd_shift[k]))
-            ebar_next = ebar
-    scale = torch.tensor((dt * dt) / (dx * dx), dtype=dtype, device=dev)
-    return gc2 * (2.0 * c) * scale
-
-
 def _adjoint_stored(c, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge,
                     order: int = 2, store: str = "int8", fused=None,
                     wavefield_sharding=None, src_mask=None, inject=None):
     """Adjoint-state gradient ``(∂F/∂c)ᵀ dd`` over a stored forward-wavefield
-    history, encoded per snapshot (``store``: f32 lossless, bf16, int8).
-    With ``ē_k = S ⊙ a_{k+1}``::
+    history, encoded per snapshot (``store``: f32 lossless, bf16, int8), by
+    :func:`_stored_sweeps`. With ``ē_k = S ⊙ a_{k+1}``::
 
         a_k  = Pᵀ ḡ_{k-1} + 2ē_k + L(c²dt²·ē_k) − ē_{k+1}
         gc2 += L(u_k) ⊙ ē_k
 
-    On the kernel route the forward sweep is K4 (in place, except for an
-    f32 history, which keeps the fields themselves) and the reverse sweep
-    K5 (``a_k`` into ``a_{k+2}``'s buffer, ``gc2`` in place) followed by the
-    receiver injection ``index_add_``; a 2-D grid runs K4-2D and K5-2D the
-    same way (one launch a step for a vmapped batch, whose outputs are fresh
-    tensors), where no tape records ``c`` or ``dd`` and no transform but
-    one ``vmap`` watches. The plain route is the JAX package's
-    XLA sweep, tree for tree. ``src_mask`` and ``inject`` (``trace row ->
-    full-grid field``, the transpose of the forward's ``extract``) replace
-    the on-grid source and the receiver scatter; either one takes the plain
-    route. The forward sweep is a span ``sweep.history``, the reverse one a
-    span ``sweep.reverse``, and each counts its steps (``steps.history``,
-    ``steps.reverse``; a vmapped batch's step once)."""
-    if wavefield_sharding is not None:
-        return _adjoint_stored_sharded(c, dd, src_wavelet, src_idx, rcv_idx, dt=dt, dx=dx,
-                                       sponge=sponge, order=order, store=store,
-                                       fused=fused, ws=wavefield_sharding)
-    custom = src_mask is not None or inject is not None
+    On the kernel route the history steps are K4 (in place, except for an
+    f32 history, which keeps the fields themselves) and the reverse steps
+    K5 (``a_k`` into ``a_{k+2}``'s buffer, ``gc2`` in place); a 2-D grid
+    runs K4-2D and K5-2D the same way (one launch a step for a vmapped
+    batch, whose outputs are fresh tensors), where no tape records ``c`` or
+    ``dd`` and no transform but one ``vmap`` watches. The plain route is the
+    JAX package's XLA sweep, tree for tree. ``src_mask`` and ``inject``
+    (``trace row -> full-grid field``, the transpose of the forward's
+    ``extract``) replace the on-grid source and the receiver scatter; either
+    one takes the plain route. With ``wavefield_sharding`` the history steps
+    are :func:`_propagate_sharded`'s (K4 where it applies), each slab's
+    snapshot stored with the global int8 scale (one MAX ``all_reduce`` over
+    the wavefield's mesh axes per snapshot), and the reverse steps the plain
+    ones on the slab, with ``L(u_k)`` and ``L(c²dt²·ē_k)`` taken over the
+    halo-extended slab and the receiver rows injected where this rank holds
+    them: the rank's slab of the gradient."""
     shape, dtype, dev = c.shape, c.dtype, c.device
-    size = math.prod(shape)
-    nt = int(src_wavelet.shape[0])
     c2dt2 = _c2dt2(c, dt, dx)
     amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
-    enc, dec = _store_codec(store, dtype)
-    dd = dd.to(dtype)
-
-    if inject is None:
-        def inject(row):
-            return torch.zeros(size, dtype=dtype, device=dev).index_add(
-                0, rcv_idx, row).reshape(shape)
-
-    scale = torch.tensor((dt * dt) / (dx * dx), dtype=dtype, device=dev)
-    hist, scales = [], []
-    count("steps.history", nt)
-    count("steps.reverse", nt)
-    kernel = _kernel_route(fused, c, sponge, order, _ON_GRID_ONLY if custom else None,
-                           pair2d=True)
+    sl = _slab_of(c, src_idx, rcv_idx, sponge, order, wavefield_sharding)
+    custom = src_mask is not None or inject is not None
+    kernel = sl is None and _kernel_route(fused, c, sponge, order,
+                                          _ON_GRID_ONLY if custom else None, pair2d=True)
     if kernel and len(shape) == 2:  # the 2-D pair has no backward and no tangent
         kernel = not _records_within(c, dd) and cuda_wave._lone_vmap_level() is not False
+    enc, dec = _store_codec(store, dtype) if sl is None else sl.codec(store, dtype)
+    if sl is not None:
+        slab_step = _iso_slab_step(sl, c, dt, dx, order, fused)
+        S, inject = sl.interior(sl.S), sl.inject
+
+        def fwd(up, u, s_t, out):
+            return slab_step(up, u, s_t)
+
+        def lap(u):
+            return sl.apply(lambda v: _laplacian(v, order=order), u)
+    elif kernel and len(shape) == 2:
+        fwd = cuda_wave.leapfrog2d_stepper(c2dt2, sponge, _on_device(src_idx, dev), amp,
+                                           order=order)
+        k5 = functools.partial(cuda_wave.adjoint2d_stepper(c2dt2, sponge, order=order),
+                               inplace=True)
+    elif kernel:
+        spz, sy, sx = _factors_1d(sponge)
+        src = int(src_idx)
+
+        def fwd(up, uu, s_t, out):
+            return cuda_wave.fused_leapfrog_step(up, uu, c2dt2, spz, sy, sx, s_t, src, amp,
+                                                 order=order, out=out)
+
+        def k5(a1, a2, gc2, q, sc):
+            return cuda_wave.fused_adjoint_step(a1, a2, gc2, c2dt2, q, sc, spz, sy, sx,
+                                                order=order, inplace=True)
+    else:
+        S = _sponge_full(sponge)
+        mask = cuda_wave.source_mask(shape, src_idx, amp) if src_mask is None else src_mask
+
+        def fwd(up, u, s_t, out):
+            return cuda_wave.leapfrog_plain(up, u, c2dt2, S, s_t, mask, order)
+
+        def lap(u):
+            return _laplacian(u, order=order)
+    keep = store == "f32"  # an f32 history keeps the fields themselves; the kernels step in place
+
+    def hist_step(up, u, s_t):
+        q, s = enc(u)
+        return (u, fwd(up, u, s_t, None if keep else up)), q, s
+
     if kernel:
-        if len(shape) == 2:
-            fwd = cuda_wave.leapfrog2d_stepper(c2dt2, sponge, _on_device(src_idx, dev), amp,
-                                               order=order)
-            rev = functools.partial(cuda_wave.adjoint2d_stepper(c2dt2, sponge, order=order),
-                                    inplace=True)
-        else:
-            spz, sy, sx = _factors_1d(sponge)
-            src = int(src_idx)
-
-            def fwd(up, uu, s_t, out):
-                return cuda_wave.fused_leapfrog_step(up, uu, c2dt2, spz, sy, sx, s_t, src,
-                                                     amp, order=order, out=out)
-
-            def rev(a1, a2, gc2, q, sc):
-                return cuda_wave.fused_adjoint_step(a1, a2, gc2, c2dt2, q, sc, spz, sy, sx,
-                                                    order=order, inplace=True)
-        with span("sweep.history"):
-            u_prev = torch.zeros(shape, dtype=dtype, device=dev)
-            u = torch.zeros(shape, dtype=dtype, device=dev)
-            for k in range(nt):
-                q, s = enc(u)
-                hist.append(q)
-                scales.append(s)
-                u_next = fwd(u_prev, u, src_wavelet[k], None if store == "f32" else u_prev)
-                u_prev, u = u, u_next
-            del u_prev, u, u_next  # the history holds what the reverse sweep needs
-        with span("sweep.reverse"):
-            scs = (true_div(torch.stack(scales), 127.0) if store == "int8"
-                   else torch.ones(nt, dtype=dtype, device=dev))
-            a1 = inject(dd[-1])
-            a2 = torch.zeros(shape, dtype=dtype, device=dev)
-            gc2 = torch.zeros(shape, dtype=dtype, device=dev)
-            for k in range(nt - 1, -1, -1):
-                core, gc2 = rev(a1, a2, gc2, hist[k], scs[k])
-                hist[k] = None  # release the snapshot as the sweep passes it
-                if k > 0:  # ḡ_{k-1}; the JAX sweep adds a zero row at k = 0
-                    core.reshape(-1).index_add_(0, rcv_idx, dd[k - 1])
-                a1, a2 = core, a1
-        return gc2 * (2.0 * c) * scale
-
-    S = _sponge_full(sponge)
-    mask = cuda_wave.source_mask(shape, src_idx, amp) if src_mask is None else src_mask
-    with span("sweep.history"):
-        u_prev = torch.zeros(shape, dtype=dtype, device=dev)
-        u = torch.zeros(shape, dtype=dtype, device=dev)
-        for k in range(nt):
-            hist.append(enc(u))  # history entry k holds u_k
-            u_next = cuda_wave.leapfrog_plain(u_prev, u, c2dt2, S, src_wavelet[k], mask,
-                                              order)
-            u_prev, u = u, u_next
-    with span("sweep.reverse"):
-        # ḡ_{k-1} aligned to reverse step k (rec_k samples u_{k+1})
-        dd_shift = torch.cat([torch.zeros_like(dd[:1]), dd[:-1]])
-        a_next = inject(dd[-1])
-        ebar_next = torch.zeros(shape, dtype=dtype, device=dev)
-        gc2 = torch.zeros(shape, dtype=dtype, device=dev)
-        for k in range(nt - 1, -1, -1):
-            q, s = hist[k]
-            hist[k] = None
+        def rev_step(a1, state, q, sc):
+            a2, gc2 = state
+            core, gc2 = k5(a1, a2, gc2, q, sc)
+            return core, (a1, gc2)
+    else:
+        def rev_step(a_next, state, q, s):
+            ebar_next, gc2 = state
             ebar = a_next * S
-            gc2 = gc2 + _laplacian(dec(q, s), order=order) * ebar
-            # sum order of the kernel's tree: the stencil/sponge core first, the
-            # (sparse) receiver injection added last
-            a_next = ((2.0 * ebar + _laplacian(c2dt2 * ebar, order=order)) - ebar_next
-                      + inject(dd_shift[k]))
-            ebar_next = ebar
-    return gc2 * (2.0 * c) * scale
+            gc2 = gc2 + lap(dec(q, s)) * ebar
+            return (2.0 * ebar + lap(c2dt2 * ebar)) - ebar_next, (ebar, gc2)
+
+    _, gc2 = _stored_sweeps(c, src_wavelet, dd, rcv_idx, hist_step, rev_step, 1, 2,
+                            inject=inject, row_in_place=kernel,
+                            prep=functools.partial(_kernel_scales, store) if kernel else None)
+    return gc2 * (2.0 * c) * torch.tensor((dt * dt) / (dx * dx), dtype=dtype, device=dev)
 
 
 def _check_store(store_adjoint):
@@ -1109,7 +1122,7 @@ def wave_propagator(
     :class:`~jets_tpu_torch.parallel.sharded.ShardedSpace` whose members are
     the rank's slab, the traces are the same on every rank of the
     wavefield's axes, and the operator is built on the mesh's device
-    (:func:`_propagate_sharded`, :func:`_adjoint_stored_sharded`). ``fused``
+    (:func:`_propagate_sharded`, :func:`_adjoint_stored`'s slab route). ``fused``
     then picks K4 on the halo-extended slab of a z-only sharding of a 3-D
     float32 grid (:func:`fits_fused_sharded`); every other sharding takes
     the plain step. Each split must divide its dimension into slabs no
@@ -1845,10 +1858,11 @@ def _propagate_vd(c, b, src_wavelet, src_idx, rcv_idx, *, dt, dx, sponge, g=None
 def _adjoint_stored_vd(c, b, qf, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0,
                        sponge, store: str = "int8", order: int = 2, fused=None):
     """Adjoint-state gradient of the variable-density (with ``qf``, the
-    IsoDenQ) physics over a stored, encoded pressure history: the
-    transposed recurrence of :func:`_propagate_vd`, reindexed as in the JAX
-    package so that each reverse step reads one snapshot. With ``K = κ·dt²``,
-    ``sē_k = S⊙a_{k+1}``, ``ē_k = ig⊙sē_k``::
+    IsoDenQ) physics over a stored, encoded pressure history, by
+    :func:`_stored_sweeps`: the transposed recurrence of
+    :func:`_propagate_vd`, reindexed as in the JAX package so that each
+    reverse step reads one snapshot. With ``K = κ·dt²``, ``sē_k = S⊙a_{k+1}``,
+    ``ē_k = ig⊙sē_k``::
 
         a_k  = Pᵀḡ + 2ē_k + L_b(K·ē_k) − og·ē_{k+1}
         gK  += (L_b(p_k) + s_k·mask)⊙ē_k
@@ -1861,7 +1875,6 @@ def _adjoint_stored_vd(c, b, qf, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, f
     kernel in the JAX package either; ``order`` and ``fused`` are accepted
     and ignored). Returns ``(gc, gb)`` or ``(gc, gb, gQ)``."""
     shape, dtype, dev = c.shape, c.dtype, c.device
-    size = math.prod(shape)
     K = ((c * c) / b) * (dt * dt)
     bh = _b_half(b)
     inv_dx2 = torch.tensor(1.0 / (dx * dx), dtype=dtype, device=dev)
@@ -1872,49 +1885,32 @@ def _adjoint_stored_vd(c, b, qf, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, f
     mask = cuda_wave.source_mask(shape, src_idx, torch.ones((), dtype=dtype, device=dev))
     S = _sponge_full(sponge)
     enc, dec = _store_codec(store, dtype)
-    dd = dd.to(dtype)
-    nt = int(src_wavelet.shape[0])
 
-    def zeros():
-        return torch.zeros(shape, dtype=dtype, device=dev)
-
-    def inject(row):
-        return torch.zeros(size, dtype=dtype, device=dev).index_add(
-            0, rcv_idx, row).reshape(shape)
-
-    hist = []
-    pp, p = zeros(), zeros()
-    for k in range(nt):
-        hist.append(enc(p))  # history entry k holds p_k
-        src = _div_b_grad(p, bh, inv_dx2) + src_wavelet[k] * mask
+    def hist_step(pp, p, s_t):  # the source sample rides with the snapshot
+        qh, sc = enc(p)
+        src = _div_b_grad(p, bh, inv_dx2) + s_t * mask
         if with_q:
-            p_next = (((2.0 * p - og * pp) + K * src) * ig) * S
-        else:
-            p_next = ((2.0 * p - pp) + K * src) * S
-        pp, p = p, p_next
-    del pp, p, p_next  # the history holds what the reverse sweep needs
-    # ḡ_{k-1} aligned to reverse step k (rec_k samples p_{k+1})
-    dd_shift = torch.cat([torch.zeros_like(dd[:1]), dd[:-1]])
-    a_nxt = inject(dd[-1])
-    ebar_nxt, sbar_nxt, gK, gb, gig, gog = (zeros() for _ in range(6))
-    for k in range(nt - 1, -1, -1):
-        qh, sc = hist[k]
-        hist[k] = None  # release the snapshot as the sweep passes it
+            return (p, (((2.0 * p - og * pp) + K * src) * ig) * S), qh, (sc, s_t)
+        return (p, ((2.0 * p - pp) + K * src) * S), qh, (sc, s_t)
+
+    def rev_step(a_nxt, state, qh, aux):
+        ebar_nxt, sbar_nxt, gK, gb, gig, gog = state
+        sc, s_t = aux
         p_k = dec(qh, sc)
         sbar = a_nxt * S
         ebar = ig * sbar if with_q else sbar
-        src_k = _div_b_grad(p_k, bh, inv_dx2) + src_wavelet[k] * mask
+        src_k = _div_b_grad(p_k, bh, inv_dx2) + s_t * mask
         gK = gK + src_k * ebar
         gb = gb + _div_b_grad_bbar(p_k, K * ebar, inv_dx2)
         if with_q:
             gig = gig + (sbar * (2.0 * p_k + K * src_k) - og * (p_k * sbar_nxt))
             gog = gog - p_k * ebar_nxt
-            a_nxt = ((2.0 * ebar + _div_b_grad(K * ebar, bh, inv_dx2) - og * ebar_nxt)
-                     + inject(dd_shift[k]))
-        else:
-            a_nxt = ((2.0 * ebar + _div_b_grad(K * ebar, bh, inv_dx2) - ebar_nxt)
-                     + inject(dd_shift[k]))
-        ebar_nxt, sbar_nxt = ebar, sbar
+            ebar_nxt = og * ebar_nxt
+        a = 2.0 * ebar + _div_b_grad(K * ebar, bh, inv_dx2) - ebar_nxt
+        return a, (ebar, sbar, gK, gb, gig, gog)
+
+    _, _, gK, gb, gig, gog = _stored_sweeps(c, src_wavelet, dd, rcv_idx, hist_step,
+                                            rev_step, 1, 6)
     gc = gK * ((2.0 * c) / b) * torch.tensor(dt * dt, dtype=dtype, device=dev)
     gb = gb - gK * (K / b)
     if not with_q:
@@ -2339,8 +2335,8 @@ def _adjoint_stored_vti(c, eps, delta, dd, src_wavelet, src_idx, rcv_idx, *, dt,
                         sponge, order: int = 2, store: str = "int8", fused=None,
                         og=None, ig=None, wavefield_sharding=None):
     """Adjoint-state gradient ``(∂F/∂(c, ε, δ))ᵀ dd`` over a stored two-field
-    forward history, encoded per snapshot (``store``: f32, bf16, int8).
-    With ``ēp = S⊙ap₊``, ``ēq = S⊙aq₊``, ``C = c²dt²``::
+    forward history, encoded per snapshot (``store``: f32, bf16, int8), by
+    :func:`_stored_sweeps`. With ``ēp = S⊙ap₊``, ``ēq = S⊙aq₊``, ``C = c²dt²``::
 
         ap  = Pᵀḡ + 2ēp + Lh(C·ah·ēp) + Lh(C·av·ēq) − ēp₊
         aq  =       2ēq + ∂zz(C·av·ēp) + ∂zz(C·ēq)  − ēq₊
@@ -2349,118 +2345,90 @@ def _adjoint_stored_vti(c, eps, delta, dd, src_wavelet, src_idx, rcv_idx, *, dt,
         gav += C·(∂zz(q_k)⊙ēp + Lh(p_k)⊙ēq)
 
     and the outer chain ``gc = gC·(2c)·dt²``, ``gε = 2·gah``,
-    ``gδ = gav/av``. On the kernel route the forward sweep is K9 (in place;
-    it encodes each input snapshot at the scale the previous step's
-    partial maxima give) and the reverse sweep K10 (``ap``/``aq`` into the
-    ``ap₊₊``/``aq₊₊`` buffers, the accumulators in place) followed by the
-    receiver injection ``index_add_``. The plain route is the JAX package's
-    XLA sweeps (``fstep``/``bstep``), tree for tree. With the static-Q
-    factors ``og``, ``ig`` (Q not differentiated) both sweeps are plain:
-    ``ig`` scales ``ēp``/``ēq`` after the sponge and ``og`` the carried
-    ``ēp₊``/``ēq₊``. With ``wavefield_sharding`` both sweeps are plain on
-    the rank's slab (:class:`_Slab`): the forward sweep is
-    :func:`_vti_slab_step`, each snapshot's int8 scales global maxima; the
-    reverse sweep exchanges the decoded ``p_k``, ``q_k`` and ``ēp``, ``ēq``
-    and holds the coefficients' halos, exchanged once. Returns
+    ``gδ = gav/av``. On the kernel route the history steps are K9 (in place;
+    it encodes each input snapshot at the scale the previous step's partial
+    maxima give) and the reverse steps K10 (``ap``/``aq`` into the
+    ``ap₊₊``/``aq₊₊`` buffers, the accumulators in place). The plain route
+    is the JAX package's XLA sweeps (``fstep``/``bstep``), tree for tree.
+    With the static-Q factors ``og``, ``ig`` (Q not differentiated) both
+    sweeps are plain: ``ig`` scales ``ēp``/``ēq`` after the sponge and
+    ``og`` the carried ``ēp₊``/``ēq₊``. With ``wavefield_sharding`` both
+    sweeps are plain on the rank's slab (:class:`_Slab`): the history steps
+    are :func:`_vti_slab_step`, each snapshot's int8 scales global maxima;
+    the reverse steps exchange the decoded ``p_k``, ``q_k`` and ``ēp``,
+    ``ēq`` and hold the coefficients' halos, exchanged once. Returns
     ``(gc, gε, gδ)``, the rank's slabs under a sharding."""
     shape, dtype, dev = c.shape, c.dtype, c.device
-    size = math.prod(shape)
-    nt = int(src_wavelet.shape[0])
     C, ah, av, inv_dx2 = _vti_coefficients(c, eps, delta, dt, dx)
     amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
-    dd = dd.to(dtype)
-
-    def zeros():
-        return torch.zeros(shape, dtype=dtype, device=dev)
-
-    def inject(row):
-        return torch.zeros(size, dtype=dtype, device=dev).index_add(
-            0, rcv_idx, row).reshape(shape)
-
-    def outer(gC, gah, gav):
-        return (gC * (2.0 * c) * torch.tensor(dt * dt, dtype=dtype, device=dev),
-                2.0 * gah, gav / av)
-
-    if wavefield_sharding is None and _kernel_route(
-            fused, c, sponge, order, None if og is None else _NO_STATIC_Q["VTI"]):
+    kernel = wavefield_sharding is None and _kernel_route(
+        fused, c, sponge, order, None if og is None else _NO_STATIC_Q["VTI"])
+    inject = prep = None
+    if kernel:
         spz, sy, sx = _factors_1d(sponge)
         src = int(src_idx)
-        pp, p, qp, q = (zeros() for _ in range(4))
         scale = torch.full((2,), cuda_vti.SCALE_FLOOR, dtype=dtype, device=dev)
         one = torch.ones(2, dtype=dtype, device=dev)
-        ph, qh, scales = [], [], []
-        for k in range(nt):
+        prep = functools.partial(_kernel_scales, store)
+
+        def hist_step(pp, p, qp, q, s_t):
+            nonlocal scale
             qf = torch.full_like(scale, 127.0) / scale if store == "int8" else one
             p_next, q_next, p_enc, q_enc, nxt = cuda_vti.fused_vti_hist_step(
-                pp, p, qp, q, C, ah, av, spz, sy, sx, inv_dx2, src_wavelet[k], src, amp,
-                qf[0], qf[1], store=store, order=order, out=(pp, qp))
-            ph.append(p_enc)
-            qh.append(q_enc)
-            scales.append(scale)
-            scale = nxt  # snapshot k+1's scales, from this step's partial maxima
-            pp, p, qp, q = p, p_next, q, q_next
-        del pp, p, qp, q, p_next, q_next  # the history holds what the sweep needs
-        decs = (true_div(torch.stack(scales), 127.0) if store == "int8"
-                else torch.ones((nt, 2), dtype=dtype, device=dev))
-        ap1 = inject(dd[-1])
-        aq1, ap2, aq2, gC, gah, gav = (zeros() for _ in range(6))
-        for k in range(nt - 1, -1, -1):
+                pp, p, qp, q, C, ah, av, spz, sy, sx, inv_dx2, s_t, src, amp, qf[0], qf[1],
+                store=store, order=order, out=(pp, qp))
+            sc, scale = scale, nxt  # snapshot k+1's scales, from this step's partial maxima
+            return (p, p_next, q, q_next), (p_enc, q_enc), sc
+
+        def rev_step(ap1, state, snap, sc):
+            aq1, ap2, aq2, gC, gah, gav = state
             ap, aq, gC, gah, gav = cuda_vti.fused_vti_adjoint_step(
-                ap1, aq1, ap2, aq2, gC, gah, gav, C, av, ah, ph[k], qh[k], decs[k, 0],
-                decs[k, 1], inv_dx2, spz, sy, sx, order=order, inplace=True)
-            ph[k] = qh[k] = None  # release the snapshots as the sweep passes them
-            if k > 0:  # ḡ_{k-1}; the JAX sweep adds a zero row at k = 0
-                ap.reshape(-1).index_add_(0, rcv_idx, dd[k - 1])
-            ap1, aq1, ap2, aq2 = ap, aq, ap1, aq1
-        return outer(gC, gah, gav)
-
-    sl = _slab_of(c, src_idx, rcv_idx, sponge, order, wavefield_sharding)
-    if sl is None:
-        S = _sponge_full(sponge)
-        mask = cuda_wave.source_mask(shape, src_idx, amp)
-        enc, dec = _store_codec(store, dtype)
-        X = I = _same
-        Cx, ahx, avx = C, ah, av
-
-        def fstep(pp, p, qp, q, s_t):
-            return cuda_vti.vti_plain(pp, p, qp, q, C, ah, av, S, inv_dx2, s_t, mask,
-                                      order, og, ig)
+                ap1, aq1, ap2, aq2, gC, gah, gav, C, av, ah, *snap, sc[0], sc[1], inv_dx2,
+                spz, sy, sx, order=order, inplace=True)
+            return ap, (aq, ap1, aq1, gC, gah, gav)
     else:
-        S, (enc, dec), inject = sl.interior(sl.S), sl.codec(store, dtype), sl.inject
-        fstep = _vti_slab_step(sl, C, ah, av, inv_dx2, amp, order, og, ig)
-        og, ig = (None, None) if og is None else (sl.local(og), sl.local(ig))
-        X, I = sl.ext, sl.interior
-        Cx, ahx, avx = X(C), X(ah), X(av)
-    pp, p, qp, q = (zeros() for _ in range(4))
-    hist = []
-    for k in range(nt):
-        hist.append((enc(p), enc(q)))  # history entry k holds (p_k, q_k)
-        p_next, q_next = fstep(pp, p, qp, q, src_wavelet[k])
-        pp, p, qp, q = p, p_next, q, q_next
-    # ḡ_{k-1} aligned to reverse step k (rec_k samples p_{k+1})
-    dd_shift = torch.cat([torch.zeros_like(dd[:1]), dd[:-1]])
-    ap1 = inject(dd[-1])
-    aq1, ebp1, ebq1, gC, gah, gav = (zeros() for _ in range(6))
-    for k in range(nt - 1, -1, -1):
-        (pq, psv), (qq, qsv) = hist[k]
-        hist[k] = None
-        p_k, q_k = dec(pq, psv), dec(qq, qsv)
-        ebp, ebq = ap1 * S, aq1 * S
-        if og is not None:
-            ebp, ebq = ebp * ig, ebq * ig
-        lh_k = I(cuda_vti.lh(X(p_k), inv_dx2, order))
-        dzz_k = I(cuda_vti.dzz(X(q_k), inv_dx2, order))
-        gC = gC + ((ah * lh_k + av * dzz_k) * ebp + (av * lh_k + dzz_k) * ebq)
-        gah = gah + (C * lh_k) * ebp
-        gav = gav + C * (dzz_k * ebp + lh_k * ebq)
-        ebp1s, ebq1s = (ebp1, ebq1) if og is None else (og * ebp1, og * ebq1)
-        ebpx, ebqx = X(ebp), X(ebq)
-        ap = (2.0 * ebp + I(cuda_vti.lh(Cx * ahx * ebpx, inv_dx2, order))
-              + I(cuda_vti.lh(Cx * avx * ebqx, inv_dx2, order)) - ebp1s) + inject(dd_shift[k])
-        aq = (2.0 * ebq + I(cuda_vti.dzz(Cx * avx * ebpx, inv_dx2, order))
-              + I(cuda_vti.dzz(Cx * ebqx, inv_dx2, order))) - ebq1s
-        ap1, aq1, ebp1, ebq1 = ap, aq, ebp, ebq
-    return outer(gC, gah, gav)
+        sl = _slab_of(c, src_idx, rcv_idx, sponge, order, wavefield_sharding)
+        if sl is None:
+            S = _sponge_full(sponge)
+            mask = cuda_wave.source_mask(shape, src_idx, amp)
+            enc, dec = _store_codec(store, dtype)
+            X = I = _same
+            Cx, ahx, avx = C, ah, av
+
+            def fstep(pp, p, qp, q, s_t):
+                return cuda_vti.vti_plain(pp, p, qp, q, C, ah, av, S, inv_dx2, s_t, mask,
+                                          order, og, ig)
+        else:
+            S, (enc, dec), inject = sl.interior(sl.S), sl.codec(store, dtype), sl.inject
+            fstep = _vti_slab_step(sl, C, ah, av, inv_dx2, amp, order, og, ig)
+            og, ig = (None, None) if og is None else (sl.local(og), sl.local(ig))
+            X, I = sl.ext, sl.interior
+            Cx, ahx, avx = X(C), X(ah), X(av)
+        hist_step = _encoding_step(enc, fstep, 2)
+
+        def rev_step(ap1, state, snap, sc):
+            aq1, ebp1, ebq1, gC, gah, gav = state
+            p_k, q_k = dec(snap[0], sc[0]), dec(snap[1], sc[1])
+            ebp, ebq = ap1 * S, aq1 * S
+            if og is not None:
+                ebp, ebq = ebp * ig, ebq * ig
+            lh_k = I(cuda_vti.lh(X(p_k), inv_dx2, order))
+            dzz_k = I(cuda_vti.dzz(X(q_k), inv_dx2, order))
+            gC = gC + ((ah * lh_k + av * dzz_k) * ebp + (av * lh_k + dzz_k) * ebq)
+            gah = gah + (C * lh_k) * ebp
+            gav = gav + C * (dzz_k * ebp + lh_k * ebq)
+            ebp1s, ebq1s = (ebp1, ebq1) if og is None else (og * ebp1, og * ebq1)
+            ebpx, ebqx = X(ebp), X(ebq)
+            ap = (2.0 * ebp + I(cuda_vti.lh(Cx * ahx * ebpx, inv_dx2, order))
+                  + I(cuda_vti.lh(Cx * avx * ebqx, inv_dx2, order)) - ebp1s)
+            aq = (2.0 * ebq + I(cuda_vti.dzz(Cx * avx * ebpx, inv_dx2, order))
+                  + I(cuda_vti.dzz(Cx * ebqx, inv_dx2, order))) - ebq1s
+            return ap, (aq, ebp, ebq, gC, gah, gav)
+
+    gC, gah, gav = _stored_sweeps(c, src_wavelet, dd, rcv_idx, hist_step, rev_step, 2, 6,
+                                  inject=inject, row_in_place=kernel, prep=prep)[3:]
+    return (gC * (2.0 * c) * torch.tensor(dt * dt, dtype=dtype, device=dev),
+            2.0 * gah, gav / av)
 
 
 def _propagate_vti_m(m, *args, **kw):
@@ -2827,8 +2795,9 @@ def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet, src_idx, r
                           wavefield_sharding=None):
     """Adjoint-state gradient ``(∂F/∂(c, ε, δ, θ, φ))ᵀ dd`` of the 3-D TTI
     system over a stored two-field forward history, encoded per snapshot
-    (``store``: f32, bf16, int8). Every rotated derivative is self-adjoint
-    under the zero boundary, so with ``ēp = S⊙ap₊``, ``ēq = S⊙aq₊``::
+    (``store``: f32, bf16, int8), by :func:`_stored_sweeps`. Every rotated
+    derivative is self-adjoint under the zero boundary, so with
+    ``ēp = S⊙ap₊``, ``ēq = S⊙aq₊``::
 
         ap = Pᵀḡ + 2ēp + Hᵀ(C·ah·ēp + C·av·ēq) − ēp₊
         aq =       2ēq + Vᵀ(C·av·ēp + C·ēq)     − ēq₊
@@ -2838,133 +2807,106 @@ def _adjoint_stored_tti3d(c, eps, delta, theta, phi, dd, src_wavelet, src_idx, r
     ``gδ = gav/av_raw`` (the unrounded root) and, through
     ``n = (cosθ, sinθcosφ, sinθsinφ)``, ``gθ = −sinθ·gnz + cosθcosφ·gny +
     cosθsinφ·gnx`` and ``gφ = −sinθsinφ·gny + sinθcosφ·gnx``. On the kernel
-    route the forward sweep is K12 (in place; it encodes each input snapshot
-    at the scale the previous step's partial maxima give) and the reverse
-    sweep K13 (``ap``/``aq`` into the ``ap₊₊``/``aq₊₊`` buffers, the
-    accumulators in place) followed by the receiver injection
-    ``index_add_``. The plain route is the JAX package's XLA sweeps
+    route the history steps are K12 (in place; it encodes each input
+    snapshot at the scale the previous step's partial maxima give) and the
+    reverse steps K13 (``ap``/``aq`` into the ``ap₊₊``/``aq₊₊`` buffers, the
+    accumulators in place). The plain route is the JAX package's XLA sweeps
     (``fstep``/``bstep``), tree for tree. ``coeff16`` applies the forward's
     straight-through bfloat16 rounding; the static-Q factors ``og``, ``ig``
     take both sweeps plain, as in :func:`_adjoint_stored_vti`. With
     ``wavefield_sharding`` both sweeps are plain on the rank's slab, as in
-    :func:`_adjoint_stored_vti`: the reverse sweep exchanges the decoded
-    ``p_k``, ``q_k`` and the two arguments ``w`` of ``Hᵀ``/``Vᵀ``, and holds
+    :func:`_adjoint_stored_vti`: the reverse steps exchange the decoded
+    ``p_k``, ``q_k`` and the two arguments ``w`` of ``Hᵀ``/``Vᵀ``, and hold
     the halos of ``nz, ny, nx`` (exchanged once), so each ``Σ D_d(κ_d·w)``
     is one exchange of ``w`` where exchanging each product ``κ_d·w`` would
     be six. Returns ``(gc, gε, gδ, gθ, gφ)``, the rank's slabs under a
     sharding."""
     shape, dtype, dev = c.shape, c.dtype, c.device
-    size = math.prod(shape)
-    nt = int(src_wavelet.shape[0])
     C, ah, av, nz, ny, nx, inv_dx2, inv_dx, av_raw, kc = _tti_coefficients(
         c, eps, delta, theta, phi, dt, dx, coeff16)
     amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
-    dd = dd.to(dtype)
-
-    def zeros():
-        return torch.zeros(shape, dtype=dtype, device=dev)
-
-    def inject(row):
-        return torch.zeros(size, dtype=dtype, device=dev).index_add(
-            0, rcv_idx, row).reshape(shape)
-
-    def outer(gC, gah, gav, gnz, gny, gnx):
-        cth, sth = _trig(torch.cos, theta), _trig(torch.sin, theta)
-        cph, sph = _trig(torch.cos, phi), _trig(torch.sin, phi)
-        return (gC * (2.0 * c) * torch.tensor(dt * dt, dtype=dtype, device=dev),
-                2.0 * gah, gav / av_raw,
-                -sth * gnz + (cth * cph) * gny + (cth * sph) * gnx,
-                (-sth * sph) * gny + (sth * cph) * gnx)
-
-    if wavefield_sharding is None and _kernel_route(
-            fused, c, sponge, order, None if og is None else _NO_STATIC_Q["TTI"]):
+    kernel = wavefield_sharding is None and _kernel_route(
+        fused, c, sponge, order, None if og is None else _NO_STATIC_Q["TTI"])
+    inject = prep = None
+    if kernel:
         spz, sy, sx = _factors_1d(sponge)
         src = int(src_idx)
-        pp, p, qp, q = (zeros() for _ in range(4))
         scale = torch.full((2,), cuda_vti.SCALE_FLOOR, dtype=dtype, device=dev)
         one = torch.ones(2, dtype=dtype, device=dev)
-        ph, qh, scales = [], [], []
-        for k in range(nt):
+        prep = functools.partial(_kernel_scales, store)
+
+        def hist_step(pp, p, qp, q, s_t):
+            nonlocal scale
             qf = torch.full_like(scale, 127.0) / scale if store == "int8" else one
             p_next, q_next, p_enc, q_enc, nxt = cuda_tti.fused_tti_hist_step(
-                pp, p, qp, q, C, *kc, spz, sy, sx, inv_dx2, inv_dx, src_wavelet[k], src,
-                amp, qf[0], qf[1], store=store, order=order, out=(pp, qp))
-            ph.append(p_enc)
-            qh.append(q_enc)
-            scales.append(scale)
-            scale = nxt  # snapshot k+1's scales, from this step's partial maxima
-            pp, p, qp, q = p, p_next, q, q_next
-        del pp, p, qp, q, p_next, q_next  # the history holds what the sweep needs
-        decs = (true_div(torch.stack(scales), 127.0) if store == "int8"
-                else torch.ones((nt, 2), dtype=dtype, device=dev))
-        ap1 = inject(dd[-1])
-        aq1, ap2, aq2 = (zeros() for _ in range(3))
-        accs = tuple(zeros() for _ in range(6))
-        for k in range(nt - 1, -1, -1):
+                pp, p, qp, q, C, *kc, spz, sy, sx, inv_dx2, inv_dx, s_t, src, amp, qf[0],
+                qf[1], store=store, order=order, out=(pp, qp))
+            sc, scale = scale, nxt  # snapshot k+1's scales, from this step's partial maxima
+            return (p, p_next, q, q_next), (p_enc, q_enc), sc
+
+        def rev_step(ap1, state, snap, sc):
+            aq1, ap2, aq2, *accs = state
             ap, aq, *accs = cuda_tti.fused_tti_adjoint_step(
-                ap1, aq1, ap2, aq2, *accs, C, *kc, ph[k], qh[k], decs[k, 0], decs[k, 1],
-                inv_dx2, inv_dx, spz, sy, sx, order=order, inplace=True)
-            ph[k] = qh[k] = None  # release the snapshots as the sweep passes them
-            if k > 0:  # ḡ_{k-1}; the JAX sweep adds a zero row at k = 0
-                ap.reshape(-1).index_add_(0, rcv_idx, dd[k - 1])
-            ap1, aq1, ap2, aq2 = ap, aq, ap1, aq1
-        return outer(*accs)
-
-    cf = cuda_tti.directions(nz, ny, nx)
-    sl = _slab_of(c, src_idx, rcv_idx, sponge, order, wavefield_sharding)
-    if sl is None:
-        S = _sponge_full(sponge)
-        mask = cuda_wave.source_mask(shape, src_idx, amp)
-        enc, dec = _store_codec(store, dtype)
-        X = I = _same
-        cfx = cf
-
-        def fstep(pp, p, qp, q, s_t):
-            return cuda_tti.tti_plain(pp, p, qp, q, C, ah, av, nz, ny, nx, S, inv_dx2,
-                                      inv_dx, s_t, mask, order, og, ig)
+                ap1, aq1, ap2, aq2, *accs, C, *kc, *snap, sc[0], sc[1], inv_dx2, inv_dx,
+                spz, sy, sx, order=order, inplace=True)
+            return ap, (aq, ap1, aq1, *accs)
     else:
-        S, (enc, dec), inject = sl.interior(sl.S), sl.codec(store, dtype), sl.inject
-        fstep = _tti_slab_step(sl, C, ah, av, nz, ny, nx, inv_dx2, inv_dx, amp, order, og,
-                               ig)
-        og, ig = (None, None) if og is None else (sl.local(og), sl.local(ig))
-        X, I = sl.ext, sl.interior
-        cfx = cuda_tti.directions(X(nz), X(ny), X(nx))
-    pp, p, qp, q = (zeros() for _ in range(4))
-    hist = []
-    for k in range(nt):
-        hist.append((enc(p), enc(q)))  # history entry k holds (p_k, q_k)
-        p_next, q_next = fstep(pp, p, qp, q, src_wavelet[k])
-        pp, p, qp, q = p, p_next, q, q_next
-    # ḡ_{k-1} aligned to reverse step k (rec_k samples p_{k+1})
-    dd_shift = torch.cat([torch.zeros_like(dd[:1]), dd[:-1]])
-    ap1 = inject(dd[-1])
-    aq1, ebp1, ebq1 = (zeros() for _ in range(3))
-    gC, gah, gav, gnz, gny, gnx = (zeros() for _ in range(6))
-    for k in range(nt - 1, -1, -1):
-        (pq, psv), (qq, qsv) = hist[k]
-        hist[k] = None
-        dp6 = tuple(map(I, cuda_tti.derivs(X(dec(pq, psv)), inv_dx2, inv_dx, order)))
-        dq6 = tuple(map(I, cuda_tti.derivs(X(dec(qq, qsv)), inv_dx2, inv_dx, order)))
-        ebp, ebq = ap1 * S, aq1 * S
-        if og is not None:
-            ebp, ebq = ebp * ig, ebq * ig
-        Hp, Vq = cuda_tti.h_of(dp6, cf), cuda_tti.v_of(dq6, cf)
-        gC = gC + ((ah * Hp + av * Vq) * ebp + (av * Hp + Vq) * ebq)
-        gah = gah + (C * Hp) * ebp
-        gav = gav + C * (Vq * ebp + Hp * ebq)
-        dczz, dcyy, dcxx, dczy, dczx, dcyx = (
-            C * ((av * q_d - ah * p_d) * ebp + (q_d - av * p_d) * ebq)
-            for p_d, q_d in zip(dp6, dq6))
-        gnz = gnz + (2.0 * nz * dczz + 2.0 * ny * dczy + 2.0 * nx * dczx)
-        gny = gny + (2.0 * ny * dcyy + 2.0 * nz * dczy + 2.0 * nx * dcyx)
-        gnx = gnx + (2.0 * nx * dcxx + 2.0 * nz * dczx + 2.0 * ny * dcyx)
-        ebp1s, ebq1s = (ebp1, ebq1) if og is None else (og * ebp1, og * ebq1)
-        ap = (2.0 * ebp + I(cuda_tti.ht(X(C * ah * ebp + C * av * ebq), cfx, inv_dx2,
-                                        inv_dx, order)) - ebp1s) + inject(dd_shift[k])
-        aq = (2.0 * ebq + I(cuda_tti.vt(X(C * av * ebp + C * ebq), cfx, inv_dx2, inv_dx,
-                                        order))) - ebq1s
-        ap1, aq1, ebp1, ebq1 = ap, aq, ebp, ebq
-    return outer(gC, gah, gav, gnz, gny, gnx)
+        cf = cuda_tti.directions(nz, ny, nx)
+        sl = _slab_of(c, src_idx, rcv_idx, sponge, order, wavefield_sharding)
+        if sl is None:
+            S = _sponge_full(sponge)
+            mask = cuda_wave.source_mask(shape, src_idx, amp)
+            enc, dec = _store_codec(store, dtype)
+            X = I = _same
+            cfx = cf
+
+            def fstep(pp, p, qp, q, s_t):
+                return cuda_tti.tti_plain(pp, p, qp, q, C, ah, av, nz, ny, nx, S, inv_dx2,
+                                          inv_dx, s_t, mask, order, og, ig)
+        else:
+            S, (enc, dec), inject = sl.interior(sl.S), sl.codec(store, dtype), sl.inject
+            fstep = _tti_slab_step(sl, C, ah, av, nz, ny, nx, inv_dx2, inv_dx, amp, order,
+                                   og, ig)
+            og, ig = (None, None) if og is None else (sl.local(og), sl.local(ig))
+            X, I = sl.ext, sl.interior
+            cfx = cuda_tti.directions(X(nz), X(ny), X(nx))
+        hist_step = _encoding_step(enc, fstep, 2)
+
+        def rev_step(ap1, state, snap, sc):
+            aq1, ebp1, ebq1, gC, gah, gav, gnz, gny, gnx = state
+            dp6 = tuple(map(I, cuda_tti.derivs(X(dec(snap[0], sc[0])), inv_dx2, inv_dx,
+                                               order)))
+            dq6 = tuple(map(I, cuda_tti.derivs(X(dec(snap[1], sc[1])), inv_dx2, inv_dx,
+                                               order)))
+            ebp, ebq = ap1 * S, aq1 * S
+            if og is not None:
+                ebp, ebq = ebp * ig, ebq * ig
+            Hp, Vq = cuda_tti.h_of(dp6, cf), cuda_tti.v_of(dq6, cf)
+            gC = gC + ((ah * Hp + av * Vq) * ebp + (av * Hp + Vq) * ebq)
+            gah = gah + (C * Hp) * ebp
+            gav = gav + C * (Vq * ebp + Hp * ebq)
+            dczz, dcyy, dcxx, dczy, dczx, dcyx = (
+                C * ((av * q_d - ah * p_d) * ebp + (q_d - av * p_d) * ebq)
+                for p_d, q_d in zip(dp6, dq6))
+            gnz = gnz + (2.0 * nz * dczz + 2.0 * ny * dczy + 2.0 * nx * dczx)
+            gny = gny + (2.0 * ny * dcyy + 2.0 * nz * dczy + 2.0 * nx * dcyx)
+            gnx = gnx + (2.0 * nx * dcxx + 2.0 * nz * dczx + 2.0 * ny * dcyx)
+            ebp1s, ebq1s = (ebp1, ebq1) if og is None else (og * ebp1, og * ebq1)
+            ap = 2.0 * ebp + I(cuda_tti.ht(X(C * ah * ebp + C * av * ebq), cfx, inv_dx2,
+                                           inv_dx, order)) - ebp1s
+            aq = (2.0 * ebq + I(cuda_tti.vt(X(C * av * ebp + C * ebq), cfx, inv_dx2, inv_dx,
+                                            order))) - ebq1s
+            return ap, (aq, ebp, ebq, gC, gah, gav, gnz, gny, gnx)
+
+    gC, gah, gav, gnz, gny, gnx = _stored_sweeps(
+        c, src_wavelet, dd, rcv_idx, hist_step, rev_step, 2, 9, inject=inject,
+        row_in_place=kernel, prep=prep)[3:]
+    cth, sth = _trig(torch.cos, theta), _trig(torch.sin, theta)
+    cph, sph = _trig(torch.cos, phi), _trig(torch.sin, phi)
+    return (gC * (2.0 * c) * torch.tensor(dt * dt, dtype=dtype, device=dev),
+            2.0 * gah, gav / av_raw,
+            -sth * gnz + (cth * cph) * gny + (cth * sph) * gnx,
+            (-sth * sph) * gny + (sth * cph) * gnx)
 
 
 def _propagate_tti_m(m, *args, coeff16=False, **kw):
@@ -3224,11 +3166,11 @@ def _adjoint_stored_q(c, qf, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0, s
                       order: int = 2, store: str = "int8", fused=None,
                       coeff16: bool = False):
     """Adjoint-state gradient ``(∂F/∂(c, Q))ᵀ dd`` of the constant-Q physics
-    over a stored, encoded forward history (``store``: f32, bf16, int8): the
-    transpose of :func:`_propagate_q`'s friction recurrence, hand-derived in
-    the JAX package. The friction is diagonal, so with ``og = 1 − g``,
-    ``ig = 1/(1 + g)``, ``C = c²dt²/dx²``, ``sē_k = S⊙a_{k+1}``, ``ē_k =
-    ig⊙sē_k``::
+    over a stored, encoded forward history (``store``: f32, bf16, int8), by
+    :func:`_stored_sweeps` (its spans with ``physics="q"``): the transpose of
+    :func:`_propagate_q`'s friction recurrence, hand-derived in the JAX
+    package. The friction is diagonal, so with ``og = 1 − g``, ``ig = 1/(1 +
+    g)``, ``C = c²dt²/dx²``, ``sē_k = S⊙a_{k+1}``, ``ē_k = ig⊙sē_k``::
 
         a_k  = Pᵀḡ + 2ē_k + L(C·ē_k) − og·ē_{k+1}
         gC  += L(u_k)⊙ē_k
@@ -3240,30 +3182,21 @@ def _adjoint_stored_q(c, qf, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0, s
     bfloat16-rounded ``g``, as the forward does. A reverse step carries
     ``(a_{k+1}, a_{k+2})`` and forms ``sē`` and ``ē`` of both from them
     (:func:`cuda_wave.q_adjoint_plain`'s tree). On the kernel route (a 3-D
-    float32 grid on a CUDA card) the forward sweep that writes the history
-    is K14 (in place, except for an f32 history, which keeps the fields
-    themselves) and the reverse sweep K15 (``a_k`` into ``a_{k+2}``'s
-    buffer, ``gC``, ``gig``, ``gog`` in place), where no autograd tape
-    records ``c``, ``Q`` or ``dd`` (K15 has no backward: a taped call
-    reverses with the plain step); 2-D grids and ``fused=False`` take the
-    plain steps, the same trees, so the routes agree bit for bit (the JAX
-    package has no reverse-Q kernel: its sweep is XLA). The receiver
-    injection is an ``index_add_``. The forward sweep is a span
-    ``sweep.history``, the reverse one a span ``sweep.reverse``, both with
-    ``physics="q"``, and each counts its steps (``steps.history``,
-    ``steps.reverse``). Returns ``(gc, gQ)``."""
+    float32 grid on a CUDA card) the history steps are K14 (in place, except
+    for an f32 history, which keeps the fields themselves) and the reverse
+    steps K15 (``a_k`` into ``a_{k+2}``'s buffer, ``gC``, ``gig``, ``gog`` in
+    place), where no autograd tape records ``c``, ``Q`` or ``dd`` (K15 has no
+    backward: a taped call reverses with the plain step); 2-D grids and
+    ``fused=False`` take the plain steps, the same trees, so the routes
+    agree bit for bit (the JAX package has no reverse-Q kernel: its sweep is
+    XLA). Every route lands the receiver row by ``index_add_``. Returns
+    ``(gc, gQ)``."""
     shape, dtype, dev = c.shape, c.dtype, c.device
-    nt = int(src_wavelet.shape[0])
     C = _c2dt2(c, dt, dx)
     g_raw = _q_friction(qf, dt, f0)
     g = _r16(g_raw) if coeff16 else g_raw
     amp = torch.tensor(dt * dt, dtype=dtype, device=dev)
     enc, dec = _store_codec(store, dtype)
-    dd = dd.to(dtype)
-
-    def zeros():
-        return torch.zeros(shape, dtype=dtype, device=dev)
-
     kernel = _kernel_route(fused, c, sponge, order)
     k15 = kernel and not _records(c, qf, dd)
     if not k15:
@@ -3283,40 +3216,23 @@ def _adjoint_stored_q(c, qf, dd, src_wavelet, src_idx, rcv_idx, *, dt, dx, f0, s
         def step(up, uu, s_t):
             return cuda_wave.q_plain(up, uu, C, og, ig, S, s_t, mask, order)
 
-    if k15:
-        def rev(a1, a2, gC, gig, gog, q, sc):
-            return cuda_wave.fused_q_adjoint_step(a1, a2, gC, gig, gog, C, kg, q, sc, spz,
-                                                  sy, sx, order=order, inplace=True)
+    if k15:  # K15 decodes q·sc itself: the int8 scales divided by 127 at once
+        def rev_step(a1, state, q, sc):
+            a2, gC, gig, gog = state
+            core, gC, gig, gog = cuda_wave.fused_q_adjoint_step(
+                a1, a2, gC, gig, gog, C, kg, q, sc, spz, sy, sx, order=order, inplace=True)
+            return core, (a1, gC, gig, gog)
     else:
-        def rev(a1, a2, gC, gig, gog, q, sc):
-            return cuda_wave.q_adjoint_plain(a1, a2, gC, gig, gog, C, og, ig, S, dec(q, sc),
-                                             order)
+        def rev_step(a1, state, q, sc):
+            a2, gC, gig, gog = state
+            core, gC, gig, gog = cuda_wave.q_adjoint_plain(a1, a2, gC, gig, gog, C, og, ig,
+                                                           S, dec(q, sc), order)
+            return core, (a1, gC, gig, gog)
 
-    hist, scales = [], []
-    count("steps.history", nt)
-    count("steps.reverse", nt)
-    with span("sweep.history", physics="q"):
-        u_prev, u = zeros(), zeros()
-        for k in range(nt):
-            q, s = enc(u)  # history entry k holds u_k
-            hist.append(q)
-            scales.append(s)
-            u_next = step(u_prev, u, src_wavelet[k])
-            u_prev, u = u, u_next
-        del u_prev, u, u_next  # the history holds what the reverse sweep needs
-    with span("sweep.reverse", physics="q"):
-        if k15:  # K15 decodes q·sc itself: the int8 scales divided by 127 at once
-            scales = (true_div(torch.stack(scales), 127.0) if store == "int8"
-                      else torch.ones(nt, dtype=dtype, device=dev))
-        # out of place: under vmap the zeros are not batched and the row is
-        a1 = zeros().reshape(-1).index_add(0, rcv_idx, dd[-1]).reshape(shape)
-        a2, gC, gig, gog = (zeros() for _ in range(4))
-        for k in range(nt - 1, -1, -1):
-            core, gC, gig, gog = rev(a1, a2, gC, gig, gog, hist[k], scales[k])
-            hist[k] = None  # release the snapshot as the sweep passes it
-            if k > 0:  # ḡ_{k-1}; the JAX sweep adds a zero row at k = 0
-                core.reshape(-1).index_add_(0, rcv_idx, dd[k - 1])
-            a1, a2 = core, a1
+    _, gC, gig, gog = _stored_sweeps(
+        c, src_wavelet, dd, rcv_idx, _encoding_step(enc, step, 1), rev_step, 1, 4,
+        row_in_place=True, prep=functools.partial(_kernel_scales, store) if k15 else None,
+        attrs={"physics": "q"})
     gc = gC * (2.0 * c) * torch.tensor((dt * dt) / (dx * dx), dtype=dtype, device=dev)
     if k15:
         ig = 1.0 / (1.0 + g)

@@ -14,10 +14,13 @@ from collections import Counter
 import pytest
 import torch
 
+from jets_tpu_torch.core.blockspace import BlockVector
 from jets_tpu_torch.ops import cuda_solver, cuda_tti, cuda_vti, cuda_wave
+from jets_tpu_torch.ops import wave as tw
 from jets_tpu_torch.ops.diagonal import diagonal_operator
 from jets_tpu_torch.ops.wave import multishot_wave_operator
 from jets_tpu_torch.parallel import collectives
+from jets_tpu_torch.parallel.sharded import block_sharding, make_block_mesh
 from jets_tpu_torch.solvers.nonlinear import least_squares_objective
 from jets_tpu_torch.utils import profiling as tp
 
@@ -137,6 +140,55 @@ def test_gradient_span_tree_and_counters(mode):
     # snapshot is the shots' shared zero field, stored once
     want = 3 * NT * (cells + 4) if mode == "map" else (cells + 4) + (NT - 1) * 3 * (cells + 4)
     assert counted["history.bytes"] == want
+
+
+NT_STORED, GRID3 = 8, (12, 10, 32)
+
+
+def _stored_operator(case):
+    """``(F, m)``: one propagator per stored-history adjoint (int8 history)
+    on a small 3-D grid, and a model in its domain."""
+    kw = dict(nt=NT_STORED, src_idx=6 * 320 + 5 * 32 + 16, sponge_width=3,
+              store_adjoint="int8")
+    c = torch.full(GRID3, 2000.0)
+    grid = torch.ones(GRID3)
+    if case.startswith("iso"):
+        if case == "iso_slab":
+            ws = block_sharding(make_block_mesh(axis="grid", device=CPU), "grid")
+            return tw.wave_propagator(GRID3, wavefield_sharding=ws, **kw), c
+        fused = case == "iso_kernel_twin"  # on the CPU the kernels' plain twins run
+        return tw.wave_propagator(GRID3, fused=fused, device=CPU, **kw), c
+    blocks, make = {
+        "vd": ([c, 0.5 * grid], tw.vd_wave_propagator),
+        "vdq": ([c, 0.5 * grid, 60.0 * grid], tw.vdq_wave_propagator),
+        "vti": ([c, 0.2 * grid, 0.1 * grid], tw.vti_wave_propagator),
+        "tti": ([c, 0.2 * grid, 0.1 * grid, 0.3 * grid, 0.5 * grid], tw.tti_wave_propagator),
+        "q": ([c, 60.0 * grid], tw.q_wave_propagator)}[case]
+    F = make(GRID3, device=CPU, **kw)
+    return F, BlockVector(blocks, F.dom)
+
+
+@pytest.mark.parametrize("case", ["iso", "iso_kernel_twin", "iso_slab", "vd", "vdq", "vti",
+                                  "tti", "q"])
+def test_every_stored_adjoint_spans_and_counts_its_two_sweeps(case):
+    """Every stored-history adjoint runs the one pair of sweeps: a gradient
+    counts ``nt`` steps in ``steps.history`` and in ``steps.reverse`` and,
+    with spans on, records one ``sweep.history`` and one ``sweep.reverse``
+    span (with ``physics="q"`` on constant Q)."""
+    F, m = _stored_operator(case)
+    d = F(m)
+    J = F.linearize(m)
+    before = tp.counters()
+    tp.set_spans(True)
+    J.H(d)
+    tp.set_spans(False)
+    counted = tp.counters()
+    for k in ("steps.history", "steps.reverse"):
+        assert counted.get(k, 0) - before.get(k, 0) == NT_STORED, k
+    sweeps = [s for s in tp.spans(reset=True) if s["name"] in ("sweep.history",
+                                                               "sweep.reverse")]
+    assert sorted(s["name"] for s in sweeps) == ["sweep.history", "sweep.reverse"]
+    assert all(s["attrs"] == ({"physics": "q"} if case == "q" else {}) for s in sweeps)
 
 
 @pytest.mark.parametrize("mode", ["map", "vmap"])
