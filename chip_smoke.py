@@ -121,7 +121,13 @@ route's (``python3 tools/smoke_visco.py`` runs it, with K14 at that
 window, alone) — and phase 72, K15 (the reverse constant-Q step) bitwise
 its plain twin at that window and at two ragged shapes, orders 2/4/8, g in
 f32 and bf16, int8/bf16/f32 histories, fresh and in place, and timed
-against its bound (``python3 tools/smoke_q_adjoint.py`` runs it alone).
+against its bound (``python3 tools/smoke_q_adjoint.py`` runs it alone) —
+and phase 73, K5 (the stored-wavefield adjoint step, z-marching) bitwise
+its plain twin at the iso gradient cell's window, the z-slabs and two
+ragged shapes, orders 2/4/8, int8/bf16/f32 histories, fresh and in place,
+and on a grid past 2^31 cells (its 64-bit indices), and timed at the
+window (order 8) and at 256^3 (order 2) against its bound (``python3
+tools/smoke_adjoint.py`` runs it alone).
 Each path runs with the kernels'
 launch counts set to 0 just before it and read just after. Every phase asserts; a failure
 raises and exits non-zero. Every entry point runs on the card by default;
@@ -3403,26 +3409,35 @@ def visco_window(smi):
 Q_ADJ_SHAPES = ((5, 19, 33), (37, 45, 70), Q_WINDOW)
 
 
+def _encoded(u, store):
+    """The history ``u`` encoded at ``store`` as the sweeps encode it: ``(q,
+    sc)``."""
+    from jets_tpu_torch.core.spaces import true_div
+
+    if store == torch.int8:
+        s = u.abs().max()
+        return torch.round(u * (127.0 / s)).to(torch.int8), true_div(s, 127.0)
+    return u.to(store), torch.ones((), device=u.device)
+
+
+def _free_surface(shape, dev):
+    """The free-surface sponge's factors on ``dev``: 20 cells at the window,
+    3 elsewhere."""
+    from jets_tpu_torch.ops import wave as tw
+
+    return tuple(f.to(dev) for f in tw._factors_1d(
+        tw._make_sponge(shape, 20 if shape == Q_WINDOW else 3, free_surface=True)))
+
+
 def _q_adjoint_operands(shape, gdt, store, dev, gen):
     """K15's operands ``(a1, a2, gC, gig, gog, c2dt2, g, q, sc, spz, sy,
     sx)``: random fields from ``gen``, C and g in their ranges, the history
-    ``u`` encoded at ``store`` as the sweeps encode it, and the free-surface
-    sponge (20 cells at the window, 3 at the small shapes)."""
-    from jets_tpu_torch.core.spaces import true_div
-    from jets_tpu_torch.ops import wave as tw
-
+    ``u`` encoded at ``store`` and the free-surface sponge."""
     a1, a2, gC, gig, gog, u = (torch.randn(shape, generator=gen, device=dev)
                                for _ in range(6))
     c2 = 0.3 * torch.rand(shape, generator=gen, device=dev)
     g = (0.01 + 0.05 * torch.rand(shape, generator=gen, device=dev)).to(gdt)
-    if store == torch.int8:
-        s = u.abs().max()
-        q, sc = torch.round(u * (127.0 / s)).to(torch.int8), true_div(s, 127.0)
-    else:
-        q, sc = u.to(store), torch.ones((), device=dev)
-    sponge = tuple(f.to(dev) for f in tw._factors_1d(
-        tw._make_sponge(shape, 20 if shape == Q_WINDOW else 3, free_surface=True)))
-    return [a1, a2, gC, gig, gog, c2, g, q, sc, *sponge]
+    return [a1, a2, gC, gig, gog, c2, g, *_encoded(u, store), *_free_surface(shape, dev)]
 
 
 def q_adjoint(smi):
@@ -3493,6 +3508,123 @@ def q_adjoint(smi):
                         f"{1e3 * r['bound_ms']:.1f}, {r['bound_ms'] / r['ms']:.1%} of it; "
                         f"{cells} cells)" for r in timed)
             + f"; phase 72 in {time.perf_counter() - t_ph:.1f} s [{smi}]")
+    return launched, timed[:1]
+
+
+# Phase 73: K5, the stored-wavefield adjoint step (cuda_wave.fused_adjoint_step,
+# a z-marching kernel), bitwise its plain twin (fused_adjoint_step_torch) fresh
+# and in place at orders 2/4/8 with int8, bf16 and f32 histories, at the ragged
+# (5, 19, 33) and (37, 45, 70) (no whole number of K5's tiles or z-chunks), the
+# z-slabs of phases 65-66 and the isotropic gradient cell's window (187, 401,
+# 401) with its 20-cell free-surface sponge; then timed through its C entry
+# point with CUDA events at the window (order 8, int8: the cell's reverse step)
+# and at 256^3 (order 2, int8: the kernel inventory's row), against its bound
+# (25 B a cell), the twin and the wrapper. Phase 1's K5 check over ISO_SHAPES
+# stays beside it. ADJ_BIG is a grid past 2^31 cells (37 GB of operands),
+# where K5 takes 64-bit indices: it runs in place at order 8 with an int8
+# history and is held at the far corner of its last plane, where the flat
+# index passes 2^31, against the twin on a crop that holds the stencil.
+ADJ_SHAPES = ((5, 19, 33), (37, 45, 70)) + SLAB_SHAPES + (Q_WINDOW,)
+ADJ_BIG = (9, 15000, 16000)
+
+
+def _adjoint_operands(shape, store, dev, gen):
+    """K5's operands ``(a1, a2, gc2, c2dt2, q, sc, spz, sy, sx)``: random
+    fields from ``gen``, c2dt2 in its range, the history ``u`` encoded at
+    ``store`` and the free-surface sponge."""
+    a1, a2, gc2, u = (torch.randn(shape, generator=gen, device=dev) for _ in range(4))
+    c2 = 0.3 * torch.rand(shape, generator=gen, device=dev)
+    return [a1, a2, gc2, c2, *_encoded(u, store), *_free_surface(shape, dev)]
+
+
+def adjoint_march(smi):
+    """Phase 73 (see the note above). Returns the launches and K5's row at
+    the window for the final table."""
+    from jets_tpu_torch import kernels
+    from jets_tpu_torch.ops import cuda_wave as cw
+
+    t_ph = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(73)
+    _reset_all()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    D, H, W = ADJ_BIG
+    assert D * H * W > 2**31 and D > 4, ADJ_BIG
+    a1, a2, gc2 = (torch.empty(ADJ_BIG, device=dev).normal_(generator=gen) for _ in range(3))
+    c2 = torch.empty(ADJ_BIG, device=dev).uniform_(0.0, 0.3, generator=gen)
+    q = torch.randint(-127, 128, ADJ_BIG, generator=gen, device=dev, dtype=torch.int8)
+    sc = torch.tensor(0.01, device=dev)
+    sponge = _free_surface(ADJ_BIG, dev)
+    crop = (slice(D - 5, D), slice(H - 104, H), slice(W - 104, W))
+    ref = cw.fused_adjoint_step_torch(
+        *(t[crop].contiguous() for t in (a1, a2, gc2, c2, q)), sc,
+        *(f[c] for f, c in zip(sponge, crop)), order=8)
+    big_gib = torch.cuda.max_memory_allocated() / 2**30
+    placed = cw.fused_adjoint_step(a1, a2, gc2, c2, q, sc, *sponge, order=8, inplace=True)
+    torch.cuda.synchronize()
+    assert placed[0] is a2 and placed[1] is gc2, "K5 not in place"
+    for k, (x, y) in enumerate(zip(placed, ref)):
+        y = y[-1, 4:, 4:]
+        live(y, f"K5 output {k} at {ADJ_BIG}")
+        assert torch.equal(x[-1, -100:, -100:], y), f"K5 output {k} not bitwise at {ADJ_BIG}"
+    del a1, a2, gc2, c2, q, placed, ref
+    torch.cuda.empty_cache()
+    checked = 0
+    for shape in ADJ_SHAPES:
+        for order in (2, 4, 8):
+            for store in (torch.int8, torch.bfloat16, torch.float32):
+                o = _adjoint_operands(shape, store, dev, gen)
+                what = f"{shape} order {order} history {str(store)[6:]}"
+                ref = cw.fused_adjoint_step_torch(*o, order=order)
+                fresh = cw.fused_adjoint_step(*o, order=order)
+                torch.cuda.synchronize()
+                for k, (x, y) in enumerate(zip(fresh, ref)):
+                    live(y, f"K5 output {k} at {what}")
+                    assert torch.equal(x, y), f"K5 output {k} not bitwise at {what}"
+                placed = cw.fused_adjoint_step(*o, order=order, inplace=True)
+                torch.cuda.synchronize()
+                assert placed[0] is o[1] and placed[1] is o[2], "K5 not in place"
+                assert all(torch.equal(x, y) for x, y in zip(placed, ref)), \
+                    f"K5 in place not bitwise at {what}"
+                checked += 1
+                del o, ref, fresh, placed
+    launched = _counts_all()
+    assert launched == {"fused_adjoint_step": 2 * checked + 1}, launched
+    lib = kernels.load_library("wave")
+    st_ = torch.cuda.current_stream().cuda_stream
+    timed = []
+    for shape, order in ((Q_WINDOW, 8), ((256, 256, 256), 2)):
+        o = _adjoint_operands(shape, torch.int8, dev, gen)
+        outs = [torch.empty_like(o[0]) for _ in range(2)]
+        args = ([t.data_ptr() for t in o + outs] + list(shape)
+                + [order, cw._STORE_CODE[torch.int8], st_])
+        moved = nbytes(*o[:5], *outs, *o[6:])
+        timed.append({
+            "name": "fused_adjoint_step" + ("_window" if shape == Q_WINDOW else ""),
+            "shape": list(shape), "order": order, "route": "cuda",
+            "source": "jets_tpu_torch/csrc/wave_kernels.cu",
+            "replaces": "jets_tpu/ops/pallas_wave.py:1203", "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: lib.jt_adjoint_step(*args), 50),
+            "wrapper_ms": cuda_ms(lambda: cw.fused_adjoint_step(*o, order=order), 20),
+            "plain_ms": cuda_ms(lambda: cw.fused_adjoint_step_torch(*o, order=order), 3),
+            "bound_ms": 1e3 * moved / HBM_BYTES_PER_S, "bound_by": "bytes",
+            "library_ms": None})
+        for k, (x, y) in enumerate(zip(outs, cw.fused_adjoint_step_torch(*o, order=order))):
+            same(x, y, f"K5 timed output {k} at {shape}")
+        del o, outs
+    log(73, f"K5 bitwise its plain twin, fresh and in place, at {checked} cases "
+            f"({shapes_text(ADJ_SHAPES)}; orders 2/4/8; history int8/bf16/f32; the window "
+            f"with the iso cell's free-surface sponge of 20 cells), and in place at "
+            f"{shapes_text((ADJ_BIG,))} (order 8, int8, 64-bit indices; its last plane's far "
+            f"100 x 100 corner; peak {big_gib:.1f} GiB); launches {launched}; int8 "
+            "history, us per call (CUDA events, through the C entry point): "
+            + ", ".join(f"{'x'.join(map(str, r['shape']))} order {r['order']} "
+                        f"{1e3 * r['ms']:.1f} (through the wrapper {1e3 * r['wrapper_ms']:.1f},"
+                        f" plain twin {1e3 * r['plain_ms']:.1f}, bound "
+                        f"{1e3 * r['bound_ms']:.1f}, {r['bound_ms'] / r['ms']:.1%} of it)"
+                        for r in timed)
+            + f"; phase 73 in {time.perf_counter() - t_ph:.1f} s [{smi}]")
     return launched, timed[:1]
 
 
@@ -4936,6 +5068,9 @@ def main() -> int:
     k15_counts, k15_rows = q_adjoint(smi)
     for k, n in k15_counts.items():
         main_path[k] += n
+    k5_counts, k5_rows = adjoint_march(smi)
+    for k, n in k5_counts.items():
+        main_path[k] += n
     sources = {"solver": "jets_tpu_torch/csrc/solver_kernels.cu",
                "wave": "jets_tpu_torch/csrc/wave_kernels.cu",
                "vti": "jets_tpu_torch/csrc/vti_kernels.cu",
@@ -4968,6 +5103,7 @@ def main() -> int:
                      "plain_ms": kt[k][1], "bound_ms": bms, "bound_by": by,
                      "library_ms": lib_ms.get(k)})
     rows += [{**r, "launches": main_path[r["name"]]} for r in pair_rows + k15_rows]
+    rows += [{**r, "launches": main_path["fused_adjoint_step"]} for r in k5_rows]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) kernels of the isotropic acoustic wave path: the forward
-// leapfrog step (K4), the stored-wavefield adjoint step (K5), the Kosloff
-// constant-Q (visco-acoustic) step (K14), the batched 2-D pair K4-2D and
-// K5-2D (the same two steps over a (B, H, W) batch of 2-D shots), and the
-// reverse constant-Q step of the stored-history (c, Q) adjoint (K15, a
-// z-marching kernel). Design notes of the last three at their definitions.
+// leapfrog step (K4), the stored-wavefield adjoint step (K5, a z-marching
+// kernel), the Kosloff constant-Q (visco-acoustic) step (K14), the batched
+// 2-D pair K4-2D and K5-2D (the same two steps over a (B, H, W) batch of 2-D
+// shots), and the reverse constant-Q step of the stored-history (c, Q)
+// adjoint (K15, z-marching too). Design notes of K5 and the last three at
+// their definitions.
 //
 // Built by jets_tpu_torch/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -26,14 +27,17 @@
 // kernels are then bitwise equal to their plain versions in
 // jets_tpu_torch/ops/cuda_wave.py on the same card.
 //
-// Bound: device memory. Both kernels do tens of flops per point against
-// 16-25 bytes moved, far below the card's balance point. Each thread
-// computes one grid point; threads of a warp run along x (the contiguous
-// axis) so every load coalesces, and the stencil's neighbour reads are
-// served by L1 and the 50 MB L2 (a 256x256 f32 plane is 256 KB), which is
-// the Hopper counterpart of the Pallas kernels' double-buffered VMEM slab
-// ring with z halos. Staging z-slabs in shared memory with TMA is later
-// work. Flat indices are int64, so any grid the launch limits admit works.
+// Bound: device memory. Every kernel here does tens of flops per point
+// against 16-45 bytes moved, far below the card's balance point. K4 and K14
+// compute one grid point a thread; threads of a warp run along x (the
+// contiguous axis) so every load coalesces, and the stencil's neighbour reads
+// are served by L1 and the 50 MB L2; the 2-D pair stages a tile in shared
+// memory (note at its definition). K5 and K15 march along z instead: a
+// register ring of planes for the z taps and the plane with its cross halo
+// in shared memory, each staged value computed once and every load issued a
+// plane ahead (the Hopper counterpart of the Pallas kernels' double-buffered
+// VMEM slab ring with z halos). Flat indices are int64, so any grid the
+// launch limits admit works.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -106,6 +110,45 @@ __device__ __forceinline__ float lap_tree(const At& at) {
   return acc;
 }
 
+// laplacian_nd's tree at a point whose z column is the ring zr (planes
+// z-HW .. z+HW) and whose plane lies in shared memory around p (row pitch
+// PITCH): the same taps in the same order as lap_tree.
+template <int ORDER, int PITCH>
+__device__ __forceinline__ float lap_ring(const float (&zr)[2 * Stencil<ORDER>::HW + 1],
+                                          const float* p) {
+  constexpr int HW = Stencil<ORDER>::HW;
+  float acc = __fmul_rn(Stencil<ORDER>::center(), zr[HW]);
+#pragma unroll
+  for (int s = 1; s <= HW; ++s) acc = tap<ORDER>(acc, s, zr[HW - s], zr[HW + s]);
+#pragma unroll
+  for (int s = 1; s <= HW; ++s) acc = tap<ORDER>(acc, s, p[-s * PITCH], p[s * PITCH]);
+#pragma unroll
+  for (int s = 1; s <= HW; ++s) acc = tap<ORDER>(acc, s, p[-s], p[s]);
+  return acc;
+}
+
+// The cross halo of a TX x TY tile in its (TY + 2HW) x (TX + 2HW) shared
+// plane: HW rows above and below the tile, then HW columns left and right
+// of it (no corners), NH = 2HW(TX + TY) slots dealt to the block's threads
+// in turn. Slot t of thread tid (valid while tid + t*TX*TY < NH) is at row
+// hrow[t], column hcol[t] of the plane.
+template <int HW, int TX, int TY, int NHT>
+__device__ __forceinline__ void halo_slots(int tid, int (&hrow)[NHT], int (&hcol)[NHT]) {
+#pragma unroll
+  for (int t = 0; t < NHT; ++t) {
+    const int k = tid + t * TX * TY;
+    if (k < 2 * HW * TX) {
+      const int j = k / TX;
+      hrow[t] = j < HW ? j : TY + j;
+      hcol[t] = HW + k % TX;
+    } else {
+      const int k2 = k - 2 * HW * TX, j = k2 % (2 * HW);
+      hrow[t] = HW + k2 / (2 * HW);
+      hcol[t] = j < HW ? j : TX + j;
+    }
+  }
+}
+
 struct Grid {
   int64_t D, H, W;
   __device__ bool inside(int64_t z, int64_t y, int64_t x) const {
@@ -155,17 +198,60 @@ leapfrog_kernel(const float* u_prev, const float* __restrict__ u,
 // ---------------------------------------------------------------------------
 // K5  stored-wavefield adjoint step:
 //   ebar   = S*a1,  S = (sz*sy)*sx
-//   a_core = (2*ebar + L(c2dt2*ebar)) - S*a2
-//   gc2'   = gc2 + L(dec(q))*ebar,   dec(q) = float(q)*sc
+//   a_core = (2*ebar + L(w)) - S*a2,   w = c2dt2*ebar
+//   gc2'   = gc2 + L(u)*ebar,          u = dec(q) = float(q)*sc
 //
 // Replaces jets_tpu/ops/pallas_wave.py:fused_adjoint_step (_adjoint_kernel).
-// Three fields are stencilled: a1 and c2dt2 (through w = c2dt2*ebar,
-// recomputed at every tap, as the Pallas kernel does per slice) and the
-// history q, read at its stored width (f32, bf16 or int8: an int8 history
-// costs a quarter of a touch). a2 and gc2 are read only at the output
-// point, which makes writing a_core into a2's buffer and gc2' into gc2's
-// safe. About 6.25 touches per point with an int8 history. The receiver
-// injection is not part of the kernel (ops/wave.py adds it with index_add_).
+// Two values are stencilled: w, from a1 and c2dt2, and the history u, with
+// q read at its stored width (f32, bf16 or int8). a2 and gc2 are read only
+// at the output point, by the thread that writes it, which makes writing
+// a_core into a2's buffer and gc2' into gc2's safe; a1, c2dt2 and q are
+// never written. The receiver injection is not part of the kernel
+// (ops/wave.py adds it with index_add_).
+//
+// Bound: device memory. A cell moves 25 B with an int8 history (a1, a2,
+// gc2, c2dt2 and q read, a_core and gc2' written) against ~70 operations:
+// 224 us at the (187, 401, 401) window of the 3-D gradient cell, 125 us at
+// 256^3.
+//
+// Layout: z-marching, as K15. A block of 32 (x, one warp per tile row) by
+// 16 (y) threads owns a 32 x 16 tile of (y, x), one point a thread, and
+// walks kAZChunk = 64 consecutive z-planes. Each thread keeps w and u of its
+// point on the planes z-HW .. z+HW in a register ring (the z taps; HW =
+// ORDER/2). Plane z of both, with the in-plane halo of the cross (HW rows
+// above and below the tile, HW columns on each side; no corners), is staged
+// in shared memory for the y and x taps, two planes' buffers in turn, so a
+// plane needs one barrier. w and u are computed once per staged point and
+// block: the tile's points as they enter the ring (coalesced rows of a1,
+// c2dt2 and q), the halo's per plane (384 halo points to the tile's 512 at
+// order 8, mostly from L2). A thread's columns (its point and its halo
+// points) keep their plane offset, grid test and sy, sx factors in
+// registers; each plane adds one sz. Every load of plane z+1 (the ring's new
+// plane z+1+HW, the halo's a1, c2dt2 and q, and a1, a2, gc2 at the thread's
+// point, a1 mostly from cache) is issued before plane z's outputs are
+// computed, and kept as the bits read until its use, so the memory's
+// latency hides behind a plane of work. The chunk ends re-read 2*HW planes
+// into the ring. Indices are 32-bit where the whole grid's flat index fits
+// (the launcher picks the instantiation from the grid), else 64-bit.
+// Out-of-grid values are +0.0f (the zero padding); threads past the grid's
+// edge stage zeros and write nothing, and no barrier is skipped.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W; order 8, int8 history, the window
+// with the cell's 20-cell free-surface sponge, through jt_adjoint_step, CUDA
+// events over 50 calls): 0.390 ms, 57% of the bound (order 2 at 256^3:
+// 185-188 us, 67%); 64 registers (2 blocks an SM), no spills with 32-bit
+// indices (36 bytes with 64-bit ones). The one-point-a-thread layout it
+// replaced (w rebuilt at each of the 25 taps from two field and three sponge
+// loads, each history tap a global load) took 1.45 ms in the same calls
+// (1.62 ms a launch in the gradient cell's trace), 231 us at 256^3. Tried on
+// the way, each against the last kept: K15's parameters (a 32 x 8 tile,
+// 32-plane chunks, 3 blocks, an ebar ring beside w and u) 0.565 ms; tiles
+// of 32 x 4, 32 x 12, 64 x 8 and 32 x 8 with 4 blocks 0.53-0.72; 32 x 16
+// 0.487 and 32 x 32 (one block an SM) 0.474 but 209 us at order 2; chunks
+// of 16, 24 and 48 planes no faster; an L2 prefetch of the planes 2-8 ahead
+// 0.54-0.56; the per-column registers 0.456; a1 reloaded at the point in
+// place of the ebar ring 0.439; 64-plane chunks 0.429; 32-bit indices
+// 0.391. TMA loads were not tried.
 // ---------------------------------------------------------------------------
 
 template <typename Q>
@@ -179,42 +265,138 @@ __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
 template <>
 __device__ __forceinline__ float to_f32<int8_t>(int8_t v) { return (float)v; }
 
-template <int ORDER, typename Q>
-__global__ void __launch_bounds__(kBX * kBY)
+constexpr int kAX = 32;         // threads along x: one warp per tile row
+constexpr int kAY = 16;         // threads along y: the tile is kAX x kAY
+constexpr int kAZChunk = 64;    // z-planes a block walks
+constexpr int kAMinBlocks = 2;  // blocks an SM holds
+
+// A column (y, x) of the grid that a thread stages: its offset in a plane,
+// whether it lies in the grid, and its sponge factors sy[y] and sx[x] (0
+// outside), which stay the same down the column.
+template <typename I>
+struct Column {
+  I j;
+  bool in;
+  float sy, sx;
+};
+
+// I: the index type, int32_t where every flat index of the grid fits it (no
+// spills at order 8, and cheaper address arithmetic), else int64_t.
+template <int ORDER, typename Q, typename I>
+__global__ void __launch_bounds__(kAX * kAY, kAMinBlocks)
 adjoint_kernel(const float* __restrict__ a1, const float* a2, const float* gc2,
                const float* __restrict__ c2, const Q* __restrict__ q,
                const float* __restrict__ scp, const float* __restrict__ spz,
                const float* __restrict__ sy, const float* __restrict__ sx,
                float* core_out, float* gc2_out, Grid g) {
-  const int64_t ix = (int64_t)blockIdx.x * kBX + threadIdx.x;
-  const int64_t iy = (int64_t)blockIdx.y * kBY + threadIdx.y;
-  const int64_t iz = blockIdx.z;
-  if (ix >= g.W || iy >= g.H) return;
-  const int64_t HW = g.H * g.W;
-  const int64_t i = (iz * g.H + iy) * g.W + ix;
+  constexpr int HW = Stencil<ORDER>::HW;
+  constexpr int R = 2 * HW + 1;                        // ring: planes z-HW .. z+HW
+  constexpr int SY = kAY + 2 * HW, SX = kAX + 2 * HW;  // shared plane with its halo
+  constexpr int NT = kAX * kAY;
+  constexpr int NH = 2 * HW * (kAX + kAY);             // halo points of the cross
+  constexpr int NHT = (NH + NT - 1) / NT;              // of them, per thread
+  __shared__ float ws[2][SY][SX];  // w = c2dt2*(a1*S), even and odd planes z
+  __shared__ float us[2][SY][SX];  // u = q*sc
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * kAX + tx;
+  const I D = (I)g.D, H = (I)g.H, W = (I)g.W, plane = H * W;
+  const I x = (I)blockIdx.x * kAX + tx, y = (I)blockIdx.y * kAY + ty;
+  const I z0 = (I)blockIdx.z * kAZChunk;
+  const I z1 = z0 + kAZChunk < D ? z0 + kAZChunk : D;
   const float sc = *scp;
-  auto sponge = [&](int64_t z, int64_t y, int64_t x) -> float {
-    return __fmul_rn(__fmul_rn(__ldg(spz + z), __ldg(sy + y)), __ldg(sx + x));
+  auto column = [&](I yy, I xx) -> Column<I> {
+    const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W;
+    return {in ? yy * W + xx : 0, in, in ? __ldg(sy + yy) : 0.0f, in ? __ldg(sx + xx) : 0.0f};
   };
-  auto w_at = [&](int dz, int dy, int dx) -> float {
-    if (!g.inside(iz + dz, iy + dy, ix + dx)) return 0.0f;
-    const int64_t j = i + dz * HW + dy * g.W + dx;
-    const float ebar = __fmul_rn(__ldg(a1 + j), sponge(iz + dz, iy + dy, ix + dx));
-    return __fmul_rn(__ldg(c2 + j), ebar);
+  const Column<I> pc = column(y, x);  // this thread's point
+  // this thread's halo points of the cross, the same in every plane
+  int hrow[NHT], hcol[NHT];
+  halo_slots<HW, kAX, kAY>(tid, hrow, hcol);
+  Column<I> hc[NHT];
+#pragma unroll
+  for (int t = 0; t < NHT; ++t) {
+    hc[t] = tid + t * NT < NH ? column(y - ty + hrow[t] - HW, x - tx + hcol[t] - HW)
+                              : Column<I>{0, false, 0.0f, 0.0f};
+  }
+  auto in_z = [&](I z) { return z >= 0 && z < D; };
+  auto sz_of = [&](I z) { return in_z(z) ? __ldg(spz + z) : 0.0f; };
+  // (a1, c2dt2) and q at column c of plane z, as loaded
+  auto w_bits = [&](I z, const Column<I>& c) -> float2 {
+    if (!c.in || !in_z(z)) return make_float2(0.0f, 0.0f);
+    const I j = z * plane + c.j;
+    return make_float2(__ldg(a1 + j), __ldg(c2 + j));
   };
-  auto u_at = [&](int dz, int dy, int dx) -> float {
-    if (!g.inside(iz + dz, iy + dy, ix + dx)) return 0.0f;
-    return __fmul_rn(to_f32<Q>(__ldg(q + i + dz * HW + dy * g.W + dx)), sc);
+  auto q_bits = [&](I z, const Column<I>& c) -> Q {
+    return c.in && in_z(z) ? __ldg(q + z * plane + c.j) : Q();
   };
-  const float lap_w = lap_tree<ORDER>(w_at);
-  const float lap_u = lap_tree<ORDER>(u_at);
-  const float s = sponge(iz, iy, ix);
-  const float ebar = __fmul_rn(a1[i], s);
-  const float ebar_next = __fmul_rn(a2[i], s);
-  const float g_new = __fadd_rn(gc2[i], __fmul_rn(lap_u, ebar));
-  const float core = __fsub_rn(__fadd_rn(__fmul_rn(2.0f, ebar), lap_w), ebar_next);
-  gc2_out[i] = g_new;
-  core_out[i] = core;
+  // ebar = a1*S and u = q*sc from the bits, sz the plane's sponge factor
+  auto ebar_of = [&](I z, float sz, const Column<I>& c, float2 b) -> float {
+    return c.in && in_z(z) ? __fmul_rn(b.x, __fmul_rn(__fmul_rn(sz, c.sy), c.sx)) : 0.0f;
+  };
+  auto u_of = [&](I z, const Column<I>& c, Q b) -> float {
+    return c.in && in_z(z) ? __fmul_rn(to_f32<Q>(b), sc) : 0.0f;
+  };
+  // the bits plane z's step reads: the ring's new plane z+HW, the halo and
+  // this thread's point
+  float2 rw, hwb[NHT];
+  Q rq, hq[NHT];
+  float pa1, pa2, pgc2;
+  auto load_plane = [&](I z) {
+    rw = w_bits(z + HW, pc);
+    rq = q_bits(z + HW, pc);
+    const I i = z * plane + pc.j;
+    pa1 = pc.in ? __ldg(a1 + i) : 0.0f;
+    pa2 = pc.in ? a2[i] : 0.0f;
+    pgc2 = pc.in ? gc2[i] : 0.0f;
+#pragma unroll
+    for (int t = 0; t < NHT; ++t) {
+      hwb[t] = w_bits(z, hc[t]);
+      hq[t] = q_bits(z, hc[t]);
+    }
+  };
+  float wr[R], ur[R];
+#pragma unroll
+  for (int k = 0; k < R - 1; ++k) {
+    const I zk = z0 - HW + k;
+    const float2 bk = w_bits(zk, pc);
+    wr[k] = __fmul_rn(bk.y, ebar_of(zk, sz_of(zk), pc, bk));
+    ur[k] = u_of(zk, pc, q_bits(zk, pc));
+  }
+  load_plane(z0);
+  for (I z = z0; z < z1; ++z) {
+    const int b = (int)(z & 1);
+    const float sz = sz_of(z);
+    wr[R - 1] = __fmul_rn(rw.y, ebar_of(z + HW, sz_of(z + HW), pc, rw));
+    ur[R - 1] = u_of(z + HW, pc, rq);
+    ws[b][ty + HW][tx + HW] = wr[HW];
+    us[b][ty + HW][tx + HW] = ur[HW];
+#pragma unroll
+    for (int t = 0; t < NHT; ++t) {
+      if (tid + t * NT < NH) {
+        ws[b][hrow[t]][hcol[t]] = __fmul_rn(hwb[t].y, ebar_of(z, sz, hc[t], hwb[t]));
+        us[b][hrow[t]][hcol[t]] = u_of(z, hc[t], hq[t]);
+      }
+    }
+    // plane z is staged; the buffer written next (plane z+1) was last read
+    // at plane z-1, before this barrier
+    __syncthreads();
+    const float ca1 = pa1, ca2 = pa2, cgc2 = pgc2;
+    if (z + 1 < z1) load_plane(z + 1);  // in flight while plane z is computed
+    if (pc.in) {
+      const float lap_w = lap_ring<ORDER, SX>(wr, &ws[b][ty + HW][tx + HW]);
+      const float lap_u = lap_ring<ORDER, SX>(ur, &us[b][ty + HW][tx + HW]);
+      const I i = z * plane + pc.j;
+      const float s = __fmul_rn(__fmul_rn(sz, pc.sy), pc.sx);
+      const float ebar = __fmul_rn(ca1, s);
+      const float ebar_next = __fmul_rn(ca2, s);
+      gc2_out[i] = __fadd_rn(cgc2, __fmul_rn(lap_u, ebar));
+      core_out[i] = __fsub_rn(__fadd_rn(__fmul_rn(2.0f, ebar), lap_w), ebar_next);
+    }
+#pragma unroll
+    for (int k = 0; k < R - 1; ++k) {
+      wr[k] = wr[k + 1];
+      ur[k] = ur[k + 1];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -447,9 +629,10 @@ adjoint2d_kernel(const float* __restrict__ a1, int64_t sb_a1, const float* a2,
 // Bound: device memory. A cell moves 45 B: a1, a2, C, g, gC, gig, gog read
 // (f32) with the int8 snapshot, core, gC', gig', gog' written; about 130
 // operations, far below the card's balance point. 404 us at the (187, 401,
-// 401) window. K5's layout (one point a thread, each tap re-read through
-// the caches and w rebuilt per tap) reaches 14% of its bound at order 8 and
-// would pay a division per tap here, so K15 stages instead:
+// 401) window. The one-point-a-thread layout K5 had before it marched too
+// (each tap re-read through the caches and w rebuilt per tap) reached 14% of
+// its bound at order 8 and would pay a division per tap here, so K15 stages
+// instead:
 //
 // Layout: z-marching (K11-K13's pattern, with a register ring). A block of
 // 32 (x, one warp per row) by 8 (y) threads owns a 32 x 8 tile of (y, x),
@@ -483,23 +666,6 @@ constexpr int kQX = 32;         // threads along x: one warp per tile row
 constexpr int kQY = 8;          // threads along y: the tile is 32 x 8
 constexpr int kQZChunk = 32;    // z-planes a block walks
 constexpr int kQMinBlocks = 3;  // blocks an SM holds: at most 80 registers
-
-// laplacian_nd's tree at a point whose z column is the ring zr (planes
-// z-HW .. z+HW) and whose plane lies in shared memory around p (row pitch
-// PITCH): the same taps in the same order as lap_tree.
-template <int ORDER, int PITCH>
-__device__ __forceinline__ float lap_ring(const float (&zr)[2 * Stencil<ORDER>::HW + 1],
-                                          const float* p) {
-  constexpr int HW = Stencil<ORDER>::HW;
-  float acc = __fmul_rn(Stencil<ORDER>::center(), zr[HW]);
-#pragma unroll
-  for (int s = 1; s <= HW; ++s) acc = tap<ORDER>(acc, s, zr[HW - s], zr[HW + s]);
-#pragma unroll
-  for (int s = 1; s <= HW; ++s) acc = tap<ORDER>(acc, s, p[-s * PITCH], p[s * PITCH]);
-#pragma unroll
-  for (int s = 1; s <= HW; ++s) acc = tap<ORDER>(acc, s, p[-s], p[s]);
-  return acc;
-}
 
 // What K15 reads of a1, C and g at one point to form w there: the bits as
 // loaded (g unconverted), so that a load waits on nothing until its use.
@@ -552,19 +718,7 @@ q_adjoint_kernel(const float* __restrict__ a1, const float* a2, const float* gC,
   // this thread's halo points of the cross, the same in every plane: the
   // strips above and below the tile, then those left and right of it
   int hrow[NHT], hcol[NHT];
-#pragma unroll
-  for (int t = 0; t < NHT; ++t) {
-    const int k = tid + t * NT;
-    if (k < 2 * HW * kQX) {
-      const int j = k / kQX;
-      hrow[t] = j < HW ? j : kQY + j;
-      hcol[t] = HW + k % kQX;
-    } else {
-      const int k2 = k - 2 * HW * kQX, j = k2 % (2 * HW);
-      hrow[t] = HW + k2 / (2 * HW);
-      hcol[t] = j < HW ? j : kQX + j;
-    }
-  }
+  halo_slots<HW, kQX, kQY>(tid, hrow, hcol);
   auto mine = [&](int t) { return tid + t * NT < NH; };
   auto hy = [&](int t) { return y - ty + hrow[t] - HW; };
   auto hx = [&](int t) { return x - tx + hcol[t] - HW; };
@@ -687,33 +841,46 @@ inline dim3 grid_of(const Grid& g) {
   return dim3((unsigned)cdiv(g.W, kBX), (unsigned)cdiv(g.H, kBY), (unsigned)g.D);
 }
 
+template <int ORDER, typename Q>
+int launch_adjoint_at(const void* a1, const void* a2, const void* gc2, const void* c2,
+                      const void* q, const void* sc, const void* spz, const void* sy,
+                      const void* sx, void* core_out, void* gc2_out, Grid g,
+                      cudaStream_t st) {
+  const dim3 grid((unsigned)cdiv(g.W, kAX), (unsigned)cdiv(g.H, kAY),
+                  (unsigned)cdiv(g.D, kAZChunk));
+  const dim3 block(kAX, kAY);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const Q* qq = static_cast<const Q*>(q);
+  float* co = static_cast<float*>(core_out);
+  float* go = static_cast<float*>(gc2_out);
+  if (g.D * g.H * g.W <= INT32_MAX) {
+    adjoint_kernel<ORDER, Q, int32_t><<<grid, block, 0, st>>>(
+        f(a1), f(a2), f(gc2), f(c2), qq, f(sc), f(spz), f(sy), f(sx), co, go, g);
+  } else {
+    adjoint_kernel<ORDER, Q, int64_t><<<grid, block, 0, st>>>(
+        f(a1), f(a2), f(gc2), f(c2), qq, f(sc), f(spz), f(sy), f(sx), co, go, g);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename Q>
 int launch_adjoint(int order, const void* a1, const void* a2, const void* gc2,
                    const void* c2, const void* q, const void* sc,
                    const void* spz, const void* sy, const void* sx,
                    void* core_out, void* gc2_out, Grid g, cudaStream_t st) {
-  const dim3 grid = grid_of(g), block(kBX, kBY);
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  const Q* qq = static_cast<const Q*>(q);
-  float* co = static_cast<float*>(core_out);
-  float* go = static_cast<float*>(gc2_out);
   switch (order) {
     case 2:
-      adjoint_kernel<2, Q><<<grid, block, 0, st>>>(f(a1), f(a2), f(gc2), f(c2), qq,
-                                                   f(sc), f(spz), f(sy), f(sx), co, go, g);
-      break;
+      return launch_adjoint_at<2, Q>(a1, a2, gc2, c2, q, sc, spz, sy, sx, core_out,
+                                     gc2_out, g, st);
     case 4:
-      adjoint_kernel<4, Q><<<grid, block, 0, st>>>(f(a1), f(a2), f(gc2), f(c2), qq,
-                                                   f(sc), f(spz), f(sy), f(sx), co, go, g);
-      break;
+      return launch_adjoint_at<4, Q>(a1, a2, gc2, c2, q, sc, spz, sy, sx, core_out,
+                                     gc2_out, g, st);
     case 8:
-      adjoint_kernel<8, Q><<<grid, block, 0, st>>>(f(a1), f(a2), f(gc2), f(c2), qq,
-                                                   f(sc), f(spz), f(sy), f(sx), co, go, g);
-      break;
+      return launch_adjoint_at<8, Q>(a1, a2, gc2, c2, q, sc, spz, sy, sx, core_out,
+                                     gc2_out, g, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 template <typename G>
